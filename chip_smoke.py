@@ -3,41 +3,59 @@
 
     python3 chip_smoke.py
 
-Phases, one or more lines each:
+Phases, one or more lines each, each ending with its seconds:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
      and the build of every kernel from ``src/repro_torch/csrc`` (nvcc runs at
      first use; ptxas register and spill lines are printed);
   2. each CUDA kernel against its plain PyTorch version on the card, at the
-     shapes of HPCG 104^3: ``scs_spmv`` on the finest level's tiled plan and on
-     the resident plan of 52^3, ``dia_spmv`` on the finest level,
+     shapes of the HPCG 104^3 path: ``scs_spmv`` on the finest level's tiled
+     plan and on the resident plan of 52^3, ``dia_spmv`` on the finest level,
      ``dia_spmv_tiled`` on the finest level under ``max_resident_cols=1<<18``,
-     and the masked DIA wrapper against ``where(mask, A @ x, 0)`` (exact).
-     Each line gives the median kernel time (CUDA events), the plain
-     version's time, a cuSPARSE CSR SpMV as a yardstick (never called by the
-     port), and the byte bound at 3.35 TB/s;
+     the masked DIA wrapper against ``where(mask, A @ x, 0)`` (exact),
+     ``ell_spmv`` on 52^3, the masked ELL wrapper (exact), ``ell_spmv_tiled``
+     on the finest level's ``"ell-cols"`` plan, ``coo_spmv`` on 13^3 and
+     ``scoo_spmv_tiled`` on the finest level's ``"coo-cols"`` plan. Each line
+     gives the median kernel time (CUDA events around one call, which also
+     catch the wrapper's host time), the kernel's device time alone
+     (``torch.profiler``), the plain version's time, a cuSPARSE CSR SpMV on
+     the same matrix as a yardstick (never called by the port), the bound
+     from the run's own arrays at 3.35 TB/s, and whether two launches gave
+     equal bits;
   3. HPCG 16^3 on the card: ``valid`` and ``bitwise``;
   4. the main path, ``run_hpcg(104, 104, 104, iters=50, depth=4, reps=3)``
-     over csr/sell/dia x plain/cuda, with the launch counters and the
-     health registry reset just before it and read just after. It requires
-     ``bitwise``, ``rel_err < 1e-3``, no failure or non-finite output on any
-     ``*/cuda`` key, every cuda candidate timed, and ``scs_spmv`` and
-     ``dia_spmv`` launched;
-  5. the path that takes the tiled kernels, counted on its own the same
+     racing coo/csr/dia/ell/sell x plain/cuda, with the launch counters and
+     the health registry reset just before it and read just after. It
+     requires ``bitwise``, ``rel_err < 1e-3``, no failure or non-finite
+     output on any key, every cuda candidate timed in the main race, no race
+     that lists an error, and ``scs_spmv``, ``dia_spmv``, ``ell_spmv``,
+     ``ell_spmv_tiled``, ``coo_spmv`` and ``scoo_spmv_tiled`` launched. Every
+     race (the main one and each level's) is printed with its skips;
+  5. the path that takes the tiled DIA kernel, counted on its own the same
      way: a column-limited operator (``max_resident_cols=1<<18``) tuned over
      the cuda kernels and solved with CG, which must agree with csr/plain CG
-     and launch ``dia_spmv_tiled``.
+     and launch ``dia_spmv_tiled``;
+  6. the run-first tuner on unstructured matrices of 10^6 rows (banded,
+     uniform random, power law), each raced through
+     ``as_operator(s, device="cuda").tune(...)`` over the same ten keys:
+     ``coo/cuda`` must be listed ``unsupported`` (more than 8192 rows, no
+     plan), the tuned ``A @ x`` must agree with csr/plain, and a cuda
+     winner's kernel must launch for it;
+  7. Matrix Market input: every ``tests/fixtures/corpus/*.mtx`` through
+     ``repro_torch.io.iter_corpus``, the same race, and ``A @ x`` against
+     scipy's ``s @ x``; ``coo_spmv`` must launch on this path.
 
 The line before last is a JSON object with each kernel's numbers
-(``launches`` is the count on the path that requires the kernel; both
-paths' counts are given as ``launches_hpcg`` and ``launches_tiled_cg``); the last
-line is ``{"ok": true, "device": {...}}``. Any failed check raises and the
-script exits non-zero. It needs ``torch.cuda.is_available()`` and the
-repository's ``src/`` beside it. Full numbers also go to
+(``launches`` is the count on the path that requires the kernel;
+``launches_<path>`` gives every path's count); the last line is
+``{"ok": true, "device": {...}}``. Any failed check raises and the script
+exits non-zero. It needs ``torch.cuda.is_available()`` and the repository's
+``src/`` and ``tests/fixtures/corpus`` beside it. Full numbers also go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -45,6 +63,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CORPUS = os.path.join(ROOT, "tests", "fixtures", "corpus")
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32 outside the
 #: tensor cores — the roofline of a CUDA-core f32 SpMV.
@@ -60,7 +79,35 @@ KERNEL_SOURCES = {
     "scs_spmv": ("src/repro_torch/csrc/sell_spmv.cu", "src/repro/kernels/sell_spmv.py:64"),
     "dia_spmv": ("src/repro_torch/csrc/dia_spmv.cu", "src/repro/kernels/dia_spmv.py:58"),
     "dia_spmv_tiled": ("src/repro_torch/csrc/dia_spmv.cu", "src/repro/kernels/dia_spmv.py:135"),
+    "ell_spmv": ("src/repro_torch/csrc/ell_spmv.cu", "src/repro/kernels/ell_spmv.py:43"),
+    "ell_spmv_tiled": ("src/repro_torch/csrc/ell_spmv.cu", "src/repro/kernels/ell_spmv.py:92"),
+    "coo_spmv": ("src/repro_torch/csrc/coo_spmv.cu", "src/repro/kernels/coo_spmv.py:85"),
+    "scoo_spmv_tiled": ("src/repro_torch/csrc/coo_spmv.cu",
+                        "src/repro/kernels/coo_spmv.py:200"),
 }
+
+#: The kernels each format's cuda entry may launch.
+FORMAT_KERNELS = {"csr": ("scs_spmv",), "sell": ("scs_spmv",),
+                  "dia": ("dia_spmv", "dia_spmv_tiled"),
+                  "ell": ("ell_spmv", "ell_spmv_tiled"),
+                  "coo": ("coo_spmv", "scoo_spmv_tiled")}
+
+#: The reference's DEFAULT_CANDIDATES without dense (n^2 at 104^3) and bsr
+#: (no cuda kernel yet).
+CANDIDATES = [(fmt, impl) for fmt in ("coo", "csr", "dia", "ell", "sell")
+              for impl in ("plain", "cuda")]
+
+#: The path on which each kernel must launch: the HPCG run (phase 4) or the
+#: column-limited CG (phase 5).
+REQUIRED_ON = {"scs_spmv": "hpcg", "dia_spmv": "hpcg", "dia_spmv_tiled": "tiled_cg",
+               "ell_spmv": "hpcg", "ell_spmv_tiled": "hpcg", "coo_spmv": "hpcg",
+               "scoo_spmv_tiled": "hpcg"}
+
+#: The unstructured matrices of the tuner phase (10^6 rows: x fits whole,
+#: so every format takes its resident strategy).
+TUNER_MATRICES = (("banded(10**6, 4)", "banded", (10 ** 6, 4)),
+                  ("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),
+                  ("powerlaw(10**6, 8)", "powerlaw", (10 ** 6, 8)))
 
 
 def phase(label: str, **kv) -> dict:
@@ -92,6 +139,26 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Device time of one ``fn()`` in ms spent in kernels whose name holds
+    ``kernel``, from ``torch.profiler`` over ``reps`` calls: the kernel
+    alone, without the wrapper's host time that CUDA events around a small
+    call also catch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if e.device_type != DeviceType.CPU and kernel in e.key)
+    return us / reps / 1e3
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -102,17 +169,18 @@ def bound(nbytes_moved: int, flops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name, y, y_plain, rtol=2e-4):
-    """f32 tolerance of the conformance grid: rtol 2e-4 with an atol scaled
-    to ||y||_inf (sums of ~27 products reassociated)."""
+def within(what: str, y, want, rtol=2e-4) -> float:
+    """Max abs error of ``y`` against ``want``, which it must meet at the
+    conformance grid's f32 tolerance: rtol 2e-4 with an atol scaled to
+    ||want||_inf (sums of a row's products reassociated)."""
     import torch
 
-    y, y_plain = y.float(), y_plain.float()
-    check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
-    err = (y - y_plain).abs()
-    atol = rtol * float(y_plain.abs().max())
-    ok = bool((err <= atol + rtol * y_plain.abs()).all())
-    check(ok, f"{name}: kernel disagrees with its plain version (max err {float(err.max())})")
+    y, want = y.double().cpu(), want.double().cpu()
+    check(bool(torch.isfinite(y).all()), f"{what}: non-finite output")
+    err = (y - want).abs()
+    atol = rtol * float(want.abs().max())
+    check(bool((err <= atol + rtol * want.abs()).all()),
+          f"{what}: disagreement beyond rtol {rtol} (max err {float(err.max())})")
     return float(err.max())
 
 
@@ -123,12 +191,16 @@ def phase_kernels(results: dict) -> dict:
     import torch
 
     from repro_torch.core import ExecutionPolicy, matrices as M
-    from repro_torch.core.convert import to_csr, to_dia
+    from repro_torch.core.convert import to_coo, to_csr, to_dia, to_ell
     from repro_torch.kernels import ops
+    from repro_torch.kernels._launch import segment_starts
+    from repro_torch.kernels.coo_spmv import (coo_spmv, coo_spmv_plain, scoo_spmv_tiled,
+                                              scoo_spmv_tiled_plain)
     from repro_torch.kernels.dia_spmv import (dia_spmv, dia_spmv_plain, dia_spmv_tiled,
                                               dia_spmv_tiled_plain)
-    from repro_torch.kernels.sell_spmv import (scs_spmv_from_plan, scs_spmv_plain,
-                                               window_runs)
+    from repro_torch.kernels.ell_spmv import (ell_spmv, ell_spmv_plain, ell_spmv_tiled,
+                                              ell_spmv_tiled_plain)
+    from repro_torch.kernels.sell_spmv import scs_spmv_from_plan, scs_spmv_plain
 
     dev = torch.device("cuda")
     out = {}
@@ -140,121 +212,250 @@ def phase_kernels(results: dict) -> dict:
                                     size=s.shape).to(dev)
         return cuda_ms(lambda: A @ x, reps=20)
 
+    def vec(n):
+        return torch.from_numpy(np.random.default_rng(0).standard_normal(n)
+                                .astype(np.float32)).to(dev)
+
+    def measure(name, label, s, x, fn, plain, moved, kernel, plain_reps=5, exact=False,
+                **extra):
+        """Kernel against plain (exactly when ``exact``), two launches
+        bit-equal, then the times; ``moved`` is the bytes the function must
+        move for this input, ``kernel`` the CUDA kernel's name."""
+        y, y_plain = fn(), plain()
+        err = within(f"{label} against its plain version", y, y_plain)
+        same = bool(torch.equal(y, y_plain))
+        if exact:
+            check(same, f"{label}: kernel differs from its plain version")
+        check(bool(torch.equal(y, fn())), f"{label}: two launches differ")
+        b_ms, b_by = bound(moved, 2 * s.nnz)
+        rec = dict(extra, exact=same, repeat_equal=True, max_abs_err=err,
+                   ms=cuda_ms(fn, 50), kernel_ms=kernel_ms(fn, kernel),
+                   plain_ms=cuda_ms(plain, plain_reps),
+                   library_ms=library_ms(s, x), bytes=moved, bound_ms=b_ms, bound_by=b_by)
+        results[name] = phase(f"kernel {label}", **rec)
+        return rec
+
+    mats = {g: M.fdm27(g, g, g) for g in (GRID, GRID // 2, GRID // 8)}
     for g, label in ((GRID, "finest"), (GRID // 2, "coarse")):
-        s = M.fdm27(g, g, g)
+        s = mats[g]
         n = s.shape[0]
-        x = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(np.float32)).to(dev)
+        x = vec(n)
         A = to_csr(s, device=dev)
         plan = A.plan
         btile, bwin, lsl, idx2, dat2, perm = plan.arrays
         ct, ntiles, C, sw, jb, nwin = plan.meta
-        run_start = window_runs(bwin, nwin)
-        y = scs_spmv_from_plan(plan, x, nrows=n)
-        y_plain = scs_spmv_plain(*plan.arrays, x, nrows=n, col_tile=ct, ntiles=ntiles,
-                                 C=C, sw=sw, jb=jb, nwin=nwin)
-        err = compare(f"scs_spmv {g}^3", y, y_plain)
-        y2 = scs_spmv_from_plan(plan, x, nrows=n)
-        check(bool(torch.equal(y, y2)), f"scs_spmv {g}^3: two launches differ")
-        moved = nbytes(btile, lsl, idx2, dat2, perm, run_start, x) + n * 4
-        b_ms, b_by = bound(moved, 2 * s.nnz)
-        rec = dict(
+        run_start = segment_starts(bwin, nwin)
+        rec = measure(
+            f"scs_spmv_{label}", f"scs_spmv {label} {g}^3", s, x,
+            lambda: scs_spmv_from_plan(plan, x, nrows=n),
+            lambda: scs_spmv_plain(*plan.arrays, x, nrows=n, col_tile=ct, ntiles=ntiles,
+                                   C=C, sw=sw, jb=jb, nwin=nwin),
+            nbytes(btile, lsl, idx2, dat2, perm, run_start, x) + n * 4, "scs_kernel",
             grid=g, strategy=ops.cuda_strategy(A, ExecutionPolicy()), ntiles=ntiles,
-            blocks=int(btile.shape[0]), index_dtype=str(idx2.dtype),
-            max_abs_err=err, ms=cuda_ms(lambda: scs_spmv_from_plan(plan, x, nrows=n), 50),
-            plain_ms=cuda_ms(lambda: scs_spmv_plain(*plan.arrays, x, nrows=n, col_tile=ct,
-                                                    ntiles=ntiles, C=C, sw=sw, jb=jb,
-                                                    nwin=nwin), 5),
-            library_ms=library_ms(s, x), bytes=moved, bound_ms=b_ms, bound_by=b_by)
-        results[f"scs_spmv_{label}"] = phase(f"kernel scs_spmv {label} {g}^3", **rec)
+            blocks=int(btile.shape[0]), index_dtype=str(idx2.dtype))
         if label == "finest":
             out["scs_spmv"] = rec
+        del A, plan, btile, bwin, lsl, idx2, dat2, perm, run_start
 
-        if label != "finest":
-            continue
-        # resident DIA on the finest level
-        D = to_dia(s, device=dev)
-        y = dia_spmv(D.offsets, D.data, x)
-        y_plain = dia_spmv_plain(D.offsets, D.data, x)
-        err = compare(f"dia_spmv {g}^3", y, y_plain)
-        moved = nbytes(D.offsets, D.data, x) + n * 4
-        b_ms, b_by = bound(moved, 2 * s.nnz)
-        rec = dict(grid=g, strategy=ops.cuda_strategy(D, ExecutionPolicy()),
-                   exact=bool(torch.equal(y, y_plain)), max_abs_err=err,
-                   ms=cuda_ms(lambda: dia_spmv(D.offsets, D.data, x), 50),
-                   plain_ms=cuda_ms(lambda: dia_spmv_plain(D.offsets, D.data, x), 5),
-                   library_ms=library_ms(s, x), bytes=moved, bound_ms=b_ms, bound_by=b_by)
-        results["dia_spmv"] = phase(f"kernel dia_spmv {g}^3", **rec)
-        out["dia_spmv"] = rec
+    # resident DIA, the masked DIA wrapper and the tiled DIA, on the finest level
+    s = mats[GRID]
+    n = s.shape[0]
+    x = vec(n)
+    pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False)
+    D = to_dia(s, device=dev)
+    out["dia_spmv"] = measure(
+        "dia_spmv", f"dia_spmv {GRID}^3", s, x,
+        lambda: dia_spmv(D.offsets, D.data, x), lambda: dia_spmv_plain(D.offsets, D.data, x),
+        nbytes(D.offsets, D.data, x) + n * 4, "dia_resident_kernel", exact=True,
+        grid=GRID, strategy=ops.cuda_strategy(D, ExecutionPolicy()))
+    mask = torch.from_numpy((np.arange(n) % 8) == 3).to(dev)
+    ym = ops.dia_masked_spmv_cuda(D, x, mask, pol)
+    want = torch.where(mask, ops.dia_spmv_cuda(D, x, pol), torch.zeros((), device=dev))
+    check(bool(torch.equal(ym, want)), "masked DIA != where(mask, A @ x, 0)")
+    results["dia_masked"] = phase(
+        f"kernel dia_masked {GRID}^3", exact=True,
+        ms=cuda_ms(lambda: ops.dia_masked_spmv_cuda(D, x, mask, pol), 50))
+    del D
 
-        # the masked wrapper (one SymGS color) against where(mask, A @ x, 0)
-        mask = torch.from_numpy((np.arange(n) % 8) == 3).to(dev)
-        pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False)
-        ym = ops.dia_masked_spmv_cuda(D, x, mask, pol)
-        want = torch.where(mask, ops.dia_spmv_cuda(D, x, pol), torch.zeros((), device=dev))
-        check(bool(torch.equal(ym, want)), "masked DIA != where(mask, A @ x, 0)")
-        results["dia_masked"] = phase(
-            f"kernel dia_masked {g}^3", exact=True,
-            ms=cuda_ms(lambda: ops.dia_masked_spmv_cuda(D, x, mask, pol), 50))
+    tpol = ExecutionPolicy(max_resident_cols=COLUMN_LIMIT)
+    DT = to_dia(s, col_tile=tpol.col_tile(n), device=dev)
+    check(ops.cuda_strategy(DT, tpol) == "tiled", "dia under the column limit is not tiled")
+    offs_t, dat_w = DT.plan.arrays
+    ct_d = DT.plan.ct
+    rng = (int(offs_t.min()), int(offs_t.max()))
+    out["dia_spmv_tiled"] = measure(
+        "dia_spmv_tiled", f"dia_spmv_tiled {GRID}^3", s, x,
+        lambda: dia_spmv_tiled(offs_t, dat_w, x, nrows=n, col_tile=ct_d, offset_range=rng),
+        lambda: dia_spmv_tiled_plain(offs_t, dat_w, x, nrows=n, col_tile=ct_d),
+        nbytes(offs_t, dat_w, x) + n * 4, "dia_tiled_kernel", plain_reps=3, exact=True,
+        grid=GRID, strategy="tiled", max_resident_cols=tpol.max_resident_cols, ct=ct_d,
+        ntiles=DT.plan.ntiles, max_d=int(offs_t.shape[1]))
+    del DT, offs_t, dat_w
 
-        # tiled DIA on the finest level under a smaller column limit
-        tpol = ExecutionPolicy(max_resident_cols=COLUMN_LIMIT)
-        DT = to_dia(s, col_tile=tpol.col_tile(n), device=dev)
-        check(ops.cuda_strategy(DT, tpol) == "tiled", "dia under the column limit is not tiled")
-        offs_t, dat_w = DT.plan.arrays
-        ct_d = DT.plan.ct
-        rng = (int(offs_t.min()), int(offs_t.max()))
-        y = dia_spmv_tiled(offs_t, dat_w, x, nrows=n, col_tile=ct_d, offset_range=rng)
-        y_plain = dia_spmv_tiled_plain(offs_t, dat_w, x, nrows=n, col_tile=ct_d)
-        err = compare(f"dia_spmv_tiled {g}^3", y, y_plain)
-        moved = nbytes(offs_t, dat_w, x) + n * 4
-        b_ms, b_by = bound(moved, 2 * s.nnz)
-        rec = dict(grid=g, strategy="tiled", max_resident_cols=tpol.max_resident_cols, ct=ct_d, ntiles=DT.plan.ntiles,
-                   max_d=int(offs_t.shape[1]), exact=bool(torch.equal(y, y_plain)),
-                   max_abs_err=err,
-                   ms=cuda_ms(lambda: dia_spmv_tiled(offs_t, dat_w, x, nrows=n,
-                                                     col_tile=ct_d, offset_range=rng), 50),
-                   plain_ms=cuda_ms(lambda: dia_spmv_tiled_plain(offs_t, dat_w, x, nrows=n,
-                                                                 col_tile=ct_d), 3),
-                   library_ms=library_ms(s, x), bytes=moved, bound_ms=b_ms, bound_by=b_by)
-        results["dia_spmv_tiled"] = phase(f"kernel dia_spmv_tiled {g}^3", **rec)
-        out["dia_spmv_tiled"] = rec
-        del D, DT
+    # ELL: resident on 52^3, the masked wrapper, tiled on the finest level
+    g = GRID // 2
+    s52 = mats[g]
+    n52 = s52.shape[0]
+    x52 = vec(n52)
+    E = to_ell(s52, device=dev)
+    check(ops.cuda_strategy(E, ExecutionPolicy()) == "resident", "ell 52^3 is not resident")
+    valid = int((E.indices >= 0).sum())
+    out["ell_spmv"] = measure(
+        "ell_spmv", f"ell_spmv {g}^3", s52, x52,
+        lambda: ell_spmv(E.indices, E.data, x52), lambda: ell_spmv_plain(E.indices, E.data, x52),
+        nbytes(E.indices, x52) + valid * E.data.element_size() + n52 * 4, "ell_kernel",
+        exact=True,
+        grid=g, strategy="resident", width=E.width)
+    mask52 = torch.from_numpy((np.arange(n52) % 8) == 3).to(dev)
+    ym = ops.ell_masked_spmv_cuda(E, x52, mask52, pol)
+    want = torch.where(mask52, ops.ell_spmv_cuda(E, x52, pol), torch.zeros((), device=dev))
+    check(bool(torch.equal(ym, want)), "masked ELL != where(mask, A @ x, 0)")
+    results["ell_masked"] = phase(
+        f"kernel ell_masked {g}^3", exact=True,
+        ms=cuda_ms(lambda: ops.ell_masked_spmv_cuda(E, x52, mask52, pol), 50))
+    del E
+
+    E = to_ell(s, device=dev)
+    check(ops.cuda_strategy(E, ExecutionPolicy()) == "tiled", "ell 104^3 is not tiled")
+    idx_t, dat_t = E.plan.arrays
+    ct_e = E.plan.ct
+    valid = int((idx_t >= 0).sum())
+    slots = idx_t.numel()
+    out["ell_spmv_tiled"] = measure(
+        "ell_spmv_tiled", f"ell_spmv_tiled {GRID}^3", s, x,
+        lambda: ell_spmv_tiled(idx_t, dat_t, x, col_tile=ct_e),
+        lambda: ell_spmv_tiled_plain(idx_t, dat_t, x, col_tile=ct_e),
+        nbytes(idx_t, x) + valid * dat_t.element_size() + n * 4, "ell_kernel", plain_reps=3,
+        exact=True,
+        grid=GRID, strategy="tiled", ct=ct_e, ntiles=E.plan.ntiles,
+        width=int(idx_t.shape[2]), index_dtype=str(idx_t.dtype), slots=slots,
+        nonzeros=valid, padding=slots / valid,
+        bound_all_ms=bound(nbytes(idx_t, dat_t, x) + n * 4, 2 * s.nnz)[0])
+    del E, idx_t, dat_t
+
+    # COO: full window on 13^3, sliced on the finest level
+    g = GRID // 8
+    s13 = mats[g]
+    n13 = s13.shape[0]
+    x13 = vec(n13)
+    Co = to_coo(s13, device=dev)
+    check(ops.cuda_strategy(Co, ExecutionPolicy()) == "resident", "coo 13^3 is not resident")
+    starts = segment_starts(Co.row, n13)
+    out["coo_spmv"] = measure(
+        "coo_spmv", f"coo_spmv {g}^3", s13, x13,
+        lambda: coo_spmv(Co.row, Co.col, Co.val, x13, nrows=n13, row_start=starts),
+        lambda: coo_spmv_plain(Co.row, Co.col, Co.val, x13, nrows=n13),
+        nbytes(starts, Co.col, Co.val, x13) + n13 * 4, "coo_rows_kernel", exact=True,
+        grid=g, strategy="resident")
+    del Co
+
+    Co = to_coo(s, device=dev)
+    check(ops.cuda_strategy(Co, ExecutionPolicy()) == "tiled", "coo 104^3 is not tiled")
+    row, col, val, sid, ctile = Co.plan.arrays
+    ct_c, ntiles_c, slice_rows, tile = Co.plan.meta
+    runs = segment_starts(sid, -(-n // slice_rows))
+    out["scoo_spmv_tiled"] = measure(
+        "scoo_spmv_tiled", f"scoo_spmv_tiled {GRID}^3", s, x,
+        lambda: scoo_spmv_tiled(row, col, val, sid, ctile, x, nrows=n, col_tile=ct_c,
+                                slice_rows=slice_rows, tile=tile, run_start=runs),
+        lambda: scoo_spmv_tiled_plain(row, col, val, sid, ctile, x, nrows=n, col_tile=ct_c,
+                                      tile=tile),
+        nbytes(row, col, val, ctile, runs, x) + n * 4, "scoo_tiled_kernel",
+        grid=GRID, strategy="tiled", ct=ct_c, ntiles=ntiles_c, slice_rows=slice_rows,
+        tile=tile, blocks=int(sid.shape[0]), entries=int(row.shape[0]),
+        index_dtype=str(col.dtype))
+    del Co, row, col, val, sid, ctile, runs
+
+    # a group of two entries: the slice's first row, another row and the pad
+    # run (rows = the slice's first row) share one warp step
+    import scipy.sparse as sp
+
+    dense = np.zeros((512, 128))
+    dense[:, :64] = np.random.default_rng(19).standard_normal((512, 64)) * (
+        np.arange(512 * 64).reshape(512, 64) % 17 == 0)
+    dense[0, 100], dense[1, 100] = 1.5, -2.0
+    Co = to_coo(sp.csr_matrix(dense), col_tile=64, device=dev)
+    xs = vec(128)
+    ct_c, _, slice_rows, tile = Co.plan.meta
+    ys = scoo_spmv_tiled(*Co.plan.arrays, xs, nrows=512, col_tile=ct_c,
+                         slice_rows=slice_rows, tile=tile)
+    within("scoo_spmv_tiled beside a pad run against its plain version", ys,
+           scoo_spmv_tiled_plain(*Co.plan.arrays, xs, nrows=512, col_tile=ct_c, tile=tile))
+    torch.cuda.empty_cache()
     return out
 
 
-def reset_counters() -> dict:
-    """Every kernel wrapper by name, its launch counter set to 0."""
+def counters() -> dict:
+    """Every kernel wrapper by name."""
+    from repro_torch.kernels.coo_spmv import coo_spmv, scoo_spmv_tiled
     from repro_torch.kernels.dia_spmv import dia_spmv, dia_spmv_tiled
+    from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_tiled
     from repro_torch.kernels.sell_spmv import scs_spmv
 
-    for fn in (scs_spmv, dia_spmv, dia_spmv_tiled):
-        fn.launches = 0
-    return {"scs_spmv": scs_spmv, "dia_spmv": dia_spmv, "dia_spmv_tiled": dia_spmv_tiled}
+    return {"scs_spmv": scs_spmv, "dia_spmv": dia_spmv, "dia_spmv_tiled": dia_spmv_tiled,
+            "ell_spmv": ell_spmv, "ell_spmv_tiled": ell_spmv_tiled, "coo_spmv": coo_spmv,
+            "scoo_spmv_tiled": scoo_spmv_tiled}
+
+
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+@contextlib.contextmanager
+def recorded_races(log: list):
+    """Record every ``autotune_spmv`` race (the main one, each multigrid
+    level's, each ``tune()``) with the matrix shape it raced on."""
+    import repro_torch.apps.hpcg as hpcg_mod
+    import repro_torch.core.autotune as tune_mod
+    import repro_torch.solvers.mg as mg_mod
+
+    orig = tune_mod.autotune_spmv
+
+    def recording(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        log.append(res)
+        return res
+
+    mods = (tune_mod, mg_mod, hpcg_mod)
+    for m in mods:
+        m.autotune_spmv = recording
+    try:
+        yield log
+    finally:
+        for m in mods:
+            m.autotune_spmv = orig
+
+
+def print_race(label: str, res) -> None:
+    table = {f"{f}/{i}": round(t, 1) for (f, i), t in sorted(res.table.items(),
+                                                               key=lambda kv: kv[1])}
+    phase(f"{label} race", shape=tuple(res.matrix.shape), chosen=f"{res.format}/{res.impl}",
+          table_us=json.dumps(table), skipped=json.dumps(res.skipped))
 
 
 def counted(label: str, drive):
     """Run ``drive()`` with every launch counter and the health registry
     reset just before it; read both just after. Fails on any failure or
-    non-finite output of a ``*/cuda`` key. Returns (drive's value, launches)."""
+    non-finite output of any key, and on any race that lists an error.
+    Returns (drive's value, launches, races)."""
     from repro_torch.core import health_registry
 
-    counters = reset_counters()
+    for fn in counters().values():
+        fn.launches = 0
     health_registry().reset()
-    value = drive()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    races = []
+    with recorded_races(races):
+        value = drive()
+    launches = launch_counts()
     faults = {k: v for k, v in health_registry().snapshot()["keys"].items()
-              if k.endswith("/cuda") and (v["failures"] or v["nonfinite"])}
-    phase(f"{label} counts", launches=json.dumps(launches), cuda_faults=json.dumps(faults))
-    check(not faults, f"{label}: cuda keys failed or went non-finite: {faults}")
-    return value, launches
-
-
-CANDIDATES = [("csr", "plain"), ("csr", "cuda"), ("sell", "plain"),
-              ("sell", "cuda"), ("dia", "plain"), ("dia", "cuda")]
-
-#: The path on which each kernel must launch: the HPCG run (phase 4) or the
-#: column-limited CG (phase 5).
-REQUIRED_ON = {"scs_spmv": "hpcg", "dia_spmv": "hpcg", "dia_spmv_tiled": "tiled_cg"}
+              if v["failures"] or v["nonfinite"]}
+    phase(f"{label} counts", launches=json.dumps(launches), faults=json.dumps(faults),
+          races=len(races))
+    check(not faults, f"{label}: keys failed or went non-finite: {faults}")
+    errs = [(tuple(r.matrix.shape), sk) for r in races for sk in r.skipped
+            if sk[2].startswith("error:")]
+    check(not errs, f"{label}: races listed errors: {errs}")
+    return value, launches, races
 
 
 def check_hpcg(res, label: str) -> None:
@@ -265,6 +466,69 @@ def check_hpcg(res, label: str) -> None:
             check(f"{fmt}/{impl}" in res.table, f"{label}: {fmt}/cuda missing from the tune table")
     errs = [sk for sk in res.skipped if sk[2].startswith("error:")]
     check(not errs, f"{label}: candidates raised: {errs}")
+
+
+def phase_tuner(results: dict):
+    """Phase 6: the run-first tuner on unstructured matrices of 10^6 rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import as_operator
+    from repro_torch.core import matrices as M
+
+    out = {}
+    for label, gen, args in TUNER_MATRICES:
+        s = getattr(M, gen)(*args)
+        n = s.shape[0]
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                             .astype(np.float32)).cuda()
+        races = []
+        with recorded_races(races):
+            tuned = as_operator(s, device="cuda").tune(candidates=CANDIDATES)
+        res = races[-1]
+        print_race(f"tuner {label}", res)
+        check(("coo", "cuda", "unsupported") in res.skipped and ("coo", "cuda") not in res.table,
+              f"tuner {label}: coo/cuda was not listed unsupported")
+        before = launch_counts()
+        y = tuned @ x
+        torch.cuda.synchronize()
+        after = launch_counts()
+        if res.impl == "cuda":
+            ran = sum(after[k] - before[k] for k in FORMAT_KERNELS[res.format])
+            check(ran == 1, f"tuner {label}: the winner {res.format}/cuda launched {ran} kernels")
+        want = as_operator(s, "csr", device="cuda").using("plain") @ x
+        err = within(f"tuner {label}: tuned A @ x against csr/plain", y, want)
+        out[label] = phase(f"tuner {label}", nnz=s.nnz, chosen=f"{res.format}/{res.impl}",
+                           max_abs_err=err)
+        del s, tuned, x, y, want
+    results["tuner"] = out
+
+
+def phase_corpus(results: dict):
+    """Phase 7: Matrix Market input through ``repro_torch.io``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import as_operator
+    from repro_torch.io import iter_corpus
+
+    out = {}
+    names = []
+    for name, s in iter_corpus(CORPUS):
+        names.append(name)
+        x = np.random.default_rng(2).standard_normal(s.shape[1])
+        races = []
+        with recorded_races(races):
+            tuned = as_operator(s, device="cuda").tune(candidates=CANDIDATES)
+        print_race(f"corpus {name}", races[-1])
+        y = tuned @ torch.from_numpy(x.astype(np.float32)).cuda()
+        err = within(f"corpus {name}: tuned A @ x against scipy", y,
+                     torch.from_numpy(s @ x))
+        out[name] = phase(f"corpus {name}", shape=s.shape, nnz=s.nnz,
+                          chosen=f"{tuned.format}/{tuned.policy.backends[0]}",
+                          max_abs_err=err)
+    check(len(names) >= 5, f"corpus: only {names} read from {CORPUS}")
+    results["corpus"] = out
 
 
 def main() -> int:
@@ -285,6 +549,15 @@ def main() -> int:
 
     t_start = time.perf_counter()
     results = {}
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t0
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        phase(f"phase {name}", seconds=seconds[name])
+        t0 = time.perf_counter()
+
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -300,9 +573,11 @@ def main() -> int:
         name=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(),
         build_s=round(lib.seconds, 2))
     torch.backends.cuda.matmul.allow_tf32 = False  # the cuSPARSE yardstick in full f32
+    lap("1 build")
 
     # ---------------------------------------------------------------- 2
     kern = phase_kernels(results)
+    lap("2 kernels")
 
     # ---------------------------------------------------------------- 3
     r16 = run_hpcg(16, 16, 16, iters=50, timed=False, candidates=CANDIDATES, device="cuda")
@@ -310,20 +585,24 @@ def main() -> int:
     results["hpcg16"] = phase("hpcg 16^3", valid=r16.valid, bitwise=r16.bitwise,
                               pcg_iters=r16.pcg_iters, rel_res=r16.rel_res,
                               levels=repr(r16.mg_levels))
+    lap("3 hpcg16")
 
     # ---------------------------------------------------------------- 4
     g = GRID
-    t0 = time.perf_counter()
-    res, launches_hpcg = counted(f"hpcg {g}^3", lambda: run_hpcg(
+    res, launches_hpcg, races = counted(f"hpcg {g}^3", lambda: run_hpcg(
         g, g, g, iters=50, depth=4, reps=3, candidates=CANDIDATES, device="cuda"))
-    t_hpcg = time.perf_counter() - t0
+    for r in races:
+        if len(r.table) > 1:  # the validation races time csr/plain alone
+            print_race(f"hpcg {g}^3", r)
     check_hpcg(res, f"HPCG {g}^3")
     results["hpcg"] = phase(
         f"hpcg {g}^3", valid=res.valid, bitwise=res.bitwise, rel_err=res.rel_err,
         pcg_iters=res.pcg_iters, rel_res=res.rel_res,
         converged=res.rel_res <= 1e-6, chosen=res.chosen, levels=repr(res.mg_levels),
-        t_ref_s=res.ref_time_s, t_opt_s=res.opt_time_s, wall_s=round(t_hpcg, 1),
-        launches=json.dumps(launches_hpcg), table=json.dumps(res.table))
+        t_ref_s=res.ref_time_s, t_opt_s=res.opt_time_s,
+        launches=json.dumps(launches_hpcg), table=json.dumps(res.table),
+        skipped=json.dumps(res.skipped))
+    lap("4 hpcg104")
 
     # ---------------------------------------------------------------- 5
     # the column-limited operator: tiled plans, tuned over the cuda kernels
@@ -338,7 +617,7 @@ def main() -> int:
                                          ("sell", "cuda"), ("csr", "plain")])
         return tuned, cg(tuned, b, tol=1e-6, maxiter=50)
 
-    (tuned, info), launches_tiled = counted(f"cg {g}^3 column-limited", tiled_cg)
+    (tuned, info), launches_tiled, _ = counted(f"cg {g}^3 column-limited", tiled_cg)
     ref = cg(as_operator(A_sp, "csr", device="cuda").using("plain"), b, tol=1e-6, maxiter=50)
     rel = float(torch.linalg.vector_norm(info.x - ref.x) / torch.linalg.vector_norm(ref.x))
     check(rel < 1e-3, f"column-limited CG disagrees with csr/plain CG: rel {rel}")
@@ -346,8 +625,20 @@ def main() -> int:
         f"cg {g}^3 column-limited", max_resident_cols=tpol.max_resident_cols,
         chosen=f"{tuned.format}/{tuned.policy.backends[0]}", iters=info.iters,
         rel_res=float(info.rel_res), rel_err=rel, launches=json.dumps(launches_tiled))
+    del A_tiled, tuned, info, ref, b
+    lap("5 tiled_cg")
 
-    by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled}
+    # ---------------------------------------------------------------- 6
+    _, launches_tuner, _ = counted("tuner 10^6", lambda: phase_tuner(results))
+    lap("6 tuner")
+
+    # ---------------------------------------------------------------- 7
+    _, launches_corpus, _ = counted("corpus", lambda: phase_corpus(results))
+    check(launches_corpus["coo_spmv"] > 0, "coo_spmv was not launched on the corpus path")
+    lap("7 corpus")
+
+    by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled,
+               "tuner": launches_tuner, "corpus": launches_corpus}
     for name, path in REQUIRED_ON.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
 
@@ -357,15 +648,16 @@ def main() -> int:
         line["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": by_path[REQUIRED_ON[name]][name],
-            "launches_hpcg": launches_hpcg[name], "launches_tiled_cg": launches_tiled[name],
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            **{f"launches_{p}": counts[name] for p, counts in by_path.items()},
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})
+    results["seconds"] = seconds
     results["total_s"] = round(time.perf_counter() - t_start, 1)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"results": results, "kernels": line["kernels"]}, f, indent=1, default=str)
-    print(f"[done] total_s={results['total_s']}")
+    print(f"[done] total_s={results['total_s']} seconds={json.dumps(seconds)}")
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

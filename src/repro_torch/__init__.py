@@ -10,6 +10,7 @@ raise rather than run on the host). Layout:
 
     core/     containers, plans, conversion, policy, dispatch, tuner
     kernels/  the CUDA kernels' wrappers (csrc/ holds their sources)
+    io/       Matrix Market files and corpora
     solvers/  CG, SymGS, multigrid
     apps/     HPCG
 """

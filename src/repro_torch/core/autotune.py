@@ -12,10 +12,13 @@ raises falls to plain, the failure is recorded in the ambient
 ``core.health`` registry, and the race still reports a time for that key —
 read the health snapshot to tell a kernel that ran from one that fell back.
 On a CUDA device a raising ``cuda`` kernel raises out of dispatch, and the
-race lists the key in ``skipped`` as ``error: KernelExecutionError``.
+race lists the key in ``skipped`` as ``error: KernelExecutionError``; a
+``cuda`` key whose predicate rejects the container is not timed either (the
+chain would run plain under its label) and is listed as ``unsupported``.
 """
 from __future__ import annotations
 
+import importlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -28,7 +31,11 @@ from .convert import container_to_scipy as _container_to_scipy
 from .convert import from_dense as _from_dense
 from .formats import resolve_device
 from .operator import DEFAULT_POLICY, ExecutionPolicy, SparseOperator
-from .spmv import DispatchKey, available_impls, spmv
+from .spmv import DispatchKey, available_impls, dispatch_table, spmv
+
+#: The dispatch module itself (``core.spmv``; the package's ``spmv`` name is
+#: the function): the tuner asks its ``_on_card`` rule, as dispatch does.
+_dispatch = importlib.import_module(__package__ + ".spmv")
 
 DEFAULT_CANDIDATES: Tuple[DispatchKey, ...] = (
     DispatchKey("coo", "plain"), DispatchKey("coo", "cuda"),
@@ -192,6 +199,10 @@ def autotune_spmv(
             mats[fmt] = _from_dense(s, fmt, device=dev, **kw)
         A = mats[fmt]
         pol = (policy if policy is not None else DEFAULT_POLICY).preferring(impl)
+        if (impl == "cuda" and _dispatch._on_card(x)
+                and not dispatch_table("spmv")[DispatchKey(fmt, impl)].ok(A, pol)):
+            skipped.append((fmt, impl, "unsupported"))
+            continue
         fn = lambda A, x, pol=pol: spmv(A, x, policy=pol)  # noqa: E731
         try:
             if time_fn is not None:

@@ -173,7 +173,7 @@ class _Container:
 
     def to(self, device):
         kw = {f.name: _move(getattr(self, f.name), device)
-              for f in dataclasses.fields(self)}
+              for f in dataclasses.fields(self) if f.init}
         return type(self)(**kw)
 
     @property
@@ -185,13 +185,20 @@ class _Container:
 @dataclass(frozen=True)
 class COO(_Container):
     """Coordinate format, row-sorted; tail pad sentinels are
-    (row=nrows, col=0, val=0)."""
+    (row=nrows, col=0, val=0).
+
+    ``cache`` holds what the full-window kernel derives from the container
+    once (the row segment starts), as ``KernelPlan.cache`` does for a plan;
+    it is not part of the value, and ``to`` starts a new one.
+    """
 
     row: torch.Tensor  # (nnz,) int32, sorted non-decreasing
     col: torch.Tensor  # (nnz,) int32
     val: torch.Tensor  # (nnz,) float
     shape: Shape
     plan: Any = None   # optional KernelPlan ("coo-cols")
+    cache: Dict[str, Any] = field(default_factory=dict, init=False, compare=False,
+                                  repr=False)
 
     format: ClassVar[str] = "coo"
 

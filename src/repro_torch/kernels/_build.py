@@ -35,6 +35,10 @@ INDEX_CODES = {"int8": 0, "int16": 1, "int32": 2}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
+    "repro_coo_spmv": (_P, _P, _P, _P, _P, _LL, _LL, _I, _P),
+    "repro_scoo_spmv_tiled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL,
+                              _I, _I, _P),
+    "repro_ell_spmv": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P),
     "repro_dia_spmv": (_P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
     "repro_dia_spmv_tiled": (_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _LL,
                              _LL, _I, _P),

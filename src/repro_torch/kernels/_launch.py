@@ -1,4 +1,5 @@
-"""Checks every CUDA wrapper makes before handing pointers to a kernel."""
+"""Checks every CUDA wrapper makes before handing pointers to a kernel, and
+the run bounds the sorted-stream kernels read."""
 from __future__ import annotations
 
 import torch
@@ -31,6 +32,15 @@ def index_code(name: str, dtype: torch.dtype) -> int:
     if code is None:
         raise TypeError(f"{name}: index dtype {dtype} is not one of {sorted(INDEX_CODES)}")
     return code
+
+
+def segment_starts(keys: torch.Tensor, nseg: int) -> torch.Tensor:
+    """``starts (nseg + 1,)`` int32: segment ``s`` of the sorted ``keys``
+    is ``[starts[s], starts[s + 1])`` (keys ``>= nseg`` lie past the end).
+    The kernels that walk a run of entries or blocks per output window
+    read these bounds."""
+    bounds = torch.arange(nseg + 1, dtype=keys.dtype, device=keys.device)
+    return torch.searchsorted(keys, bounds).to(torch.int32)
 
 
 def current_stream(device: torch.device) -> int:

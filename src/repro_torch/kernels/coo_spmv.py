@@ -1,0 +1,135 @@
+"""COO SpMV kernels (CUDA) and their plain PyTorch versions.
+
+Replace the TPU kernels ``src/repro/kernels/coo_spmv.py:85`` (``coo_spmv``,
+the full window over row-sorted entries) and
+``src/repro/kernels/coo_spmv.py:200`` (``scoo_spmv_tiled``, over the
+``"coo-cols"`` plan). The CUDA source is ``src/repro_torch/csrc/coo_spmv.cu``;
+its header note gives the design and the byte bound.
+
+Each wrapper runs its plain version for tensors on the CPU and launches its
+kernel for tensors on a CUDA device (or raises). Both accumulate in f32 over
+f32/bf16/f16 storage and return y in the storage dtype, without float
+atomics, so two launches give equal bits. ``coo_spmv`` sums each row's
+entries in entry order, as its plain version does, so in f32 the two agree
+exactly; ``scoo_spmv_tiled`` combines same-row products with a warp scan,
+so it agrees with its plain version to rounding. int8/int16 tile-local ids
+give the int32 result bit for bit.
+
+``launches`` on each wrapper counts the kernel launches of this process.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._launch import (check_cuda_operands, current_stream, index_code, segment_starts,
+                      value_code)
+
+#: Slice rows the sliced kernel holds in shared memory: four windows of f32
+#: per CTA within the 48 KB a CTA gets without opting in to more.
+MAX_SLICE_ROWS = 3072
+
+
+def coo_spmv_plain(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+                   x: torch.Tensor, nrows: int) -> torch.Tensor:
+    """Plain version of :func:`coo_spmv`: each row's products added to an
+    f32 sum one entry at a time, in entry order."""
+    starts = segment_starts(row, nrows).long()
+    lens = starts[1:] - starts[:-1]
+    prod = val.float() * x.float()[col.long()]
+    acc = torch.zeros(nrows, dtype=torch.float32, device=val.device)
+    zero = torch.zeros((), device=val.device)
+    last = max(prod.shape[0] - 1, 0)
+    for k in range(int(lens.max()) if nrows else 0):
+        take = (starts[:-1] + k).clamp(max=last)
+        acc = acc + torch.where(k < lens, prod[take], zero)
+    return acc.to(val.dtype)
+
+
+def coo_spmv(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor, x: torch.Tensor,
+             nrows: int, row_start=None) -> torch.Tensor:
+    """y = A @ x for row-sorted COO arrays (``row``/``col`` int32, tail
+    sentinels ``row == nrows`` dropped). ``row_start`` is the cached
+    :func:`segment_starts` of ``row`` (computed here when omitted)."""
+    if val.device.type == "cpu":
+        return coo_spmv_plain(row, col, val, x, nrows)
+    for name, t in (("row", row), ("col", col)):
+        if t.dtype is not torch.int32 or t.shape != val.shape:
+            raise ValueError(f"coo_spmv: {name} must be int32 of shape {tuple(val.shape)}")
+    if row_start is None:
+        row_start = segment_starts(row, nrows)
+    x = x.to(torch.float32)
+    check_cuda_operands("coo_spmv", row_start, col, val, x)
+    code = value_code("coo_spmv", val.dtype)
+    y = torch.empty(nrows, dtype=val.dtype, device=val.device)
+    from ._build import library
+
+    library().call("repro_coo_spmv", row_start.data_ptr(), col.data_ptr(), val.data_ptr(),
+                   x.data_ptr(), y.data_ptr(), nrows, x.shape[0], code,
+                   current_stream(val.device))
+    coo_spmv.launches += 1
+    return y
+
+
+coo_spmv.launches = 0
+
+
+def scoo_spmv_tiled_plain(row, col, val, sid, ctile, x, *, nrows: int, col_tile: int,
+                          tile: int) -> torch.Tensor:
+    """Plain version of :func:`scoo_spmv_tiled`: every entry's product
+    (tile-local id offset by its block's column tile), summed per row."""
+    dev = val.device
+    xf = x.float()
+    gcol = ctile.long().repeat_interleave(tile) * col_tile + col.long()
+    prod = val.float() * xf[gcol.clamp(max=xf.shape[0] - 1)]
+    prod = torch.where(gcol < xf.shape[0], prod, torch.zeros((), device=dev))
+    order = torch.argsort(row, stable=True)
+    lengths = torch.bincount(row.long(), minlength=nrows)
+    return torch.segment_reduce(prod[order], "sum", lengths=lengths).to(val.dtype)
+
+
+def scoo_spmv_tiled(row, col, val, sid, ctile, x, *, nrows: int, col_tile: int,
+                    slice_rows: int, tile: int, run_start=None) -> torch.Tensor:
+    """y = A @ x over a ``build_coo_col_plan`` layout.
+
+    Args:
+        row: (B*tile,) int32 global rows, sorted by slice, then column
+            tile, then row inside each block run.
+        col: (B*tile,) tile-local columns (int8/int16/int32).
+        val: (B*tile,) values.
+        sid/ctile: (B,) int32 slice and column tile of each block.
+        x: (ncols,) dense vector.
+        col_tile/slice_rows/tile: the plan's geometry (``plan.meta``).
+        run_start: the cached :func:`segment_starts` of ``sid`` over the
+            slices (computed here when omitted).
+    """
+    if val.device.type == "cpu":
+        return scoo_spmv_tiled_plain(row, col, val, sid, ctile, x, nrows=nrows,
+                                     col_tile=col_tile, tile=tile)
+    nblocks = sid.shape[0]
+    if row.shape != (nblocks * tile,) or col.shape != row.shape or val.shape != row.shape:
+        raise ValueError("scoo_spmv_tiled: row/col/val disagree with (B * tile,)")
+    for name, t in (("row", row), ("sid", sid), ("ctile", ctile)):
+        if t.dtype is not torch.int32:
+            raise TypeError(f"scoo_spmv_tiled: {name} must be int32, got {t.dtype}")
+    if not 0 < slice_rows <= MAX_SLICE_ROWS:
+        raise ValueError(f"scoo_spmv_tiled: slice_rows {slice_rows} outside "
+                         f"(0, {MAX_SLICE_ROWS}]")
+    nslices = -(-nrows // slice_rows)
+    if run_start is None:
+        run_start = segment_starts(sid, nslices)
+    x = x.to(torch.float32)
+    check_cuda_operands("scoo_spmv_tiled", row, col, val, ctile, run_start, x)
+    vcode = value_code("scoo_spmv_tiled", val.dtype)
+    icode = index_code("scoo_spmv_tiled", col.dtype)
+    y = torch.empty(nrows, dtype=val.dtype, device=val.device)
+    from ._build import library
+
+    library().call("repro_scoo_spmv_tiled", row.data_ptr(), col.data_ptr(), val.data_ptr(),
+                   ctile.data_ptr(), run_start.data_ptr(), x.data_ptr(), y.data_ptr(),
+                   nslices, tile, slice_rows, col_tile, nrows, x.shape[0], vcode, icode,
+                   current_stream(val.device))
+    scoo_spmv_tiled.launches += 1
+    return y
+
+
+scoo_spmv_tiled.launches = 0

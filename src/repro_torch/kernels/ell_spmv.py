@@ -1,0 +1,122 @@
+"""ELL SpMV kernels (CUDA) and their plain PyTorch versions.
+
+Replace the TPU kernels ``src/repro/kernels/ell_spmv.py:43`` (``ell_spmv``,
+resident x) and ``src/repro/kernels/ell_spmv.py:92`` (``ell_spmv_tiled``,
+over the ``"ell-cols"`` plan), and the masked ELL wrapper of
+``src/repro/kernels/ops.py:217``. The CUDA source is
+``src/repro_torch/csrc/ell_spmv.cu``; its header note gives the design and
+the byte bound.
+
+Each wrapper runs its plain version for tensors on the CPU and launches its
+kernel for tensors on a CUDA device (or raises): there is no fallback from
+one to the other. Both accumulate in f32 over f32/bf16/f16 storage and
+return y in the storage dtype. A row sums its slots in ascending order with
+the multiply and the add rounded apart, and a tiled row adds its tile sums
+in ascending tile order, in the kernels and the plain versions alike, so in
+f32 they agree exactly. int8/int16 tile-local ids are widened, so they give
+the int32 result bit for bit. ``mask`` (bool, ``(nrows,)``) zeroes the rows
+outside it inside the kernel: no masked copy of the values is made.
+
+``launches`` on each wrapper counts the kernel launches of this process.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ._launch import check_cuda_operands, current_stream, index_code, value_code
+
+
+def _slab_sum(idx: torch.Tensor, data: torch.Tensor, xt: torch.Tensor,
+              on: Optional[torch.Tensor]) -> torch.Tensor:
+    """The f32 sum of each row's slots of one (nrows, W) slab, slot by slot
+    in ascending order; ``xt`` is x seen from the slab's first column."""
+    acc = torch.zeros(idx.shape[0], dtype=torch.float32, device=data.device)
+    zero = torch.zeros((), device=data.device)
+    for k in range(idx.shape[1]):
+        c = idx[:, k].long()
+        valid = c >= 0 if on is None else (c >= 0) & on
+        prod = data[:, k].float() * xt[torch.where(valid, c, 0)]
+        acc = acc + torch.where(valid, prod, zero)
+    return acc
+
+
+def _check_mask(name: str, mask, nrows: int) -> None:
+    if mask is not None and (mask.dtype is not torch.bool or mask.shape != (nrows,)):
+        raise ValueError(f"{name}: mask must be a bool tensor of shape (nrows,)")
+
+
+def ell_spmv_plain(indices: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`ell_spmv`."""
+    return _slab_sum(indices, data, x.float(), mask).to(data.dtype)
+
+
+def ell_spmv(indices: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = A @ x for ELL arrays: ``indices (nrows, W)`` int32 with -1 pads,
+    ``data (nrows, W)``, ``x (ncols,)`` read whole."""
+    if data.device.type == "cpu":
+        return ell_spmv_plain(indices, data, x, mask)
+    nrows, width = data.shape
+    if indices.dtype is not torch.int32 or indices.shape != data.shape:
+        raise ValueError(f"ell_spmv: indices must be int32 of shape {tuple(data.shape)}, "
+                         f"got {indices.dtype} {tuple(indices.shape)}")
+    _check_mask("ell_spmv", mask, nrows)
+    x = x.to(torch.float32)
+    check_cuda_operands("ell_spmv", indices, data, x, mask)
+    code = value_code("ell_spmv", data.dtype)
+    y = torch.empty(nrows, dtype=data.dtype, device=data.device)
+    from ._build import library
+
+    library().call("repro_ell_spmv", indices.data_ptr(), data.data_ptr(), x.data_ptr(),
+                   None if mask is None else mask.data_ptr(), y.data_ptr(), nrows,
+                   width, 1, 0, code, index_code("ell_spmv", indices.dtype),
+                   current_stream(data.device))
+    ell_spmv.launches += 1
+    return y
+
+
+ell_spmv.launches = 0
+
+
+def ell_spmv_tiled_plain(idx_t: torch.Tensor, dat_t: torch.Tensor, x: torch.Tensor,
+                         col_tile: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`ell_spmv_tiled`: per column tile, the f32 sum
+    of the tile's slots, added to y in ascending tile order."""
+    ntiles, nrows, _ = idx_t.shape
+    xf = x.float()
+    y = torch.zeros(nrows, dtype=torch.float32, device=dat_t.device)
+    for t in range(ntiles):
+        y = y + _slab_sum(idx_t[t], dat_t[t], xf[t * col_tile:], mask)
+    return y.to(dat_t.dtype)
+
+
+def ell_spmv_tiled(idx_t: torch.Tensor, dat_t: torch.Tensor, x: torch.Tensor,
+                   col_tile: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = A @ x over the ``"ell-cols"`` plan: ``idx_t (ntiles, nrows, W)``
+    tile-local ids (int8/int16/int32, -1 pads) and ``dat_t`` alike. An id
+    >= 0 always lies inside x, so x is not padded."""
+    if dat_t.device.type == "cpu":
+        return ell_spmv_tiled_plain(idx_t, dat_t, x, col_tile, mask)
+    ntiles, nrows, width = dat_t.shape
+    if idx_t.shape != dat_t.shape:
+        raise ValueError(f"ell_spmv_tiled: idx_t {tuple(idx_t.shape)} and dat_t "
+                         f"{tuple(dat_t.shape)} differ")
+    _check_mask("ell_spmv_tiled", mask, nrows)
+    x = x.to(torch.float32)
+    check_cuda_operands("ell_spmv_tiled", idx_t, dat_t, x, mask)
+    vcode = value_code("ell_spmv_tiled", dat_t.dtype)
+    icode = index_code("ell_spmv_tiled", idx_t.dtype)
+    y = torch.empty(nrows, dtype=dat_t.dtype, device=dat_t.device)
+    from ._build import library
+
+    library().call("repro_ell_spmv", idx_t.data_ptr(), dat_t.data_ptr(), x.data_ptr(),
+                   None if mask is None else mask.data_ptr(), y.data_ptr(), nrows,
+                   width, ntiles, col_tile, vcode, icode, current_stream(dat_t.device))
+    ell_spmv_tiled.launches += 1
+    return y
+
+
+ell_spmv_tiled.launches = 0

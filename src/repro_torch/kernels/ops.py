@@ -11,18 +11,24 @@ and policy both packages pick the same strategy:
     :class:`~repro_torch.core.formats.KernelPlan`'s column tiles.
 
 ``csr`` and ``sell`` both run ``scs_spmv`` over their ``"scs"`` plan; ``dia``
-runs ``dia_spmv`` or ``dia_spmv_tiled``. ell, coo and bsr register no
-``cuda`` entry yet (ROADMAP queue 2), so the tuner lists them as
+runs ``dia_spmv`` or ``dia_spmv_tiled``, ``ell`` runs ``ell_spmv`` or
+``ell_spmv_tiled``, ``coo`` runs ``coo_spmv`` or ``scoo_spmv_tiled``. dia
+and ell carry the row mask into their kernels; masked COO runs the ``coo``
+kernel and masks after it (the dispatch's same-backend path). bsr
+registers no ``cuda`` entry yet (ROADMAP queue 2), so the tuner lists it as
 "impl not registered".
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import CSR, DIA, SELL
+from repro_torch.core.formats import COO, CSR, DIA, ELL, SELL
 from repro_torch.core.spmv import register_masked_spmv, register_spmv
 
+from ._launch import segment_starts
+from .coo_spmv import coo_spmv, scoo_spmv_tiled
 from .dia_spmv import dia_spmv, dia_spmv_tiled
+from .ell_spmv import ell_spmv, ell_spmv_tiled
 from .sell_spmv import scs_spmv_from_plan
 
 # --------------------------------------------------- capability predicates ----
@@ -63,6 +69,27 @@ def _dia_ok(A: DIA, policy) -> bool:
         _dia_resident(A, policy) or _plan_ok(A, policy, "dia-cols"))
 
 
+def _ell_resident(A: ELL, policy) -> bool:
+    return A.shape[1] <= policy.resident_cols()
+
+
+def _ell_ok(A: ELL, policy) -> bool:
+    return _precision_ok(A, policy) and (
+        _ell_resident(A, policy) or _plan_ok(A, policy, "ell-cols"))
+
+
+def _coo_resident(A: COO, policy) -> bool:
+    # the reference's full-window limits, kept for parity: on the card no
+    # one-hot window exists, but the same matrices take the same strategy
+    return (A.shape[0] <= policy.max_onehot_rows
+            and A.shape[1] <= policy.resident_cols())
+
+
+def _coo_ok(A: COO, policy) -> bool:
+    return _precision_ok(A, policy) and (
+        _coo_resident(A, policy) or _plan_ok(A, policy, "coo-cols"))
+
+
 def _scs_ok(A, policy) -> bool:
     return _precision_ok(A, policy) and _plan_ok(A, policy, "scs")
 
@@ -70,8 +97,8 @@ def _scs_ok(A, policy) -> bool:
 def cuda_strategy(A, policy) -> str | None:
     """Which strategy dispatch would run for ``A`` under ``policy``:
     ``"resident"``, ``"tiled"``, or ``None`` (the predicate rejects). The
-    twin of the reference's ``pallas_strategy``; formats without a ``cuda``
-    kernel yet answer as the reference does, for the comparison."""
+    twin of the reference's ``pallas_strategy``; bsr, without a ``cuda``
+    kernel yet, answers as the reference does, for the comparison."""
     fmt = A.format
     if not _precision_ok(A, policy):
         return None
@@ -80,11 +107,11 @@ def cuda_strategy(A, policy) -> str | None:
             return "resident"
         return "tiled" if _plan_ok(A, policy, "dia-cols") else None
     if fmt == "ell":
-        if A.shape[1] <= policy.resident_cols():
+        if _ell_resident(A, policy):
             return "resident"
         return "tiled" if _plan_ok(A, policy, "ell-cols") else None
     if fmt == "coo":
-        if A.shape[0] <= policy.max_onehot_rows and A.shape[1] <= policy.resident_cols():
+        if _coo_resident(A, policy):
             return "resident"
         return "tiled" if _plan_ok(A, policy, "coo-cols") else None
     if fmt in ("csr", "sell"):
@@ -99,14 +126,23 @@ def cuda_strategy(A, policy) -> str | None:
 # ------------------------------------------------------------ registrations ----
 
 
+def _cached(cache: dict, key: str, make):
+    """``cache[key]``, made once: what a kernel derives from a container or
+    its plan (segment starts, offset range) is computed at its first call
+    and kept in the container's or the plan's ``cache``."""
+    value = cache.get(key)
+    if value is None:
+        value = cache[key] = make()
+    return value
+
+
 def _dia_tiled(A: DIA, x, mask=None):
     plan = A.plan
     offs_t, dat_w = plan.arrays
     rng = None
     if dat_w.device.type != "cpu":
-        rng = plan.cache.get("offset_range")
-        if rng is None:
-            rng = plan.cache["offset_range"] = (int(offs_t.min()), int(offs_t.max()))
+        rng = _cached(plan.cache, "offset_range",
+                      lambda: (int(offs_t.min()), int(offs_t.max())))
     return dia_spmv_tiled(offs_t, dat_w, x, nrows=A.shape[0], col_tile=plan.ct,
                           mask=mask, offset_range=rng)
 
@@ -116,6 +152,37 @@ def dia_spmv_cuda(A: DIA, x, policy):
     if cuda_strategy(A, policy) == "resident":
         return dia_spmv(A.offsets, A.data, x)
     return _dia_tiled(A, x)
+
+
+@register_spmv("ell", "cuda", supports=_ell_ok, needs_policy=True)
+def ell_spmv_cuda(A: ELL, x, policy, mask=None):
+    if cuda_strategy(A, policy) == "resident":
+        return ell_spmv(A.indices, A.data, x, mask=mask)
+    idx_t, dat_t = A.plan.arrays
+    return ell_spmv_tiled(idx_t, dat_t, x, col_tile=A.plan.ct, mask=mask)
+
+
+@register_spmv("coo", "cuda", supports=_coo_ok, needs_policy=True)
+def coo_spmv_cuda(A: COO, x, policy):
+    """Full window for the matrices the reference keeps whole (row segment
+    starts cached on the container), else the sliced kernel over the
+    ``"coo-cols"`` plan (slice block runs cached on the plan)."""
+    on_card = A.val.device.type != "cpu"
+    if cuda_strategy(A, policy) == "resident":
+        starts = None
+        if on_card:
+            starts = _cached(A.cache, "row_start",
+                             lambda: segment_starts(A.row, A.shape[0]))
+        return coo_spmv(A.row, A.col, A.val, x, nrows=A.shape[0], row_start=starts)
+    plan = A.plan
+    row, col, val, sid, ctile = plan.arrays
+    ct, _, slice_rows, tile = (int(v) for v in plan.meta)
+    runs = None
+    if on_card:
+        nslices = -(-A.shape[0] // slice_rows)
+        runs = _cached(plan.cache, "run_start", lambda: segment_starts(sid, nslices))
+    return scoo_spmv_tiled(row, col, val, sid, ctile, x, nrows=A.shape[0], col_tile=ct,
+                           slice_rows=slice_rows, tile=tile, run_start=runs)
 
 
 @register_spmv("sell", "cuda", supports=_scs_ok)
@@ -139,3 +206,10 @@ def dia_masked_spmv_cuda(A: DIA, x, row_mask, policy):
     if cuda_strategy(A, policy) == "resident":
         return dia_spmv(A.offsets, A.data, x, mask=row_mask)
     return _dia_tiled(A, x, mask=row_mask)
+
+
+@register_masked_spmv("ell", "cuda", supports=_ell_ok, needs_policy=True)
+def ell_masked_spmv_cuda(A: ELL, x, row_mask, policy):
+    """The row mask goes into the ELL kernels as it does into DIA's: masked
+    rows load nothing and are 0. Equal to ``where(row_mask, A @ x, 0)``."""
+    return ell_spmv_cuda(A, x, policy, mask=row_mask)

@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from ._launch import check_cuda_operands, current_stream, index_code, value_code
+from ._launch import (check_cuda_operands, current_stream, index_code, segment_starts,
+                      value_code)
 
 #: Slices per window the kernel holds in registers (csrc/sell_spmv.cu).
 MAX_SLICE_WINDOW = 8
@@ -55,13 +56,6 @@ def scs_spmv_plain(btile, bwin, lsl, idx2, dat2, perm, x, *, nrows: int,
     return y[:nrows].to(dat2.dtype)
 
 
-def window_runs(bwin: torch.Tensor, nwin: int) -> torch.Tensor:
-    """``run_start (nwin+1,)`` int32: window ``w`` owns blocks
-    ``[run_start[w], run_start[w+1])`` of the window-major stream."""
-    bounds = torch.arange(nwin + 1, dtype=bwin.dtype, device=bwin.device)
-    return torch.searchsorted(bwin, bounds).to(torch.int32)
-
-
 def scs_spmv(btile, bwin, lsl, idx2, dat2, perm, x, *, nrows: int,
              col_tile: int, ntiles: int, C: int, sw: int, jb: int, nwin: int,
              run_start=None) -> torch.Tensor:
@@ -73,8 +67,9 @@ def scs_spmv(btile, bwin, lsl, idx2, dat2, perm, x, *, nrows: int,
         idx2/dat2: (B*jb, C) tile-local columns (-1 pad) / values.
         perm: (nrows_pad,) σ-sorted row permutation (pad rows = nrows).
         x: (ncols,) dense vector.
-        run_start: the cached :func:`window_runs` of ``bwin`` (computed
-            here when omitted).
+        run_start: the cached :func:`segment_starts` of ``bwin`` over
+            the windows: window ``w`` owns blocks ``[run_start[w],
+            run_start[w+1])`` (computed here when omitted).
 
     Returns (nrows,) in original row order, in ``dat2``'s dtype.
     """
@@ -93,7 +88,7 @@ def scs_spmv(btile, bwin, lsl, idx2, dat2, perm, x, *, nrows: int,
         if t.dtype is not torch.int32:
             raise TypeError(f"scs_spmv: {name} must be int32, got {t.dtype}")
     if run_start is None:
-        run_start = window_runs(bwin, nwin)
+        run_start = segment_starts(bwin, nwin)
     x = x.to(torch.float32)
     check_cuda_operands("scs_spmv", btile, lsl, idx2, dat2, perm, run_start, x)
     vcode = value_code("scs_spmv", dat2.dtype)
@@ -122,7 +117,7 @@ def scs_spmv_from_plan(plan, x, nrows: int) -> torch.Tensor:
     if dat2.device.type != "cpu":
         run_start = plan.cache.get("run_start")
         if run_start is None:
-            run_start = plan.cache["run_start"] = window_runs(bwin, nwin)
+            run_start = plan.cache["run_start"] = segment_starts(bwin, nwin)
     return scs_spmv(btile, bwin, lsl, idx2, dat2, perm, x, nrows=nrows,
                     col_tile=ct, ntiles=ntiles, C=C, sw=sw, jb=jb, nwin=nwin,
                     run_start=run_start)

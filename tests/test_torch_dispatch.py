@@ -105,7 +105,7 @@ def _pcontainer(fmt, index_dtype="int32", value_dtype="float32"):
 
 
 @pytest.mark.parametrize("op", OPS)
-@pytest.mark.parametrize("fmt", ["csr", "sell", "dia"])
+@pytest.mark.parametrize("fmt", ["csr", "sell", "dia", "ell", "coo"])
 @pytest.mark.parametrize("idx", ["int16", "int8"])
 def test_cuda_compressed_index_bit_identical(op, fmt, idx):
     """Tiled plans with int8/int16 indices give the int32 result bit for bit."""
@@ -123,7 +123,8 @@ _NARROW_CELLS = [(op, fmt, backend, vdt)
                  for fmt, backend in [("csr", "plain"), ("sell", "plain"),
                                       ("dia", "plain"), ("coo", "plain"),
                                       ("ell", "plain"), ("csr", "cuda"),
-                                      ("sell", "cuda"), ("dia", "cuda")]]
+                                      ("sell", "cuda"), ("dia", "cuda"),
+                                      ("ell", "cuda"), ("coo", "cuda")]]
 
 
 @pytest.mark.parametrize("op,fmt,backend,vdt", _NARROW_CELLS)
@@ -165,7 +166,7 @@ def test_cuda_strategy_equals_pallas_strategy(max_resident_cols, suite_small):
 def test_tiled_strategy_is_reached():
     s = M.fdm27(8, 8, 8)
     pol = T.ExecutionPolicy(max_resident_cols=64)
-    for fmt in ("csr", "sell", "dia"):
+    for fmt in ("csr", "sell", "dia", "ell", "coo"):
         A = T.from_dense(s, fmt, device="cpu", col_tile=pol.col_tile(512))
         assert tops.cuda_strategy(A, pol) == "tiled", fmt
 
@@ -298,17 +299,53 @@ def test_autotune_race_on_card_lists_a_raising_cuda_kernel(monkeypatch, on_card)
 
 
 def test_unported_formats_are_listed_not_raced():
+    """bsr alone has no ``cuda`` kernel yet; ell and coo are raced."""
     res = T.autotune_spmv(M.fdm27(4, 4, 4), device="cpu", iters=1, warmup=0,
                           candidates=[("ell", "cuda"), ("coo", "cuda"),
                                       ("bsr", "cuda"), ("csr", "plain")])
     assert {(f, i) for f, i, why in res.skipped if why == "impl not registered"} \
-        == {("ell", "cuda"), ("coo", "cuda"), ("bsr", "cuda")}
+        == {("bsr", "cuda")}
+    assert {("ell", "cuda"), ("coo", "cuda")} <= set(res.table)
+
+
+#: A policy under which coo/cuda rejects fdm27(4, 4, 4): 64 rows exceed the
+#: full window, and the 64 columns fit x whole, so no plan is built.
+_SMALL_WINDOW = T.ExecutionPolicy(max_onehot_rows=16)
+
+
+def _race_rejecting_coo():
+    A = T.from_dense(M.fdm27(4, 4, 4), "coo", device="cpu")
+    assert not tops._coo_ok(A, _SMALL_WINDOW)
+    return T.autotune_spmv(M.fdm27(4, 4, 4), device="cpu", iters=1, warmup=0,
+                           policy=_SMALL_WINDOW,
+                           candidates=[("coo", "cuda"), ("coo", "plain"), ("csr", "cuda")])
+
+
+def test_autotune_race_on_card_lists_a_rejecting_cuda_key(on_card):
+    """On the card a ``cuda`` key whose predicate rejects the container is
+    listed as unsupported and gets no time: the chain would have run plain
+    under the cuda label."""
+    with use_health(HealthRegistry()):
+        res = _race_rejecting_coo()
+    assert ("coo", "cuda") not in res.table
+    assert ("coo", "cuda", "unsupported") in res.skipped
+    assert {("coo", "plain"), ("csr", "cuda")} <= set(res.table)
+
+
+def test_autotune_race_on_host_times_a_rejecting_cuda_key():
+    """On the host the reference's semantics stay: the chain
+    ``(cuda, plain)`` passes the rejecting entry over, and the race times
+    what ran under the cuda label."""
+    with use_health(HealthRegistry()):
+        res = _race_rejecting_coo()
+    assert ("coo", "cuda") in res.table
+    assert not [sk for sk in res.skipped if sk[:2] == ("coo", "cuda")]
 
 
 def test_spmm_columns_equal_spmv_bitwise():
     """SpMM without a native kernel is SpMV per column: column j equals
     ``A @ X[:, j]`` bit for bit (the serving layer's coalescing contract)."""
-    for fmt in ("csr", "sell", "dia"):
+    for fmt in ("csr", "sell", "dia", "ell", "coo"):
         A = T.as_operator(_S, fmt, device="cpu").using("cuda")
         X = torch.from_numpy(_XM)
         Y = A @ X
@@ -335,7 +372,8 @@ def test_operator_api_mirrors_reference():
 
 @pytest.mark.parametrize("modname", ["repro_torch.core.operator", "repro_torch.core.health",
                                      "repro_torch.core.autotune", "repro_torch.core.features",
-                                     "repro_torch.solvers.cg", "repro_torch.solvers.mg"])
+                                     "repro_torch.solvers.cg", "repro_torch.solvers.mg",
+                                     "repro_torch.io.matrix_market", "repro_torch.io.corpus"])
 def test_port_doctests(modname):
     import doctest
 

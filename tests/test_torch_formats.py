@@ -176,9 +176,10 @@ def test_package_imports_neither_jax_nor_repro():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.kernels._build, repro_torch.kernels.ref\n"
-        "import repro_torch.solvers, repro_torch.apps.hpcg\n"
+        "import repro_torch.solvers, repro_torch.apps.hpcg, repro_torch.io\n"
+        "import repro_torch.kernels.ell_spmv, repro_torch.kernels.coo_spmv\n"
         "from repro_torch.core.spmv import available_impls\n"
-        "assert 'cuda' in available_impls('csr')\n"
+        "assert all('cuda' in available_impls(f) for f in ('csr', 'ell', 'coo'))\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

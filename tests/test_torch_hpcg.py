@@ -23,7 +23,9 @@ from repro_torch.core import as_operator as t_as_operator
 
 SLICE_CANDIDATES = [DispatchKey("csr", "plain"), DispatchKey("csr", "cuda"),
                     DispatchKey("sell", "cuda"), DispatchKey("dia", "plain"),
-                    DispatchKey("dia", "cuda")]
+                    DispatchKey("dia", "cuda"), DispatchKey("ell", "plain"),
+                    DispatchKey("ell", "cuda"), DispatchKey("coo", "plain"),
+                    DispatchKey("coo", "cuda")]
 
 
 def _rel(a, b):

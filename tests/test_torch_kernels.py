@@ -3,7 +3,8 @@ the same numpy inputs (here, on the CPU), and each CUDA kernel against its
 plain version on the card (``-m cuda``; skipped without one).
 
 The JAX side runs as the reference's own tests run it on a CPU:
-``scs_spmv`` and ``dia_spmv_tiled`` in Pallas interpret mode. The resident
+``scs_spmv``, ``dia_spmv_tiled``, ``ell_spmv``, ``ell_spmv_tiled``,
+``coo_spmv`` and ``scoo_spmv_tiled`` in Pallas interpret mode. The resident
 ``dia_spmv`` Pallas kernel does not run on this JAX (``pl.load``, ROADMAP
 queue 3), so its oracles are ``repro.kernels.ref.dia_spmv_ref`` and the
 reference's dia plain backend.
@@ -22,11 +23,17 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels._launch import segment_starts
+from repro_torch.kernels.coo_spmv import (coo_spmv, coo_spmv_plain, scoo_spmv_tiled,
+                                          scoo_spmv_tiled_plain)
 from repro_torch.kernels.dia_spmv import (dia_spmv, dia_spmv_plain, dia_spmv_tiled,
                                           dia_spmv_tiled_plain)
+from repro_torch.kernels.ell_spmv import (ell_spmv, ell_spmv_plain, ell_spmv_tiled,
+                                          ell_spmv_tiled_plain)
 from repro_torch.kernels.sell_spmv import scs_spmv, scs_spmv_from_plan, scs_spmv_plain
 
 tconv = importlib.import_module("repro_torch.core.convert")
+ttiling = importlib.import_module("repro_torch.core.tiling")
 
 SHAPES = [(32, 32), (100, 100), (257, 129), (129, 300)]
 DTYPES = ["float32", "bfloat16", "float16"]
@@ -80,6 +87,9 @@ def jax_ref():
             "convert": importlib.import_module("repro.core.convert"),
             "sell": importlib.import_module("repro.kernels.sell_spmv"),
             "dia": importlib.import_module("repro.kernels.dia_spmv"),
+            "ell": importlib.import_module("repro.kernels.ell_spmv"),
+            "coo": importlib.import_module("repro.kernels.coo_spmv"),
+            "tiling": importlib.import_module("repro.core.tiling"),
             "ref": importlib.import_module("repro.kernels.ref"),
             "spmv": importlib.import_module("repro.core.spmv")}
 
@@ -183,6 +193,138 @@ def test_masked_dia_is_where_of_unmasked(col_tile):
     got = ops.dia_masked_spmv_cuda(D, x, mask, pol)
     want = torch.where(mask, ops.dia_spmv_cuda(D, x, pol), torch.zeros(()))
     assert torch.equal(got, want)
+
+
+def _assert_same_plan(t_arrays, j_arrays):
+    """The two packages built the same plan: equal arrays, equal dtypes
+    (values compared in f32, where bf16 is exact)."""
+    for a, b in zip(t_arrays, j_arrays):
+        b = np.asarray(b)
+        if b.dtype.kind in "iu":
+            assert str(a.dtype) == f"torch.{b.dtype.name}"
+            np.testing.assert_array_equal(a.numpy(), b)
+        else:
+            np.testing.assert_array_equal(a.float().numpy(), b.astype(np.float32))
+
+
+# ------------------------------------------------- ell_spmv, ell_spmv_tiled ----
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("col_tile,index_dtype",
+                         [(None, "int32"), (64, "int8"), (64, "int16"), (64, "int32")])
+def test_ell_plain_matches_pallas_interpret(jax_ref, shape, dtype, col_tile, index_dtype):
+    """``ell_spmv_plain`` (no column tile) and ``ell_spmv_tiled_plain`` (an
+    ``"ell-cols"`` plan of 64-column tiles) against the Pallas kernels in
+    interpret mode, on containers and plans each package built from the
+    same scipy matrix."""
+    n, m = shape
+    s = _mat(n, m, 12)
+    x = _x(m)
+    jnp = jax_ref["jnp"]
+    J = jax_ref["convert"].from_dense(s, "ell", dtype=_jax_dtype(jnp, dtype),
+                                      col_tile=col_tile, index_dtype=index_dtype)
+    T = tconv.from_dense(s, "ell", dtype=dtype, col_tile=col_tile,
+                         index_dtype=index_dtype, device="cpu")
+    if col_tile is None:
+        want = jax_ref["ell"].ell_spmv(J.indices, J.data, jnp.asarray(x), interpret=True)
+        got = ell_spmv(T.indices, T.data, torch.from_numpy(x))
+    else:
+        _assert_same_plan(T.plan.arrays, J.plan.arrays)
+        want = jax_ref["ell"].ell_spmv_tiled(*J.plan.arrays, jnp.asarray(x),
+                                             col_tile=col_tile, interpret=True)
+        got = ell_spmv_tiled(*T.plan.arrays, torch.from_numpy(x), col_tile=col_tile)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got.float().numpy(), np.asarray(want, np.float32), _tol(dtype, s))
+
+
+@pytest.mark.parametrize("col_tile", [None, 16])
+def test_masked_ell_is_where_of_unmasked(col_tile):
+    """The masked ELL wrapper (mask inside the kernel) equals
+    ``where(mask, A @ x, 0)`` exactly, resident and tiled."""
+    from repro_torch.core import ExecutionPolicy
+
+    s = _mat(257, 257, 13)
+    pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False,
+                          max_resident_cols=1 << 20 if col_tile is None else 32)
+    E = tconv.from_dense(s, "ell", col_tile=col_tile, device="cpu")
+    assert ops.cuda_strategy(E, pol) == ("resident" if col_tile is None else "tiled")
+    x = torch.from_numpy(_x(257))
+    mask = torch.from_numpy(np.random.default_rng(6).random(257) < 0.4)
+    got = ops.ell_masked_spmv_cuda(E, x, mask, pol)
+    want = torch.where(mask, ops.ell_spmv_cuda(E, x, pol), torch.zeros(()))
+    assert torch.equal(got, want)
+
+
+def test_ell_tiled_plain_sums_the_resident_products():
+    """The tiled plain version over one tile is the resident one, bit for
+    bit (the same slots in the same order)."""
+    s = _mat(100, 100, 14)
+    x = torch.from_numpy(_x(100))
+    E = tconv.from_dense(s, "ell", col_tile=128, device="cpu")
+    assert E.plan.ntiles == 1
+    assert torch.equal(ell_spmv_tiled(*E.plan.arrays, x, col_tile=128),
+                       ell_spmv(E.indices, E.data, x))
+
+
+# --------------------------------------------------- coo_spmv, scoo_spmv_tiled ----
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_coo_plain_matches_pallas_interpret(jax_ref, shape, dtype):
+    """``coo_spmv_plain`` against the full-window Pallas kernel, with tail
+    sentinels (``row == nrows``) in the arrays."""
+    n, m = shape
+    s = _mat(n, m, 15)
+    x = _x(m)
+    jnp = jax_ref["jnp"]
+    J = jax_ref["convert"].from_dense(s, "coo", dtype=_jax_dtype(jnp, dtype), pad_to=64)
+    T = tconv.from_dense(s, "coo", dtype=dtype, pad_to=64, device="cpu")
+    _assert_same_plan((T.row, T.col, T.val), (J.row, J.col, J.val))
+    want = jax_ref["coo"].coo_spmv(J.row, J.col, J.val, jnp.asarray(x), nrows=n,
+                                   interpret=True)
+    got = coo_spmv(T.row, T.col, T.val, torch.from_numpy(x), nrows=n)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got.float().numpy(), np.asarray(want, np.float32), _tol(dtype, s))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("index_dtype", ["int8", "int16", "int32"])
+def test_scoo_tiled_plain_matches_pallas_interpret(jax_ref, shape, dtype, index_dtype):
+    """``scoo_spmv_tiled_plain`` against the Pallas kernel on a
+    ``"coo-cols"`` plan of 32-row slices, 64-entry blocks and 64-column
+    tiles, built by each package's ``build_coo_col_plan`` from the same
+    numpy arrays (so several slices and a partial last tile are walked)."""
+    n, m = shape
+    s = _mat(n, m, 16).tocoo()
+    x = _x(m)
+    jnp = jax_ref["jnp"]
+    order = np.lexsort((s.col, s.row))
+    row, col = s.row[order].astype(np.int32), s.col[order].astype(np.int32)
+    val = s.data[order].astype(ttiling.staging_dtype(dtype))
+    kw = dict(col_tile=64, slice_rows=32, tile=64, index_dtype=index_dtype)
+    jp = jax_ref["tiling"].build_coo_col_plan(row, col, val, (n, m), **kw)
+    tp = ttiling.plan_to_tensors(ttiling.build_coo_col_plan(row, col, val, (n, m), **kw),
+                                 dtype, "cpu")
+    jr, jc, jv, jsid, jct = jp.arrays
+    jv = jnp.asarray(jv, _jax_dtype(jnp, dtype))  # the value dtype, as from_dense rounds
+    _assert_same_plan(tp.arrays, (jr, jc, jv, jsid, jct))
+    want = jax_ref["coo"].scoo_spmv_tiled(jr, jc, jv, jsid, jct, jnp.asarray(x), nrows=n,
+                                          col_tile=64, ntiles=jp.meta[1], slice_rows=32,
+                                          tile=64, interpret=True)
+    got = scoo_spmv_tiled(*tp.arrays, torch.from_numpy(x), nrows=n, col_tile=64,
+                          slice_rows=32, tile=64)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got.float().numpy(), np.asarray(want, np.float32), _tol(dtype, s))
+
+
+def test_segment_starts_bound_sorted_runs():
+    keys = torch.tensor([0, 0, 2, 2, 2, 3, 5, 5], dtype=torch.int32)
+    assert segment_starts(keys, 5).tolist() == [0, 2, 2, 5, 6, 6]
+    assert segment_starts(keys, 5).dtype == torch.int32
 
 
 def test_ref_oracles_match_reference(jax_ref):
@@ -291,6 +433,101 @@ def test_dia_kernels_match_plain_on_card(cuda, shape, dtype):
     assert torch.equal(yt, yt_plain)
     ym = dia_spmv(D.offsets, D.data, x, mask=mask)
     assert torch.equal(ym, torch.where(mask, y, torch.zeros((), dtype=y.dtype, device=cuda)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(3000, 5000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("index_dtype", ["int8", "int16", "int32"])
+def test_ell_kernels_match_plain_on_card(cuda, shape, dtype, index_dtype):
+    """Resident, tiled and masked ELL kernels equal their plain versions in
+    every dtype (the same products in the same order, one rounding to the
+    storage dtype at the end), narrow ids equal int32, and two launches
+    are bit-equal."""
+    n, m = shape
+    s = _mat(n, m, 17)
+    E = tconv.from_dense(s, "ell", dtype=dtype, col_tile=64, index_dtype=index_dtype,
+                         device=cuda)
+    x = torch.from_numpy(_x(m)).to(cuda)
+    mask = torch.from_numpy(np.random.default_rng(9).random(n) < 0.5).to(cuda)
+    before = (ell_spmv.launches, ell_spmv_tiled.launches)
+    y = ell_spmv(E.indices, E.data, x)
+    yt = ell_spmv_tiled(*E.plan.arrays, x, col_tile=64)
+    assert (ell_spmv.launches, ell_spmv_tiled.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, ell_spmv_plain(E.indices, E.data, x))
+    assert torch.equal(yt, ell_spmv_tiled_plain(*E.plan.arrays, x, col_tile=64))
+    assert torch.equal(yt, ell_spmv_tiled(*E.plan.arrays, x, col_tile=64))
+    zero = torch.zeros((), dtype=y.dtype, device=cuda)
+    assert torch.equal(ell_spmv(E.indices, E.data, x, mask=mask), torch.where(mask, y, zero))
+    assert torch.equal(ell_spmv_tiled(*E.plan.arrays, x, col_tile=64, mask=mask),
+                       torch.where(mask, yt, zero))
+    if index_dtype != "int32":
+        E32 = tconv.from_dense(s, "ell", dtype=dtype, col_tile=64, index_dtype="int32",
+                               device=cuda)
+        assert torch.equal(yt, ell_spmv_tiled(*E32.plan.arrays, x, col_tile=64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(3000, 5000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("index_dtype", ["int8", "int16", "int32"])
+def test_coo_kernels_match_plain_on_card(cuda, shape, dtype, index_dtype):
+    """The full-window COO kernel equals its plain version; the sliced one
+    agrees with its plain version within the stated tolerance (same-row
+    sums reassociated by the warp scan), repeats bit for bit, and gives
+    the int32 result with narrow ids."""
+    n, m = shape
+    s = _mat(n, m, 18)
+    C = tconv.from_dense(s, "coo", dtype=dtype, col_tile=64, index_dtype=index_dtype,
+                         pad_to=64, device=cuda)
+    x = torch.from_numpy(_x(m)).to(cuda)
+    before = (coo_spmv.launches, scoo_spmv_tiled.launches)
+    y = coo_spmv(C.row, C.col, C.val, x, nrows=n)
+    row, col, val, sid, ctile = C.plan.arrays
+    ct, _, slice_rows, tile = C.plan.meta
+    yt = scoo_spmv_tiled(row, col, val, sid, ctile, x, nrows=n, col_tile=ct,
+                         slice_rows=slice_rows, tile=tile)
+    assert (coo_spmv.launches, scoo_spmv_tiled.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, coo_spmv_plain(C.row, C.col, C.val, x, nrows=n))
+    _rel_close(yt, scoo_spmv_tiled_plain(row, col, val, sid, ctile, x, nrows=n,
+                                         col_tile=ct, tile=tile), dtype, s)
+    assert torch.equal(yt, scoo_spmv_tiled(row, col, val, sid, ctile, x, nrows=n,
+                                           col_tile=ct, slice_rows=slice_rows, tile=tile))
+    if index_dtype != "int32":
+        C32 = tconv.from_dense(s, "coo", dtype=dtype, col_tile=64, index_dtype="int32",
+                               device=cuda)
+        r32, c32, v32, sid32, ct32 = C32.plan.arrays
+        assert torch.equal(yt, scoo_spmv_tiled(r32, c32, v32, sid32, ct32, x, nrows=n,
+                                               col_tile=ct, slice_rows=slice_rows,
+                                               tile=tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_dtype", ["int8", "int16", "int32"])
+def test_scoo_kernel_keeps_first_row_beside_pad_run_on_card(cuda, index_dtype):
+    """A (slice, tile) group of fewer than 32 entries puts the slice's first
+    row, other rows and the pad run (rows = the slice's first row) into one
+    warp step; the pad run's sum must not overwrite the real one."""
+    import scipy.sparse as sp
+
+    n, m = 512, 128
+    rng = np.random.default_rng(19)
+    dense = np.zeros((n, m))
+    dense[:, :64] = (rng.random((n, 64)) < 0.05) * rng.standard_normal((n, 64))
+    dense[0, 100], dense[1, 100] = 1.5, -2.0  # the second tile's only entries
+    s = sp.csr_matrix(dense)
+    C = tconv.from_dense(s, "coo", col_tile=64, index_dtype=index_dtype, device=cuda)
+    row, col, val, sid, ctile = C.plan.arrays
+    ct, _, slice_rows, tile = C.plan.meta
+    x = torch.from_numpy(_x(m)).to(cuda)
+    yt = scoo_spmv_tiled(row, col, val, sid, ctile, x, nrows=n, col_tile=ct,
+                         slice_rows=slice_rows, tile=tile)
+    _rel_close(yt, scoo_spmv_tiled_plain(row, col, val, sid, ctile, x, nrows=n,
+                                         col_tile=ct, tile=tile), "float32", s)
+    _close(yt.cpu().numpy(), s @ _x(m))
+    C32 = tconv.from_dense(s, "coo", col_tile=64, index_dtype="int32", device=cuda)
+    assert torch.equal(yt, scoo_spmv_tiled(*C32.plan.arrays, x, nrows=n, col_tile=ct,
+                                           slice_rows=slice_rows, tile=tile))
 
 
 @pytest.mark.cuda
