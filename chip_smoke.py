@@ -15,16 +15,23 @@ Phases, one or more lines each, each ending with its seconds:
      the masked DIA wrapper against ``where(mask, A @ x, 0)`` (exact),
      ``ell_spmv`` on 52^3, the masked ELL wrapper (exact), ``ell_spmv_tiled``
      on the finest level's ``"ell-cols"`` plan, ``coo_spmv`` on 13^3 and
-     ``scoo_spmv_tiled`` on the finest level's ``"coo-cols"`` plan. Each line
-     gives the median kernel time (CUDA events around one call, which also
-     catch the wrapper's host time), the kernel's device time alone
-     (``torch.profiler``), the plain version's time, a cuSPARSE CSR SpMV on
-     the same matrix as a yardstick (never called by the port), the bound
-     from the run's own arrays at 3.35 TB/s, and whether two launches gave
-     equal bits;
+     ``scoo_spmv_tiled`` on the finest level's ``"coo-cols"`` plan,
+     ``scoo_spmv`` on the finest level's ``build_scoo`` layout (slices and
+     blocks of 512; no dispatch path calls it, so its own path here is one
+     call, counted like the others), and ``bsr_spmm`` and its masked form on
+     the block matrix of phase 8 at 1 and 128 columns. Each line gives the
+     median kernel time (CUDA events around one call, which also catch the
+     wrapper's host time), the kernel's device time alone
+     (``torch.profiler``), the plain version's time, one PyTorch library
+     call on the same matrix as a yardstick (never called by the port: a
+     cuSPARSE CSR SpMV, or for ``bsr_spmm`` ``torch.sparse_bsr_tensor @ X``),
+     the bound from the run's own arrays (bytes at 3.35 TB/s against flops
+     at 67 TFLOP/s, or for ``bsr_spmm`` at 165 TFLOP/s), and whether two
+     launches gave equal bits;
   3. HPCG 16^3 on the card: ``valid`` and ``bitwise``;
   4. the main path, ``run_hpcg(104, 104, 104, iters=50, depth=4, reps=3)``
-     racing coo/csr/dia/ell/sell x plain/cuda, with the launch counters and
+     racing coo/csr/dia/ell/sell/bsr x plain/cuda (bsr skipped by the
+     block-fill guard at every level), with the launch counters and
      the health registry reset just before it and read just after. It
      requires ``bitwise``, ``rel_err < 1e-3``, no failure or non-finite
      output on any key, every cuda candidate timed in the main race, no race
@@ -43,7 +50,17 @@ Phases, one or more lines each, each ending with its seconds:
      winner's kernel must launch for it;
   7. Matrix Market input: every ``tests/fixtures/corpus/*.mtx`` through
      ``repro_torch.io.iter_corpus``, the same race, and ``A @ x`` against
-     scipy's ``s @ x``; ``coo_spmv`` must launch on this path.
+     scipy's ``s @ x``; ``coo_spmv`` must launch on this path;
+  8. the block path: ``block_random(65536, 32, 16/2048)`` (34,699 blocks of
+     32x32, 35,531,776 entries) through ``as_operator(s, "csr").tune(...)``
+     over the same twelve keys (dia skipped by its guard, coo/cuda
+     unsupported, bsr/cuda timed), ``A @ x`` and ``A @ X`` (128 columns) of
+     the tuned operator and of a bsr operator on the cuda backend against
+     csr/plain, the masked bsr SpMV exact, ``bsr_spmm`` launched, and
+     ``tune(mode="predict")`` on the same matrix, which launches no kernel;
+  9. ``run_hpcg(104, 104, 104, iters=50, depth=4, tune_mode="predict")``:
+     phase 3 ranked by the zero-run selector's ``"cuda"`` table, no race;
+     ``valid`` and ``bitwise``, its level picks and t_opt.
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
@@ -69,6 +86,10 @@ CORPUS = os.path.join(ROOT, "tests", "fixtures", "corpus")
 #: tensor cores — the roofline of a CUDA-core f32 SpMV.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+#: f32 products on the tensor cores at f32 accuracy: a 3xTF32 split takes
+#: three passes at the dense TF32 peak of 495 TFLOP/s (one pass misses rtol
+#: 2e-4). The fastest rate at which the card meets ``bsr_spmm``'s tolerance.
+TF32X3_FLOPS = 495e12 / 3
 
 #: HPCG's default local grid (the ``hpcg.dat`` of the reference distribution).
 GRID = 104
@@ -84,24 +105,31 @@ KERNEL_SOURCES = {
     "coo_spmv": ("src/repro_torch/csrc/coo_spmv.cu", "src/repro/kernels/coo_spmv.py:85"),
     "scoo_spmv_tiled": ("src/repro_torch/csrc/coo_spmv.cu",
                         "src/repro/kernels/coo_spmv.py:200"),
+    "scoo_spmv": ("src/repro_torch/csrc/coo_spmv.cu", "src/repro/kernels/coo_spmv.py:141"),
+    "bsr_spmm": ("src/repro_torch/csrc/bsr_spmm.cu", "src/repro/kernels/bsr_spmm.py:44"),
 }
 
 #: The kernels each format's cuda entry may launch.
 FORMAT_KERNELS = {"csr": ("scs_spmv",), "sell": ("scs_spmv",),
                   "dia": ("dia_spmv", "dia_spmv_tiled"),
                   "ell": ("ell_spmv", "ell_spmv_tiled"),
-                  "coo": ("coo_spmv", "scoo_spmv_tiled")}
+                  "coo": ("coo_spmv", "scoo_spmv_tiled"), "bsr": ("bsr_spmm",)}
 
-#: The reference's DEFAULT_CANDIDATES without dense (n^2 at 104^3) and bsr
-#: (no cuda kernel yet).
-CANDIDATES = [(fmt, impl) for fmt in ("coo", "csr", "dia", "ell", "sell")
+#: The reference's DEFAULT_CANDIDATES without dense (n^2 at 104^3).
+CANDIDATES = [(fmt, impl) for fmt in ("coo", "csr", "dia", "ell", "sell", "bsr")
               for impl in ("plain", "cuda")]
 
-#: The path on which each kernel must launch: the HPCG run (phase 4) or the
-#: column-limited CG (phase 5).
+#: The path on which each kernel must launch: the HPCG run (phase 4), the
+#: column-limited CG (phase 5), the one ``scoo_spmv`` call of phase 2 or the
+#: block path (phase 8).
 REQUIRED_ON = {"scs_spmv": "hpcg", "dia_spmv": "hpcg", "dia_spmv_tiled": "tiled_cg",
                "ell_spmv": "hpcg", "ell_spmv_tiled": "hpcg", "coo_spmv": "hpcg",
-               "scoo_spmv_tiled": "hpcg"}
+               "scoo_spmv_tiled": "hpcg", "scoo_spmv": "scoo", "bsr_spmm": "block"}
+
+#: The block matrix of the block path: ``block_random(n, bs, density)``.
+BLOCK_MATRIX = (65536, 32, 16 / 2048)
+#: Columns of X on the block path's SpMM.
+BLOCK_NF = 128
 
 #: The unstructured matrices of the tuner phase (10^6 rows: x fits whole,
 #: so every format takes its resident strategy).
@@ -163,9 +191,9 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(nbytes_moved: int, flops: int):
+def bound(nbytes_moved: int, flops: int, flops_per_s: float = F32_FLOPS):
     t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -184,17 +212,21 @@ def within(what: str, y, want, rtol=2e-4) -> float:
     return float(err.max())
 
 
-def phase_kernels(results: dict) -> dict:
+def phase_kernels(results: dict, block) -> tuple:
     """Phase 2: every kernel against its plain version at the main path's
-    shapes; returns the per-kernel numbers the JSON line reports."""
+    shapes (``block`` is the block path's scipy matrix); returns the
+    per-kernel numbers the JSON line reports and the launches of the one
+    ``scoo_spmv`` call that is that kernel's path."""
     import numpy as np
     import torch
 
     from repro_torch.core import ExecutionPolicy, matrices as M
-    from repro_torch.core.convert import to_coo, to_csr, to_dia, to_ell
+    from repro_torch.core.convert import to_bsr, to_coo, to_csr, to_dia, to_ell
     from repro_torch.kernels import ops
     from repro_torch.kernels._launch import segment_starts
-    from repro_torch.kernels.coo_spmv import (coo_spmv, coo_spmv_plain, scoo_spmv_tiled,
+    from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from repro_torch.kernels.coo_spmv import (build_scoo, coo_spmv, coo_spmv_plain, scoo_spmv,
+                                              scoo_spmv_plain, scoo_spmv_tiled,
                                               scoo_spmv_tiled_plain)
     from repro_torch.kernels.dia_spmv import (dia_spmv, dia_spmv_plain, dia_spmv_tiled,
                                               dia_spmv_tiled_plain)
@@ -217,21 +249,25 @@ def phase_kernels(results: dict) -> dict:
                                 .astype(np.float32)).to(dev)
 
     def measure(name, label, s, x, fn, plain, moved, kernel, plain_reps=5, exact=False,
-                **extra):
+                flops=None, flops_per_s=F32_FLOPS, library=None, **extra):
         """Kernel against plain (exactly when ``exact``), two launches
         bit-equal, then the times; ``moved`` is the bytes the function must
-        move for this input, ``kernel`` the CUDA kernel's name."""
+        move for this input, ``flops`` its operations (default two per
+        nonzero) at ``flops_per_s``, ``kernel`` the CUDA kernel's name, ``library`` the
+        yardstick's time (default a cuSPARSE CSR SpMV of ``s`` and ``x``)."""
         y, y_plain = fn(), plain()
         err = within(f"{label} against its plain version", y, y_plain)
         same = bool(torch.equal(y, y_plain))
         if exact:
             check(same, f"{label}: kernel differs from its plain version")
         check(bool(torch.equal(y, fn())), f"{label}: two launches differ")
-        b_ms, b_by = bound(moved, 2 * s.nnz)
+        b_ms, b_by = bound(moved, 2 * s.nnz if flops is None else flops, flops_per_s)
         rec = dict(extra, exact=same, repeat_equal=True, max_abs_err=err,
                    ms=cuda_ms(fn, 50), kernel_ms=kernel_ms(fn, kernel),
                    plain_ms=cuda_ms(plain, plain_reps),
-                   library_ms=library_ms(s, x), bytes=moved, bound_ms=b_ms, bound_by=b_by)
+                   library_ms=library_ms(s, x) if library is None else library(),
+                   bytes=moved, flops=2 * s.nnz if flops is None else flops,
+                   bound_ms=b_ms, bound_by=b_by)
         results[name] = phase(f"kernel {label}", **rec)
         return rec
 
@@ -381,20 +417,91 @@ def phase_kernels(results: dict) -> dict:
                          slice_rows=slice_rows, tile=tile)
     within("scoo_spmv_tiled beside a pad run against its plain version", ys,
            scoo_spmv_tiled_plain(*Co.plan.arrays, xs, nrows=512, col_tile=ct_c, tile=tile))
+    del Co
+
+    # scoo_spmv on the finest level's build_scoo layout (row-sorted COO)
+    coo = s.tocoo()
+    srow, scol, sval, ssid = (torch.from_numpy(a).to(dev) for a in build_scoo(
+        coo.row, coo.col, coo.data.astype(np.float32), n, slice_rows=512, tile=512))
+    del coo
+    sruns = segment_starts(ssid, -(-n // 512))
+    out["scoo_spmv"] = measure(
+        "scoo_spmv", f"scoo_spmv {GRID}^3", s, x,
+        lambda: scoo_spmv(srow, scol, sval, ssid, x, nrows=n, run_start=sruns),
+        lambda: scoo_spmv_plain(srow, scol, sval, ssid, x, nrows=n),
+        nbytes(srow, scol, sval, sruns, x) + n * 4, "scoo_tiled_kernel",
+        grid=GRID, slice_rows=512, tile=512, blocks=int(ssid.shape[0]),
+        entries=int(srow.shape[0]))
+    want = torch.from_numpy(s @ x.double().cpu().numpy())
+
+    def scoo_path():
+        y = scoo_spmv(srow, scol, sval, ssid, x, nrows=n)
+        within(f"scoo_spmv {GRID}^3 against scipy", y, want)
+
+    _, launches_scoo, _ = counted("scoo", scoo_path)
+    del srow, scol, sval, ssid, sruns
     torch.cuda.empty_cache()
-    return out
+
+    # bsr_spmm and its masked form on the block matrix, one and 128 columns
+    B = to_bsr(block, device=dev)
+    nb = block.shape[0]
+    bs, esz = B.bs, B.blocks.element_size()
+    valid = B.bcols >= 0
+    real = int(valid.sum())
+    bsr_lib = torch.sparse_bsr_tensor(
+        torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), valid.sum(1).cumsum(0)]),
+        B.bcols[valid].long(), B.blocks[valid], size=block.shape)
+    mask = torch.from_numpy((np.arange(nb) % 8) == 3).to(dev)
+    kept = mask.reshape(-1, bs).sum(1)  # kept rows of each block row
+    kept_entries = int((valid.sum(1) * kept).sum()) * bs  # stored entries they read
+
+    for nf in (1, BLOCK_NF):
+        X = torch.from_numpy(np.random.default_rng(3).standard_normal((nb, nf))
+                             .astype(np.float32)).to(dev)
+        lib_ms = cuda_ms(lambda: bsr_lib @ X, reps=20)
+        Y = bsr_spmm(B.bcols, B.blocks, X)
+        rec = measure(
+            f"bsr_spmm_nf{nf}", f"bsr_spmm nf={nf}", block, X,
+            lambda: bsr_spmm(B.bcols, B.blocks, X), lambda: bsr_spmm_plain(B.bcols, B.blocks, X),
+            real * bs * bs * esz + nbytes(B.bcols, X) + nb * nf * 4, "bsr_spmm_kernel",
+            plain_reps=3, flops=2 * real * bs * bs * nf, flops_per_s=TF32X3_FLOPS,
+            library=lambda: lib_ms, nf=nf, bs=bs, bwidth=B.bwidth, real_blocks=real,
+            padded_blocks=int(valid.numel()))
+        Ym = bsr_spmm(B.bcols, B.blocks, X, row_mask=mask)
+        check(bool(torch.equal(Ym, torch.where(mask[:, None], Y, torch.zeros((), device=dev)))),
+              f"masked bsr_spmm nf={nf} != where(mask, A @ X, 0)")
+        recm = measure(
+            f"bsr_masked_nf{nf}", f"bsr_spmm masked nf={nf}", block, X,
+            lambda: bsr_spmm(B.bcols, B.blocks, X, row_mask=mask),
+            lambda: bsr_spmm_plain(B.bcols, B.blocks, X, row_mask=mask),
+            kept_entries * esz + nbytes(B.bcols, X, mask) + nb * nf * 4,
+            "bsr_spmm_kernel", plain_reps=3, flops=2 * kept_entries * nf,
+            flops_per_s=TF32X3_FLOPS, library=lambda: None, nf=nf, equals_where_of_unmasked=True)
+        if nf == 1:
+            out["bsr_spmm"], out["bsr_masked"] = rec, recm
+        else:
+            out["bsr_spmm"]["spmm"] = {k: rec[k] for k in (
+                "nf", "max_abs_err", "ms", "kernel_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")}
+            out["bsr_masked"]["spmm"] = {k: recm[k] for k in (
+                "nf", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+        del X, Y, Ym
+    del B, bsr_lib
+    torch.cuda.empty_cache()
+    return out, launches_scoo
 
 
 def counters() -> dict:
     """Every kernel wrapper by name."""
-    from repro_torch.kernels.coo_spmv import coo_spmv, scoo_spmv_tiled
+    from repro_torch.kernels.bsr_spmm import bsr_spmm
+    from repro_torch.kernels.coo_spmv import coo_spmv, scoo_spmv, scoo_spmv_tiled
     from repro_torch.kernels.dia_spmv import dia_spmv, dia_spmv_tiled
     from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_tiled
     from repro_torch.kernels.sell_spmv import scs_spmv
 
     return {"scs_spmv": scs_spmv, "dia_spmv": dia_spmv, "dia_spmv_tiled": dia_spmv_tiled,
             "ell_spmv": ell_spmv, "ell_spmv_tiled": ell_spmv_tiled, "coo_spmv": coo_spmv,
-            "scoo_spmv_tiled": scoo_spmv_tiled}
+            "scoo_spmv_tiled": scoo_spmv_tiled, "scoo_spmv": scoo_spmv, "bsr_spmm": bsr_spmm}
 
 
 def launch_counts() -> dict:
@@ -458,12 +565,21 @@ def counted(label: str, drive):
     return value, launches, races
 
 
+def check_bsr_guarded(label: str, skipped) -> None:
+    """bsr is in the race and skipped by the block-fill guard (an HPCG
+    level's 32-edge blocks are under an eighth full)."""
+    for impl in ("plain", "cuda"):
+        check(any(sk[:2] == ("bsr", impl) and sk[2].startswith("block_fill=")
+                  for sk in skipped), f"{label}: bsr/{impl} not skipped by the block-fill guard")
+
+
 def check_hpcg(res, label: str) -> None:
     check(res.bitwise, f"{label}: bitwise tier failed")
     check(res.rel_err < 1e-3, f"{label}: rel_err {res.rel_err} >= 1e-3")
     for fmt, impl in CANDIDATES:
-        if impl == "cuda":
+        if impl == "cuda" and fmt != "bsr":
             check(f"{fmt}/{impl}" in res.table, f"{label}: {fmt}/cuda missing from the tune table")
+    check_bsr_guarded(label, res.skipped)
     errs = [sk for sk in res.skipped if sk[2].startswith("error:")]
     check(not errs, f"{label}: candidates raised: {errs}")
 
@@ -531,6 +647,57 @@ def phase_corpus(results: dict):
     results["corpus"] = out
 
 
+def phase_block(results: dict, block):
+    """Phase 8: the block path — a block-structured operator tuned, then
+    applied to one and to BLOCK_NF right-hand sides, on the cuda backend's
+    bsr entry; and the zero-run pick on the same matrix."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import as_operator, health_registry
+
+    n = block.shape[0]
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    X = torch.from_numpy(rng.standard_normal((n, BLOCK_NF)).astype(np.float32)).cuda()
+    mask = torch.from_numpy((np.arange(n) % 8) == 3).cuda()
+    A = as_operator(block, "csr", device="cuda")
+    races = []
+    with recorded_races(races):
+        tuned = A.tune(candidates=CANDIDATES)
+    res = races[-1]
+    print_race("block", res)
+    check(("bsr", "cuda") in res.table, "block: bsr/cuda was not timed in the race")
+    check(("coo", "cuda", "unsupported") in res.skipped, "block: coo/cuda not unsupported")
+    ref = A.using("plain")
+    want_y, want_Y = ref @ x, ref @ X
+    B = tuned if (res.format, res.impl) == ("bsr", "cuda") else A.asformat("bsr").using("cuda")
+    errs = {}
+    for label, op in (("tuned", tuned), ("bsr/cuda", B)):
+        before = launch_counts()["bsr_spmm"]
+        y, Y = op @ x, op @ X
+        torch.cuda.synchronize()
+        ran = launch_counts()["bsr_spmm"] - before
+        errs[label] = (within(f"block: {label} A @ x against csr/plain", y, want_y),
+                       within(f"block: {label} A @ X against csr/plain", Y, want_Y))
+        if label == "bsr/cuda":
+            check(ran == 2, f"block: bsr/cuda launched bsr_spmm {ran} times for A @ x, A @ X")
+            ym = op.masked_matvec(x, mask)
+            check(bool(torch.equal(ym, torch.where(mask, y, torch.zeros((), device="cuda")))),
+                  "block: masked bsr SpMV != where(mask, A @ x, 0)")
+    before, faults = launch_counts(), health_registry().snapshot()["keys"]
+    t0 = time.perf_counter()
+    P = A.tune(candidates=CANDIDATES, mode="predict")
+    predict_s = time.perf_counter() - t0
+    check(launch_counts() == before and health_registry().snapshot()["keys"] == faults,
+          "block: tune(mode='predict') launched a kernel")
+    results["block"] = phase(
+        "block", n=n, nnz=block.nnz, race=f"{res.format}/{res.impl}",
+        predict=f"{P.format}/{P.policy.backends[0]}", predict_s=round(predict_s, 2),
+        max_abs_err=json.dumps(errs))
+    del A, tuned, B, P, ref
+
+
 def main() -> int:
     import torch
 
@@ -576,7 +743,9 @@ def main() -> int:
     lap("1 build")
 
     # ---------------------------------------------------------------- 2
-    kern = phase_kernels(results)
+    block = M.block_random(BLOCK_MATRIX[0], BLOCK_MATRIX[1], block_density=BLOCK_MATRIX[2],
+                           seed=0)
+    kern, launches_scoo = phase_kernels(results, block)
     lap("2 kernels")
 
     # ---------------------------------------------------------------- 3
@@ -594,6 +763,7 @@ def main() -> int:
     for r in races:
         if len(r.table) > 1:  # the validation races time csr/plain alone
             print_race(f"hpcg {g}^3", r)
+            check_bsr_guarded(f"HPCG {g}^3 race at {tuple(r.matrix.shape)}", r.skipped)
     check_hpcg(res, f"HPCG {g}^3")
     results["hpcg"] = phase(
         f"hpcg {g}^3", valid=res.valid, bitwise=res.bitwise, rel_err=res.rel_err,
@@ -637,8 +807,26 @@ def main() -> int:
     check(launches_corpus["coo_spmv"] > 0, "coo_spmv was not launched on the corpus path")
     lap("7 corpus")
 
+    # ---------------------------------------------------------------- 8
+    _, launches_block, _ = counted("block", lambda: phase_block(results, block))
+    del block
+    lap("8 block")
+
+    # ---------------------------------------------------------------- 9
+    resp, launches_pred, _ = counted(f"hpcg {g}^3 predict", lambda: run_hpcg(
+        g, g, g, iters=50, depth=4, tune_mode="predict", device="cuda"))
+    check(resp.valid and resp.bitwise,
+          f"HPCG {g}^3 predict: valid={resp.valid} bitwise={resp.bitwise}")
+    results["hpcg_predict"] = phase(
+        f"hpcg {g}^3 predict", valid=resp.valid, bitwise=resp.bitwise, rel_err=resp.rel_err,
+        pcg_iters=resp.pcg_iters, rel_res=resp.rel_res, chosen=resp.chosen,
+        levels=repr(resp.mg_levels), t_ref_s=resp.ref_time_s, t_opt_s=resp.opt_time_s,
+        launches=json.dumps(launches_pred))
+    lap("9 hpcg104 predict")
+
     by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled,
-               "tuner": launches_tuner, "corpus": launches_corpus}
+               "tuner": launches_tuner, "corpus": launches_corpus, "scoo": launches_scoo,
+               "block": launches_block, "hpcg_predict": launches_pred}
     for name, path in REQUIRED_ON.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
 
@@ -651,7 +839,7 @@ def main() -> int:
             **{f"launches_{p}": counts[name] for p, counts in by_path.items()},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"]})
+            "library_ms": k["library_ms"], **({"spmm": k["spmm"]} if "spmm" in k else {})})
     results["seconds"] = seconds
     results["total_s"] = round(time.perf_counter() - t_start, 1)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

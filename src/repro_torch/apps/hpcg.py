@@ -3,8 +3,9 @@
 The five phases of ``repro.apps.hpcg.run_hpcg``: (1) setup — the 27-point
 stencil and the multigrid hierarchy; (2) reference run — preconditioned CG
 with plain CSR operators at every level; (3) optimisation setup — the
-run-first auto-tuner picks a (format, backend) for the main operator and
-for every multigrid level; (4) validation — the optimised pipeline forced
+run-first auto-tuner (or, with ``tune_mode="predict"``, the zero-run
+selector) picks a (format, backend) for the main operator and for every
+multigrid level; (4) validation — the optimised pipeline forced
 onto the csr/plain candidates must reproduce the reference run bit for bit,
 and the tuned run must converge to ``tol`` and agree with the reference;
 (5) timed runs — fixed-iteration PCG, so the op counts match across
@@ -89,14 +90,12 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
     """Serial HPCG phases 1-5 on ``device`` (default ``"cuda"``).
 
     ``timed=False`` runs phases 1-4 only and reports zero times.
-    ``tune_mode="predict"`` needs the zero-run selector (ROADMAP queue 1,
-    item 4) and raises.
+    ``tune_mode="predict"`` swaps phase 3's races (main operator and every
+    multigrid level) for the zero-run selector, on the cost table of
+    ``device``: setup runs no candidate kernel, and validation is the same,
+    so a bad prediction fails a check rather than passing silently.
     """
-    if tune_mode == "predict":
-        raise NotImplementedError(
-            "run_hpcg(tune_mode='predict') needs the zero-run selector, not "
-            "ported yet (ROADMAP queue 1, item 4: core/select.py)")
-    if tune_mode != "run":
+    if tune_mode not in ("run", "predict"):
         raise ValueError(f"tune_mode {tune_mode!r}: expected 'run' or 'predict'")
     dev = resolve_device(device)
     # Phase 1: problem setup (stencil + multigrid hierarchy)
@@ -112,12 +111,19 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
     _guard_phase(ref, "reference", tol=tol, maxiter=iters)
     x_ref = ref.x
 
-    # Phase 3: optimisation setup (per-level formats, Table III style)
-    tune = autotune_spmv(A_sp, candidates=candidates, device=dev)
-    A_opt, impl = tune.operator, tune.impl
-    chosen = f"{tune.format}/{impl}"
-    tune_table = {f"{f}/{i}": t for (f, i), t in tune.table.items()}
-    mg_opt = mg_ref.retuned(candidates) if precond else None
+    # Phase 3: optimisation setup (per-level formats, Table III style):
+    # "run" races the candidates, "predict" ranks them without a kernel
+    if tune_mode == "predict":
+        A_opt = as_operator(A_sp, "csr", device=dev).tune(candidates=candidates,
+                                                          mode="predict")
+        chosen, tune_table, skipped = f"{A_opt.format}/{A_opt.policy.backends[0]}", {}, []
+    else:
+        tune = autotune_spmv(A_sp, candidates=candidates, device=dev)
+        A_opt = tune.operator
+        chosen = f"{tune.format}/{tune.impl}"
+        tune_table = {f"{f}/{i}": t for (f, i), t in tune.table.items()}
+        skipped = list(tune.skipped)
+    mg_opt = mg_ref.retuned(candidates, mode=tune_mode) if precond else None
     opt_timed, opt_conv = _solver_pair(A_opt, mg_opt, iters, tol)
 
     # Phase 4: validation
@@ -148,7 +154,7 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
         chosen, valid, rel, tune_table,
         precond=precond, pcg_iters=int(opt.iters), rel_res=float(opt.rel_res),
         bitwise=bitwise, mg_levels=mg_opt.describe() if mg_opt else "",
-        skipped=list(tune.skipped))
+        skipped=skipped)
     if verbose:
         kind = "pcg" if precond else "cg"
         print(f"HPCG {nx}x{ny}x{nz} n={n} on {dev}: ref(csr/plain)={t_ref*1e3:.1f}ms "

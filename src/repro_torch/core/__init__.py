@@ -9,9 +9,11 @@ Public API (the ported part of ``repro.core``):
     spmv/spmm: policy-dispatched sparse mat-vec / mat-mat
     autotune:  run-first (format, backend) auto-tuner -> SparseOperator
     features:  structural MatrixFeatures extraction (host-side numpy)
+    select:    zero-run (format, backend) ranking from features
+               (rank_formats / predict_format / prune_candidates)
     health:    per-DispatchKey failure counters under dispatch
 
-Not ported yet (ROADMAP queue 1): select, registry, dynamic, distributed.
+Not ported yet (ROADMAP queue 1): registry, dynamic, distributed.
 """
 from .errors import (
     AdmissionError,
@@ -57,6 +59,10 @@ from .spmv import (
 )
 from .autotune import TuneResult, autotune_spmv, structural_skip
 from .features import MatrixFeatures, extract_features
+from .select import (
+    Prediction, bytes_per_nnz, plan_index_dtype, predict_format,
+    prune_candidates, rank_formats, selection_drifted, storage_bytes,
+)
 
 __all__ = [
     "BSR", "COO", "CSR", "DIA", "ELL", "SELL", "Dense", "KernelPlan",
@@ -70,6 +76,8 @@ __all__ = [
     "register_spmm", "register_spmv", "select_spmv", "spmm", "spmv",
     "TuneResult", "autotune_spmv", "structural_skip",
     "MatrixFeatures", "extract_features",
+    "Prediction", "bytes_per_nnz", "plan_index_dtype", "predict_format",
+    "prune_candidates", "rank_formats", "selection_drifted", "storage_bytes",
     "AdmissionError", "InjectedFault", "KernelExecutionError",
     "ResilienceError", "SolverDivergenceError", "SparseInputError",
     "validate_container", "validate_rhs",

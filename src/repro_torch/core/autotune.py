@@ -136,6 +136,29 @@ def structural_skip(s, fmt: str, dia_max_diags: int = 512,
     return None
 
 
+def _pruned(s, cand, keep: int, policy, dev, dia_max_diags, ell_max_width_factor,
+            skipped) -> Tuple[Tuple[str, str], ...]:
+    """The candidates ``prune=keep`` races: the selector's top ``keep`` and
+    every structurally infeasible key (skipped later with its structural
+    reason, not blamed on the selector); the others go to ``skipped``."""
+    from . import select
+    from .features import extract_features
+
+    feats = extract_features(s)
+    keep_keys = {(k.format, k.backend) for k in select.prune_candidates(
+        feats, keep, policy=policy if policy is not None else DEFAULT_POLICY,
+        candidates=cand, platform=dev.type, dia_max_diags=dia_max_diags,
+        ell_max_width_factor=ell_max_width_factor)}
+    out = []
+    for fmt, impl in cand:
+        if (fmt, impl) in keep_keys or select.infeasible(
+                feats, fmt, dia_max_diags, ell_max_width_factor) is not None:
+            out.append((fmt, impl))
+        else:
+            skipped.append((fmt, impl, "pruned by selector"))
+    return tuple(out)
+
+
 def autotune_spmv(
     a_dense,
     candidates: Optional[Sequence] = None,
@@ -154,15 +177,13 @@ def autotune_spmv(
     ``a_dense`` may be dense, scipy sparse, a container, or a
     ``SparseOperator``; the candidates are built on ``device`` (default
     ``"cuda"``). ``time_fn(fn, A, x, key, iters=, warmup=) -> us`` overrides
-    the timer. ``prune=`` needs the zero-run selector, which is not ported
-    yet (ROADMAP queue 1, item 4) and raises.
+    the timer. ``prune=k`` races only the top-``k`` candidates of the
+    zero-run selector's ranking on the cost table of ``device``; pruned keys
+    land in ``skipped`` as ``"pruned by selector"``, while structurally
+    infeasible ones keep their structural reason.
     """
     import scipy.sparse as sp
 
-    if prune:
-        raise NotImplementedError(
-            "autotune_spmv(prune=) needs the zero-run selector, not ported yet "
-            "(ROADMAP queue 1, item 4: core/select.py)")
     dev = resolve_device(device)
     if isinstance(a_dense, SparseOperator):
         a_dense = a_dense.container
@@ -180,6 +201,9 @@ def autotune_spmv(
     mats = {}
     skip_cache: Dict[str, Optional[str]] = {}
     cand = _normalize_candidates(candidates if candidates is not None else DEFAULT_CANDIDATES)
+    if prune:
+        cand = _pruned(s, cand, int(prune), policy, dev, dia_max_diags,
+                       ell_max_width_factor, skipped)
     for fmt, impl in cand:
         if fmt not in skip_cache:
             skip_cache[fmt] = structural_skip(s, fmt, dia_max_diags,

@@ -315,11 +315,15 @@ def to_bsr(a, dtype=torch.float32, bs: int = 32, bwidth: Optional[int] = None,
         else:
             bs = int(block_size)
     nbrows, nbcols = -(-nrows // bs), -(-ncols // bs)
-    b = sp.bsr_matrix(s, blocksize=(bs, bs)) if nrows % bs == 0 and ncols % bs == 0 else None
-    if b is None:  # pad then re-block
-        pad = sp.csr_matrix((nbrows * bs, nbcols * bs), dtype=s.dtype)
-        pad[:nrows, :ncols] = s
-        b = sp.bsr_matrix(pad, blocksize=(bs, bs))
+    if nrows % bs or ncols % bs:
+        # pad to whole blocks: the same entries in a wider, taller csr (the
+        # reference assigns into an empty csr, which scipy does entry by
+        # entry: minutes at 10^6 entries)
+        s = s.tocsr()
+        indptr = np.concatenate([s.indptr, np.full(nbrows * bs - nrows, s.indptr[-1],
+                                                   s.indptr.dtype)])
+        s = sp.csr_matrix((s.data, s.indices, indptr), shape=(nbrows * bs, nbcols * bs))
+    b = sp.bsr_matrix(s, blocksize=(bs, bs))
     counts = np.diff(b.indptr)
     w = int(bwidth if bwidth is not None else max(1, counts.max() if len(counts) else 1))
     bcols = np.full((nbrows, w), -1, np.int32)

@@ -91,19 +91,25 @@ def powerlaw(n: int, avg_nnz: int = 8, alpha: float = 1.8, seed: int = 0,
 
 def block_random(n: int, bs: int = 32, block_density: float = 0.05,
                  seed: int = 0, dtype=np.float64) -> sp.csr_matrix:
-    """Block-sparse (BSR country — MoE-dispatch-shaped)."""
+    """Block-sparse (BSR country — MoE-dispatch-shaped).
+
+    The reference's matrix from the same seed, built without its per-entry
+    Python loop: the block mask first, then every block's values in one
+    draw, in ``np.nonzero`` order (the order the reference draws them in),
+    and the entries in the reference's (block, row, column) order, edge
+    blocks clipped to the matrix.
+    """
     rng = np.random.default_rng(seed)
     nb = -(-n // bs)
     mask = rng.random((nb, nb)) < block_density
     mask[np.arange(nb), np.arange(nb)] = True
-    rows, cols, vals = [], [], []
-    for br, bc in zip(*np.nonzero(mask)):
-        blk = rng.standard_normal((bs, bs))
-        r0, c0 = br * bs, bc * bs
-        for i in range(min(bs, n - r0)):
-            for j in range(min(bs, n - c0)):
-                rows.append(r0 + i), cols.append(c0 + j), vals.append(blk[i, j])
-    return sp.csr_matrix((vals, (rows, cols)),
+    br, bc = np.nonzero(mask)
+    blocks = rng.standard_normal((br.shape[0], bs, bs))
+    ar = np.arange(bs)
+    rows = np.broadcast_to(br[:, None, None] * bs + ar[None, :, None], blocks.shape)
+    cols = np.broadcast_to(bc[:, None, None] * bs + ar[None, None, :], blocks.shape)
+    inside = (rows < n) & (cols < n)
+    return sp.csr_matrix((blocks[inside], (rows[inside], cols[inside])),
                          shape=(n, n)).astype(dtype, copy=False)
 
 

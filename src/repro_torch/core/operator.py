@@ -5,7 +5,8 @@ The PyTorch counterpart of ``repro.core.operator``:
   - ``SparseOperator``  : an immutable facade over any registered container.
     ``A @ x`` does SpMV, ``A @ X`` does SpMM, ``A.asformat("dia")`` is a
     cached runtime format switch, ``A.tune()`` runs the run-first
-    auto-tuner and returns a retargeted operator.
+    auto-tuner (``mode="predict"``: the zero-run selector) and returns a
+    retargeted operator.
   - ``ExecutionPolicy`` : a frozen description of *how* to execute — a
     backend preference chain plus the device-fit limits the ``cuda``
     kernels' ``supports(A, policy)`` predicates read.
@@ -298,23 +299,32 @@ class SparseOperator:
                 fingerprint: Optional[str] = None):
         raise NotImplementedError(
             "the dynamic-matrix lane is not ported yet (ROADMAP queue 1, "
-            "item 7: core/dynamic.py)")
+            "item 5: core/dynamic.py)")
 
     def refresh(self, overlay, threshold: Optional[float] = None,
                 mode: str = "predict", **kw) -> "SparseOperator":
         raise NotImplementedError(
             "the dynamic-matrix lane is not ported yet (ROADMAP queue 1, "
-            "item 7: core/dynamic.py)")
+            "item 5: core/dynamic.py)")
 
     # -- auto-tuning --------------------------------------------------------
 
     def tune(self, candidates=None, mode: str = "run", **kw) -> "SparseOperator":
-        """Race the candidates with the run-first auto-tuner and return the
-        winning operator (same device, same policy limits)."""
+        """Pick a (format, backend) and return the retargeted operator (same
+        device, same policy limits).
+
+        ``mode="run"`` races the candidates with the run-first auto-tuner
+        (``kw`` goes to ``autotune_spmv``). ``mode="predict"`` runs no
+        kernel: the zero-run selector (``core/select.py``) ranks the
+        candidates from the matrix's features and this operator's policy on
+        the cost table of its device (``kw`` goes to ``select.predict``),
+        and only the host-side conversion to the predicted format happens.
+        A predicted ``cuda`` key leads the returned chain; on the card its
+        predicate must accept the converted container, so dispatch never
+        gives way to plain.
+        """
         if mode == "predict":
-            raise NotImplementedError(
-                "tune(mode='predict') needs the zero-run selector, not ported "
-                "yet (ROADMAP queue 1, item 4: core/select.py)")
+            return self._predicted(candidates, **kw)
         if mode != "run":
             raise ValueError(f"tune mode {mode!r}: expected 'run' or 'predict'")
         from .autotune import autotune_spmv
@@ -322,6 +332,39 @@ class SparseOperator:
         kw.setdefault("device", self.device)
         return autotune_spmv(self, candidates=candidates,
                              policy=self.policy, **kw).operator
+
+
+    def _predicted(self, candidates=None, **kw) -> "SparseOperator":
+        from . import select
+        from .errors import BackendUnsupportedError
+        from .spmv import dispatch_table
+
+        base = self.policy if self.policy is not None else DEFAULT_POLICY
+        kw.setdefault("platform", self.device.type)
+        pred = select.predict(self.container, policy=base, candidates=candidates, **kw)
+        fmt, backend = pred.key
+        tuned = self
+        if fmt in ("coo", "csr", "dia", "ell", "sell"):
+            ncols = int(self.shape[1])
+            want = col_tile_for_policy(fmt, ncols, base.col_tile(ncols))
+            want_ct = int(want) if want not in (False, 0) else None
+            cur = getattr(self.container, "plan", None)
+            cur_ct = int(cur.ct) if fmt == self.format and cur is not None else None
+            # rebuild on a format change, or when the plan's tile geometry
+            # does not match this policy: a stale plan would make dispatch
+            # reject the predicted backend
+            if fmt != self.format or cur_ct != want_ct:
+                tuned = self.asformat(fmt, col_tile=want)
+        elif fmt != self.format:
+            tuned = self.asformat(fmt)
+        policy = base.preferring(backend)
+        entry = dispatch_table("spmv").get(pred.key)
+        if (backend == "cuda" and self.device.type == "cuda"
+                and not entry.ok(tuned.container, policy)):
+            raise BackendUnsupportedError(
+                f"predicted {fmt}/cuda rejects the converted {fmt} container of shape "
+                f"{self.shape} under {policy}")
+        return tuned.with_policy(policy)
 
 
 def as_operator(a, fmt: Optional[str] = None, policy: Optional[ExecutionPolicy] = None,

@@ -1,7 +1,9 @@
 // COO SpMV for Hopper (sm_90a): the full-window kernel over row-sorted
-// entries and the sliced kernel over the "coo-cols" plan.
+// entries and the sliced kernel, over the "coo-cols" plan or over the
+// build_scoo layout without column tiles.
 //
-// Replaces the TPU kernels src/repro/kernels/coo_spmv.py:85 (coo_spmv) and
+// Replaces the TPU kernels src/repro/kernels/coo_spmv.py:85 (coo_spmv),
+// src/repro/kernels/coo_spmv.py:141 (scoo_spmv) and
 // src/repro/kernels/coo_spmv.py:200 (scoo_spmv_tiled).
 //
 // Bound: bytes. Each entry's row, column and value is read once, x once and
@@ -28,16 +30,27 @@
 // shared memory. 32 entries at a time: each lane forms its product with x
 // read directly at ctile * ct + col (a bounds check on the last, partial
 // tile replaces the reference's padded x copy), a segmented scan over lanes
-// with equal rows (shuffles; a run of one row is contiguous inside a
-// (slice, tile) group) combines same-row products, and the last lane of each
-// run adds the run's sum to the window. A block holds one group's real
-// entries sorted by row and then, in the group's last block, its pad entries
-// (row = slice start, value 0), which add 0 as in the reference. The pad run
-// begins where the row goes down, and its row may equal that of the step's
-// first real run: so the real runs' sums are stored first and the pad run's
-// after a __syncwarp. Inside each of the two stores the rows are distinct,
-// so the window needs no atomics, and every sum is taken in a fixed order:
-// two launches give equal bits. The window is written to y once, at the end.
+// with equal rows (shuffles) combines each run of one row, and the last lane
+// of each run adds the run's sum to the window. Where the rows of a step do
+// not go down, its runs hold distinct rows and store at once. Where a row
+// goes down, a row may recur in several runs of the step: the group's pad
+// entries (row = slice start, value 0, which add 0 as in the reference)
+// beside the slice's first row, or entries in any order. Then the runs of
+// one row (__match_any_sync) store one after another in lane order, each
+// behind a __syncwarp, in a function kept out of line (inlined, it slowed
+// the kernel by about 2% on the row-sorted layouts of HPCG 104^3 on an
+// H100; examples/scoo_kernel_ab.py). So the window needs no atomics, every
+// sum is taken in a fixed order and two launches give equal bits, whatever
+// the order of the entries inside a slice. The window is written to y once,
+// at the end.
+//
+// Sliced without column tiles (scoo_spmv): the same kernel over the
+// build_scoo layout, with global int32 column ids and no ctile array (every
+// block's column offset is 0; the bounds check on x stays). build_scoo keeps
+// each slice's entries in input order and pads the slice's last block with
+// entries on its first row and value 0, and an empty slice with one whole
+// block of them. At HPCG 104^3 (slices and blocks of 512) that is 30.3 M
+// entries of row, column and value, about 363 MB: 108 us at 3.35 TB/s.
 
 #include "common.cuh"
 
@@ -62,6 +75,19 @@ __global__ void coo_rows_kernel(const int32_t* __restrict__ row_start,
   y[i] = from_f32<T>(acc);
 }
 
+// The runs of one warp step whose rows may recur (a row went down inside the
+// step) store one after another, in lane order. Out of line, so that the
+// common step, whose runs hold distinct rows, stays as short as it was.
+__device__ __noinline__ void store_in_turns(float* win, int64_t lr, float v, int32_t r,
+                                            bool store, int lane) {
+  const unsigned same = __match_any_sync(0xffffffffu, r) & __ballot_sync(0xffffffffu, store);
+  const int turn = __popc(same & ((1u << lane) - 1u));
+  for (int k = 0; __any_sync(0xffffffffu, store && turn >= k); ++k) {
+    if (store && turn == k) win[lr] = __fadd_rn(win[lr], v);
+    __syncwarp();
+  }
+}
+
 template <typename T, typename I>
 __global__ void scoo_tiled_kernel(const int32_t* __restrict__ row,
                                   const I* __restrict__ col,
@@ -83,10 +109,8 @@ __global__ void scoo_tiled_kernel(const int32_t* __restrict__ row,
   const int64_t w0 = static_cast<int64_t>(slice) * slice_rows;
   const unsigned le_mask = lane == 31 ? 0xffffffffu : ((1u << (lane + 1)) - 1u);
   for (int b = run_start[slice]; b < run_start[slice + 1]; ++b) {
-    const int64_t tile_col = static_cast<int64_t>(ctile[b]) * ct;
+    const int64_t tile_col = ctile == nullptr ? 0 : static_cast<int64_t>(ctile[b]) * ct;
     const int64_t base = static_cast<int64_t>(b) * tile;
-    int32_t r_last = INT32_MIN;  // row of the previous step's lane 31
-    bool in_pad = false;         // the block's pad run has begun
     for (int e0 = 0; e0 < tile; e0 += 32) {
       const bool in = e0 + lane < tile;
       int32_t r = -1;
@@ -97,13 +121,7 @@ __global__ void scoo_tiled_kernel(const int32_t* __restrict__ row,
         const int64_t c = tile_col + static_cast<int64_t>(col[e]);
         if (c >= tile_col && c < ncols) v = __fmul_rn(to_f32(val[e]), x[c]);
       }
-      int32_t r_prev = __shfl_up_sync(0xffffffffu, r, 1);
-      if (lane == 0) r_prev = r_last;
-      // the pad run: from the first lane whose row goes down to the block's end
-      const unsigned drops = __ballot_sync(0xffffffffu, in && r < r_prev);
-      const bool pad = in_pad || (drops & le_mask) != 0;
-      in_pad = in_pad || drops != 0;
-      r_last = __shfl_sync(0xffffffffu, r, 31);
+      const int32_t r_prev = __shfl_up_sync(0xffffffffu, r, 1);  // lane 0: its own
       // segmented inclusive scan over lanes that hold the same row
       const unsigned heads = __ballot_sync(0xffffffffu, lane == 0 || r_prev != r);
       const int seg_start = 31 - __clz(heads & le_mask);
@@ -115,9 +133,11 @@ __global__ void scoo_tiled_kernel(const int32_t* __restrict__ row,
       const int32_t r_next = __shfl_down_sync(0xffffffffu, r, 1);
       const int64_t lr = static_cast<int64_t>(r) - w0;
       const bool store = in && (lane == 31 || r_next != r) && lr >= 0 && lr < slice_rows;
-      if (store && !pad) win[lr] = __fadd_rn(win[lr], v);
-      __syncwarp();
-      if (store && pad) win[lr] = __fadd_rn(win[lr], v);
+      if (__ballot_sync(0xffffffffu, in && r < r_prev) == 0) {
+        if (store) win[lr] = __fadd_rn(win[lr], v);  // the runs' rows are distinct
+      } else {
+        store_in_turns(win, lr, v, r, store, lane);
+      }
       __syncwarp();
     }
   }
@@ -219,4 +239,14 @@ extern "C" int repro_scoo_spmv_tiled(const void* row, const void* col, const voi
                                               nslices, tile, slice_rows, ct, nrows, ncols, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Sliced over a build_scoo layout: row, col (B * tile,) int32 global rows
+// and columns, val, run_start (nslices + 1,) int32 block runs of each slice.
+extern "C" int repro_scoo_spmv(const void* row, const void* col, const void* val,
+                               const void* run_start, const void* x, void* y, int nslices,
+                               int tile, int slice_rows, long long nrows, long long ncols,
+                               int dtype, void* stream) {
+  return repro_scoo_spmv_tiled(row, col, val, nullptr, run_start, x, y, nslices, tile,
+                               slice_rows, 0, nrows, ncols, dtype, repro::kI32, stream);
 }

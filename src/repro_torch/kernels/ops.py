@@ -12,20 +12,21 @@ and policy both packages pick the same strategy:
 
 ``csr`` and ``sell`` both run ``scs_spmv`` over their ``"scs"`` plan; ``dia``
 runs ``dia_spmv`` or ``dia_spmv_tiled``, ``ell`` runs ``ell_spmv`` or
-``ell_spmv_tiled``, ``coo`` runs ``coo_spmv`` or ``scoo_spmv_tiled``. dia
-and ell carry the row mask into their kernels; masked COO runs the ``coo``
-kernel and masks after it (the dispatch's same-backend path). bsr
-registers no ``cuda`` entry yet (ROADMAP queue 2), so the tuner lists it as
-"impl not registered".
+``ell_spmv_tiled``, ``coo`` runs ``coo_spmv`` or ``scoo_spmv_tiled``, and
+``bsr`` runs ``bsr_spmm`` for SpMM, SpMV (the SpMM of one column) and masked
+SpMV, for the block edges the kernel is built for (8, 16, 32, 64). dia, ell
+and bsr carry the row mask into their kernels; masked COO runs the ``coo``
+kernel and masks after it (the dispatch's same-backend path).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import COO, CSR, DIA, ELL, SELL
-from repro_torch.core.spmv import register_masked_spmv, register_spmv
+from repro_torch.core.formats import BSR, COO, CSR, DIA, ELL, SELL
+from repro_torch.core.spmv import register_masked_spmv, register_spmm, register_spmv
 
 from ._launch import segment_starts
+from .bsr_spmm import BLOCK_SIZES, bsr_spmm
 from .coo_spmv import coo_spmv, scoo_spmv_tiled
 from .dia_spmv import dia_spmv, dia_spmv_tiled
 from .ell_spmv import ell_spmv, ell_spmv_tiled
@@ -94,11 +95,15 @@ def _scs_ok(A, policy) -> bool:
     return _precision_ok(A, policy) and _plan_ok(A, policy, "scs")
 
 
+def _bsr_ok(A: BSR, policy) -> bool:
+    return _precision_ok(A, policy) and A.bs in BLOCK_SIZES
+
+
 def cuda_strategy(A, policy) -> str | None:
     """Which strategy dispatch would run for ``A`` under ``policy``:
     ``"resident"``, ``"tiled"``, or ``None`` (the predicate rejects). The
-    twin of the reference's ``pallas_strategy``; bsr, without a ``cuda``
-    kernel yet, answers as the reference does, for the comparison."""
+    twin of the reference's ``pallas_strategy``; bsr has one strategy, the
+    block walk, for the block edges the kernel takes."""
     fmt = A.format
     if not _precision_ok(A, policy):
         return None
@@ -119,7 +124,7 @@ def cuda_strategy(A, policy) -> str | None:
             return None
         return "tiled" if A.plan.ntiles > 1 else "resident"
     if fmt == "bsr":
-        return "block"
+        return "block" if A.bs in BLOCK_SIZES else None
     return None
 
 
@@ -213,3 +218,28 @@ def ell_masked_spmv_cuda(A: ELL, x, row_mask, policy):
     """The row mask goes into the ELL kernels as it does into DIA's: masked
     rows load nothing and are 0. Equal to ``where(row_mask, A @ x, 0)``."""
     return ell_spmv_cuda(A, x, policy, mask=row_mask)
+
+
+@register_spmm("bsr", "cuda", supports=_bsr_ok)
+def bsr_spmm_cuda(A: BSR, X):
+    """Y = A @ X through ``bsr_spmm``; rows past ``A.shape[0]`` cut, Y in
+    X's dtype (as the reference's ``bsr_spmm_pallas``)."""
+    return bsr_spmm(A.bcols, A.blocks, X)[: A.shape[0]].to(X.dtype)
+
+
+@register_spmv("bsr", "cuda", supports=_bsr_ok)
+def bsr_spmv_cuda(A: BSR, x):
+    return bsr_spmm_cuda(A, x[:, None])[:, 0]
+
+
+@register_masked_spmv("bsr", "cuda", supports=_bsr_ok)
+def bsr_masked_spmv_cuda(A: BSR, x, row_mask):
+    """The row mask goes into the kernel, padded to whole block rows:
+    masked rows load nothing and are 0, the others equal the unmasked
+    SpMV bit for bit — no masked copy of the blocks. Equal to
+    ``where(row_mask, A @ x, 0)``."""
+    nrows = A.shape[0]
+    m = torch.zeros(A.bcols.shape[0] * A.bs, dtype=torch.bool, device=row_mask.device)
+    m[:nrows] = row_mask
+    Y = bsr_spmm(A.bcols, A.blocks, x[:, None], row_mask=m)
+    return Y[:nrows, 0].to(x.dtype)

@@ -72,18 +72,18 @@ class VCycle:
 
     def retuned(self, candidates=None, mode: str = "run") -> "VCycle":
         """Retarget every level's operator to a fresh (format, backend)
-        choice raced by the run-first tuner (Table III). Schedules and R/P
-        are reused. ``mode="predict"`` needs the zero-run selector (ROADMAP
-        queue 1, item 4) and raises."""
-        if mode == "predict":
-            raise NotImplementedError(
-                "retuned(mode='predict') needs the zero-run selector, not ported "
-                "yet (ROADMAP queue 1, item 4: core/select.py)")
-        if mode != "run":
+        choice (Table III). Schedules and R/P are reused. ``mode="run"``
+        races the candidates per level with the run-first tuner;
+        ``mode="predict"`` asks the zero-run selector
+        (``SparseOperator.tune(mode="predict")``) and runs no kernel."""
+        if mode not in ("run", "predict"):
             raise ValueError(f"retuned mode {mode!r}: expected 'run' or 'predict'")
         levels = []
         for l in self.levels:
-            op = autotune_spmv(l.A, candidates=candidates, device=l.A.device).operator
+            if mode == "predict":
+                op = l.A.tune(candidates=candidates, mode="predict")
+            else:
+                op = autotune_spmv(l.A, candidates=candidates, device=l.A.device).operator
             levels.append(MGLevel(l.grid, op, l.smoother.with_operator(op),
                                   l.R, l.P))
         return VCycle(tuple(levels), self.pre, self.post, self.coarse_sweeps)

@@ -299,13 +299,13 @@ def test_autotune_race_on_card_lists_a_raising_cuda_kernel(monkeypatch, on_card)
 
 
 def test_unported_formats_are_listed_not_raced():
-    """bsr alone has no ``cuda`` kernel yet; ell and coo are raced."""
+    """Every sparse format has a ``cuda`` kernel now: none is listed as
+    "impl not registered", and ell, coo and bsr are raced."""
     res = T.autotune_spmv(M.fdm27(4, 4, 4), device="cpu", iters=1, warmup=0,
                           candidates=[("ell", "cuda"), ("coo", "cuda"),
                                       ("bsr", "cuda"), ("csr", "plain")])
-    assert {(f, i) for f, i, why in res.skipped if why == "impl not registered"} \
-        == {("bsr", "cuda")}
-    assert {("ell", "cuda"), ("coo", "cuda")} <= set(res.table)
+    assert not [sk for sk in res.skipped if sk[2] == "impl not registered"]
+    assert {("ell", "cuda"), ("coo", "cuda"), ("bsr", "cuda")} <= set(res.table)
 
 
 #: A policy under which coo/cuda rejects fdm27(4, 4, 4): 64 rows exceed the
@@ -361,8 +361,11 @@ def test_operator_api_mirrors_reference():
     assert A.asformat("dia") is not None and len(A._cache) == 1
     with T.use_backend("cuda"):
         assert T.current_policy().backends == ("cuda", "plain")
-    with pytest.raises(NotImplementedError, match="select"):
-        A.tune(mode="predict")
+    P = A.tune(mode="predict")  # the "cpu" table: the reference's pick
+    J_P = J.as_operator(_S).tune(mode="predict")
+    assert (P.format, P.policy.backends[0]) == (
+        J_P.format, J_P.policy.backends[0].replace("pallas", "cuda"))
+    _close((P @ torch.from_numpy(_X)).numpy(), _S @ _X)
     with pytest.raises(NotImplementedError, match="dynamic"):
         A.mutable()
     tuned = A.tune(candidates=[("csr", "plain"), ("dia", "cuda")], iters=1, warmup=0,
@@ -372,6 +375,7 @@ def test_operator_api_mirrors_reference():
 
 @pytest.mark.parametrize("modname", ["repro_torch.core.operator", "repro_torch.core.health",
                                      "repro_torch.core.autotune", "repro_torch.core.features",
+                                     "repro_torch.core.select",
                                      "repro_torch.solvers.cg", "repro_torch.solvers.mg",
                                      "repro_torch.io.matrix_market", "repro_torch.io.corpus"])
 def test_port_doctests(modname):

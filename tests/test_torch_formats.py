@@ -136,6 +136,19 @@ def test_generators_equal_reference():
                                       JM.coarsen_injection(*grid))
 
 
+@pytest.mark.parametrize("n,bs,density,seed", [
+    (512, 32, 0.05, 8), (96, 32, 0.3, 8), (100, 16, 0.1, 3), (77, 32, 0.2, 0),
+    (1000, 8, 0.02, 1), (2048, 64, 0.01, 5)])
+def test_block_random_equals_reference(n, bs, density, seed):
+    """The vectorised generator gives the reference's matrix from the same
+    seed: the same CSR arrays, edge blocks clipped."""
+    want = JM.block_random(n, bs=bs, block_density=density, seed=seed)
+    got = TM.block_random(n, bs=bs, block_density=density, seed=seed)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    for field in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
 def test_from_reference_round_trips():
     """A reference container's numpy arrays (bf16 included) rebuild the same
     container in the port, plan and all."""

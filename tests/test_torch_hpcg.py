@@ -141,5 +141,44 @@ def test_run_hpcg_unpreconditioned_and_guards():
     res = run_hpcg(6, 6, 6, iters=60, timed=True, reps=1, device="cpu", verbose=False,
                    precond=False, candidates=[("csr", "plain"), ("dia", "cuda")])
     assert res.bitwise and res.valid and res.ref_time_s > 0
-    with pytest.raises(NotImplementedError, match="select"):
-        run_hpcg(4, 4, 4, device="cpu", tune_mode="predict")
+    with pytest.raises(ValueError, match="tune_mode"):
+        run_hpcg(4, 4, 4, device="cpu", tune_mode="guess")
+
+
+def _port_spelling(text: str) -> str:
+    return text.replace("/pallas", "/cuda")
+
+
+def test_run_hpcg_predict_matches_reference_picks():
+    """``tune_mode="predict"`` on the host ranks with the ``"cpu"`` table,
+    so the main operator and every level take the reference's predicted
+    (format, backend); the run validates and keeps the bitwise tier."""
+    from repro.apps.hpcg import run_hpcg as j_run_hpcg
+
+    res = run_hpcg(16, 16, 16, iters=50, timed=False, device="cpu", verbose=False,
+                   tune_mode="predict")
+    want = j_run_hpcg(16, 16, 16, iters=50, timed=False, verbose=False, tune_mode="predict")
+    assert res.valid and res.bitwise and res.rel_res <= 1e-6
+    assert res.table == {} and res.skipped == []
+    assert res.chosen == _port_spelling(want.chosen)
+    assert res.mg_levels == _port_spelling(want.mg_levels)
+
+
+def test_vcycle_retuned_predict_runs_no_kernel(monkeypatch):
+    import importlib
+
+    tspmv = importlib.import_module("repro_torch.core.spmv")
+    calls = []
+    orig = tspmv.KernelEntry.call
+
+    def counted(self, A, *operands, policy):
+        calls.append(self.key)
+        return orig(self, A, *operands, policy=policy)
+
+    mg = TS.build_mg(8, 8, 8, depth=2, device="cpu")
+    monkeypatch.setattr(tspmv.KernelEntry, "call", counted)
+    tuned = mg.retuned(mode="predict")
+    assert calls == []
+    assert all(l.A.policy.backends[0] in ("cuda", "plain") for l in tuned.levels)
+    with pytest.raises(ValueError):
+        mg.retuned(mode="guess")

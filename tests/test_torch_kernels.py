@@ -4,7 +4,8 @@ plain version on the card (``-m cuda``; skipped without one).
 
 The JAX side runs as the reference's own tests run it on a CPU:
 ``scs_spmv``, ``dia_spmv_tiled``, ``ell_spmv``, ``ell_spmv_tiled``,
-``coo_spmv`` and ``scoo_spmv_tiled`` in Pallas interpret mode. The resident
+``coo_spmv``, ``scoo_spmv``, ``scoo_spmv_tiled`` and ``bsr_spmm`` in
+Pallas interpret mode. The resident
 ``dia_spmv`` Pallas kernel does not run on this JAX (``pl.load``, ROADMAP
 queue 3), so its oracles are ``repro.kernels.ref.dia_spmv_ref`` and the
 reference's dia plain backend.
@@ -24,7 +25,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels._launch import segment_starts
-from repro_torch.kernels.coo_spmv import (coo_spmv, coo_spmv_plain, scoo_spmv_tiled,
+from repro_torch.kernels.bsr_spmm import BLOCK_SIZES, bsr_spmm, bsr_spmm_plain
+from repro_torch.kernels.coo_spmv import (build_scoo, coo_spmv, coo_spmv_plain, scoo_spmv,
+                                          scoo_spmv_plain, scoo_spmv_tiled,
                                           scoo_spmv_tiled_plain)
 from repro_torch.kernels.dia_spmv import (dia_spmv, dia_spmv_plain, dia_spmv_tiled,
                                           dia_spmv_tiled_plain)
@@ -39,7 +42,7 @@ SHAPES = [(32, 32), (100, 100), (257, 129), (129, 300)]
 DTYPES = ["float32", "bfloat16", "float16"]
 
 
-def _mat(n, m, seed, kind="mixed"):
+def _mat(n, m, seed, kind="mixed", density=0.05):
     import scipy.sparse as sp
 
     rng = np.random.default_rng(seed)
@@ -51,7 +54,7 @@ def _mat(n, m, seed, kind="mixed"):
                 diags.append(rng.standard_normal(length))
                 offs.append(off)
         return sp.diags(diags, offs, shape=(n, m), format="csr")
-    mat = sp.random(n, m, density=0.05, random_state=rng, format="csr")
+    mat = sp.random(n, m, density=density, random_state=rng, format="csr")
     mat.data = rng.standard_normal(len(mat.data))
     return mat
 
@@ -89,6 +92,7 @@ def jax_ref():
             "dia": importlib.import_module("repro.kernels.dia_spmv"),
             "ell": importlib.import_module("repro.kernels.ell_spmv"),
             "coo": importlib.import_module("repro.kernels.coo_spmv"),
+            "bsr": importlib.import_module("repro.kernels.bsr_spmm"),
             "tiling": importlib.import_module("repro.core.tiling"),
             "ref": importlib.import_module("repro.kernels.ref"),
             "spmv": importlib.import_module("repro.core.spmv")}
@@ -321,6 +325,160 @@ def test_scoo_tiled_plain_matches_pallas_interpret(jax_ref, shape, dtype, index_
     _close(got.float().numpy(), np.asarray(want, np.float32), _tol(dtype, s))
 
 
+def _scoo_arrays(s, dtype, slice_rows, tile):
+    """A row-sorted COO of ``s`` (values rounded to ``dtype`` on the host)
+    and its ``build_scoo`` layout."""
+    coo = s.tocoo()
+    order = np.lexsort((coo.col, coo.row))
+    val = coo.data[order].astype(ttiling.staging_dtype(dtype))
+    return build_scoo(coo.row[order], coo.col[order], val, s.shape[0], slice_rows, tile)
+
+
+@pytest.mark.parametrize("n,m,slice_rows,tile,density", [
+    (257, 129, 32, 64, 0.05), (1000, 1000, 64, 32, 0.01), (100, 100, 32, 16, 0.0),
+    (3000, 500, 512, 512, 0.002), (64, 64, 64, 8, 0.5)])
+def test_build_scoo_equals_reference(jax_ref, n, m, slice_rows, tile, density):
+    """The vectorised ``build_scoo`` gives the reference's four arrays:
+    equal values, dtypes and order, empty slices (one tile of pads) and a
+    ragged last slice included."""
+    s = _mat(n, m, 20, density=density)
+    coo = s.tocoo()
+    order = np.lexsort((coo.col, coo.row))
+    args = (coo.row[order], coo.col[order], coo.data[order].astype(np.float32), n,
+            slice_rows, tile)
+    got, want = build_scoo(*args), jax_ref["coo"].build_scoo(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scoo_plain_matches_pallas_interpret(jax_ref, shape, dtype):
+    """``scoo_spmv`` (its plain version, here) against the sliced Pallas
+    kernel on the same ``build_scoo`` layout of 32-row slices and 64-entry
+    blocks."""
+    n, m = shape
+    s = _mat(n, m, 21)
+    x = _x(m)
+    jnp = jax_ref["jnp"]
+    row, col, val, sid = _scoo_arrays(s, dtype, 32, 64)
+    jv = jnp.asarray(val, _jax_dtype(jnp, dtype))
+    want = jax_ref["coo"].scoo_spmv(row, col, jv, sid, jnp.asarray(x), nrows=n,
+                                    slice_rows=32, tile=64, interpret=True)
+    tv = torch.from_numpy(np.asarray(val, np.float32)).to(getattr(torch, dtype))
+    got = scoo_spmv(torch.from_numpy(row), torch.from_numpy(col), tv, torch.from_numpy(sid),
+                    torch.from_numpy(x), nrows=n, slice_rows=32, tile=64)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got.float().numpy(), np.asarray(want, np.float32), _tol(dtype, s))
+
+
+def _coo_in_order(s, order):
+    """The (row, col, data) triplets of ``s`` column-major (``"csc"``) or in
+    a random order (``"shuffled"``): not row-sorted inside a slice."""
+    if order == "csc":
+        coo = s.tocsc().tocoo()
+        return coo.row, coo.col, coo.data
+    coo = s.tocoo()
+    perm = np.random.default_rng(27).permutation(coo.nnz)
+    return coo.row[perm], coo.col[perm], coo.data[perm]
+
+
+@pytest.mark.parametrize("order", ["csc", "shuffled"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scoo_plain_matches_pallas_interpret_in_any_entry_order(jax_ref, order, dtype):
+    """A COO that is not row-sorted gives ``build_scoo`` slices in input
+    order; ``scoo_spmv`` and the reference's layout and kernel agree on it."""
+    n, m = 257, 129
+    s = _mat(n, m, 28)
+    row, col, data = _coo_in_order(s, order)
+    args = (row, col, data.astype(ttiling.staging_dtype(dtype)), n, 32, 64)
+    got, want = build_scoo(*args), jax_ref["coo"].build_scoo(*args)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    row, col, val, sid = got
+    x = _x(m)
+    jnp = jax_ref["jnp"]
+    want = jax_ref["coo"].scoo_spmv(row, col, jnp.asarray(val, _jax_dtype(jnp, dtype)), sid,
+                                    jnp.asarray(x), nrows=n, slice_rows=32, tile=64,
+                                    interpret=True)
+    tv = torch.from_numpy(np.asarray(val, np.float32)).to(getattr(torch, dtype))
+    y = scoo_spmv(torch.from_numpy(row), torch.from_numpy(col), tv, torch.from_numpy(sid),
+                  torch.from_numpy(x), nrows=n, slice_rows=32, tile=64)
+    _close(y.float().numpy(), np.asarray(want, np.float32), _tol(dtype, s))
+
+
+def _bsr_operands(n, m, bs, nf, dtype, seed=22):
+    """A BSR container of a random (n, m) matrix at block edge ``bs``, one
+    padding slot of its widest block row turned into a real-looking block
+    whose column id is past the last block column, and an (m, nf) X."""
+    s = _mat(n, m, seed)
+    B = tconv.from_dense(s, "bsr", bs=bs, dtype=dtype, device="cpu")
+    bcols, blocks = B.bcols.clone(), B.blocks.clone()
+    counts = (bcols >= 0).sum(1)
+    w = int(counts.max())
+    bcols = torch.cat([bcols, torch.full((bcols.shape[0], 1), -1, dtype=torch.int32)], 1)
+    blocks = torch.cat([blocks, torch.zeros_like(blocks[:, :1])], 1)
+    r = int(counts.argmax())
+    nbcols = -(-m // bs)
+    bcols[r, w] = nbcols + 3
+    blocks[r, w] = torch.ones((bs, bs), dtype=blocks.dtype)
+    X = np.random.default_rng(seed + 1).standard_normal((m, nf)).astype(np.float32)
+    return s, bcols, blocks, X
+
+
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+@pytest.mark.parametrize("nf", [1, 5, 130])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bsr_plain_matches_pallas_interpret(jax_ref, bs, nf, dtype):
+    """``bsr_spmm`` (its plain version, here) against the Pallas kernel on
+    the same arrays: every block edge ``to_bsr`` produces, one column, a
+    few, and a ragged last feature tile (130 = 128 + 2), with a block id
+    past the last block column, which contributes zero."""
+    s, bcols, blocks, X = _bsr_operands(257, 300, bs, nf, dtype)
+    jnp = jax_ref["jnp"]
+    jb = jnp.asarray(blocks.float().numpy(), _jax_dtype(jnp, dtype))
+    want = np.asarray(jax_ref["bsr"].bsr_spmm(jnp.asarray(bcols.numpy()), jb, jnp.asarray(X),
+                                              interpret=True), np.float32)
+    got = bsr_spmm(bcols, blocks, torch.from_numpy(X))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _close(got.numpy(), want, _tol(dtype, s))
+    _close(got[:257].numpy(), s @ X, None if dtype == "float32" else 0.05)
+
+
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+@pytest.mark.parametrize("op", ["spmv", "spmm", "masked_spmv"])
+def test_bsr_cuda_entries_match_pallas_entries(jax_ref, bs, op):
+    """The ``bsr/cuda`` SpMV, SpMM and masked SpMV entries (plain versions,
+    here) against the reference's ``bsr/pallas`` entries in interpret mode,
+    strict dispatch on both sides."""
+    import repro.core as J
+
+    import repro_torch.core as T
+
+    s = _mat(200, 150, 23)
+    x = _x(150)
+    X = np.stack([x, _x(150, seed=2), _x(150, seed=3)], axis=1)
+    mask = np.random.default_rng(24).random(200) < 0.5
+    jnp = jax_ref["jnp"]
+    J_A = jax_ref["convert"].from_dense(s, "bsr", bs=bs)
+    T_A = tconv.from_dense(s, "bsr", bs=bs, device="cpu")
+    jp = J.ExecutionPolicy(backends=("pallas",), allow_fallback=False)
+    tp = T.ExecutionPolicy(backends=("cuda",), allow_fallback=False)
+    if op == "spmv":
+        want = J.spmv(J_A, jnp.asarray(x), policy=jp)
+        got = T.spmv(T_A, torch.from_numpy(x), policy=tp)
+    elif op == "spmm":
+        want = J.spmm(J_A, jnp.asarray(X), policy=jp)
+        got = T.spmm(T_A, torch.from_numpy(X), policy=tp)
+    else:
+        want = J.masked_spmv(J_A, jnp.asarray(x), jnp.asarray(mask), policy=jp)
+        got = T.masked_spmv(T_A, torch.from_numpy(x), torch.from_numpy(mask), policy=tp)
+        assert (got.numpy()[~mask] == 0).all()
+    assert got.dtype == torch.float32 and tuple(got.shape) == tuple(want.shape)
+    _close(got.numpy(), np.asarray(want, np.float32))
+
+
 def test_segment_starts_bound_sorted_runs():
     keys = torch.tensor([0, 0, 2, 2, 2, 3, 5, 5], dtype=torch.int32)
     assert segment_starts(keys, 5).tolist() == [0, 2, 2, 5, 6, 6]
@@ -528,6 +686,114 @@ def test_scoo_kernel_keeps_first_row_beside_pad_run_on_card(cuda, index_dtype):
     C32 = tconv.from_dense(s, "coo", col_tile=64, index_dtype="int32", device=cuda)
     assert torch.equal(yt, scoo_spmv_tiled(*C32.plan.arrays, x, nrows=n, col_tile=ct,
                                            slice_rows=slice_rows, tile=tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(3000, 5000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scoo_spmv_kernel_matches_plain_on_card(cuda, shape, dtype):
+    """The sliced kernel over a ``build_scoo`` layout (global ids, no
+    column tiles) agrees with its plain version within the stated
+    tolerance and repeats bit for bit."""
+    n, m = shape
+    s = _mat(n, m, 25)
+    arrays = [torch.from_numpy(a).to(cuda) for a in _scoo_arrays(s, dtype, 64, 128)]
+    arrays[2] = arrays[2].to(getattr(torch, dtype))
+    x = torch.from_numpy(_x(m)).to(cuda)
+    before = scoo_spmv.launches
+    y = scoo_spmv(*arrays, x, nrows=n, slice_rows=64, tile=128)
+    assert scoo_spmv.launches == before + 1
+    assert y.dtype == getattr(torch, dtype)
+    _rel_close(y, scoo_spmv_plain(*arrays, x, nrows=n), dtype, s)
+    assert torch.equal(y, scoo_spmv(*arrays, x, nrows=n, slice_rows=64, tile=128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(64,), (64, 65), (64, 65, 66, 100)])
+def test_scoo_spmv_kernel_keeps_first_row_beside_pad_run_on_card(cuda, rows):
+    """``build_scoo`` pads a slice with entries on its first row and value
+    0. A slice whose few entries sit on its first row and beside it shares
+    one warp step with that pad run; the pad run's sum must not overwrite
+    the real one."""
+    import scipy.sparse as sp
+
+    n, m = 512, 128
+    rng = np.random.default_rng(26)
+    dense = np.zeros((n, m))
+    dense[:64] = (rng.random((64, m)) < 0.05) * rng.standard_normal((64, m))
+    for r in rows:  # slice 1 (rows 64..127) holds only these entries
+        dense[r, [3, 90]] = rng.standard_normal(2)
+    s = sp.csr_matrix(dense)
+    arrays = [torch.from_numpy(a).to(cuda) for a in _scoo_arrays(s, "float32", 64, 64)]
+    x = torch.from_numpy(_x(m)).to(cuda)
+    y = scoo_spmv(*arrays, x, nrows=n, slice_rows=64, tile=64)
+    _rel_close(y, scoo_spmv_plain(*arrays, x, nrows=n), "float32", s)
+    _close(y.cpu().numpy(), s @ _x(m))
+    assert torch.equal(y, scoo_spmv(*arrays, x, nrows=n, slice_rows=64, tile=64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["csc", "shuffled"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scoo_spmv_kernel_in_any_entry_order_on_card(cuda, order, dtype):
+    """Slices whose entries are not sorted by row (a column-major or
+    shuffled COO through ``build_scoo``): a row recurs in several runs of
+    one warp step, and every run's sum must reach it."""
+    n, m = 3000, 500
+    s = _mat(n, m, 29)
+    row, col, data = _coo_in_order(s, order)
+    arrays = [torch.from_numpy(a).to(cuda) for a in build_scoo(
+        row, col, data.astype(ttiling.staging_dtype(dtype)), n, 64, 128)]
+    arrays[2] = arrays[2].to(getattr(torch, dtype))
+    x = torch.from_numpy(_x(m)).to(cuda)
+    y = scoo_spmv(*arrays, x, nrows=n, slice_rows=64, tile=128)
+    _rel_close(y, scoo_spmv_plain(*arrays, x, nrows=n), dtype, s)
+    assert torch.equal(y, scoo_spmv(*arrays, x, nrows=n, slice_rows=64, tile=128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+@pytest.mark.parametrize("nf", [1, 5, 130])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bsr_kernel_matches_plain_on_card(cuda, bs, nf, dtype):
+    """``bsr_spmm`` against its plain version (rtol 2e-4 in f32: the kernel
+    adds with fused multiply-adds, the plain version through a matmul),
+    with a block id past the last block column; two launches give equal
+    bits; the row mask gives ``where(mask, Y, 0)`` exactly."""
+    s, bcols, blocks, X = _bsr_operands(3000, 5000 if bs < 64 else 2000, bs, nf, dtype)
+    bcols, blocks = bcols.to(cuda), blocks.to(cuda)
+    X = torch.from_numpy(X).to(cuda)
+    mask = torch.from_numpy(np.random.default_rng(27).random(bcols.shape[0] * bs)
+                            < 0.5).to(cuda)
+    mask[:bs] = False  # one block row masked whole: it reads nothing
+    before = bsr_spmm.launches
+    Y = bsr_spmm(bcols, blocks, X)
+    assert bsr_spmm.launches == before + 1
+    assert Y.dtype == torch.float32 and Y.shape == (bcols.shape[0] * bs, nf)
+    _close(Y.cpu().numpy(), bsr_spmm_plain(bcols, blocks, X).cpu().numpy())
+    assert torch.equal(Y, bsr_spmm(bcols, blocks, X))
+    Ym = bsr_spmm(bcols, blocks, X, row_mask=mask)
+    assert torch.equal(Ym, torch.where(mask[:, None], Y, torch.zeros((), device=cuda)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+def test_bsr_entries_on_card(cuda, bs):
+    """Through dispatch: the bsr/cuda SpMV equals column 0 of the SpMM of
+    one column, the masked SpMV equals ``where(mask, A @ x, 0)`` exactly,
+    and both agree with csr/plain."""
+    from repro_torch.core import as_operator
+
+    s = _mat(1000, 900, 28)
+    A = as_operator(s, "bsr", bs=bs, device=cuda).using("cuda", fallback=False)
+    x = torch.from_numpy(_x(900)).to(cuda)
+    mask = torch.from_numpy(np.random.default_rng(29).random(1000) < 0.5).to(cuda)
+    before = bsr_spmm.launches
+    y = A @ x
+    ym = A.masked_matvec(x, mask)
+    assert bsr_spmm.launches == before + 2
+    assert torch.equal(ym, torch.where(mask, y, torch.zeros((), device=cuda)))
+    _close(y.cpu().numpy(), s @ _x(900))
 
 
 @pytest.mark.cuda
