@@ -14,7 +14,11 @@ Phases, one or more lines each, each ending with its seconds:
      ``dia_spmv_tiled`` on the finest level under ``max_resident_cols=1<<18``,
      the masked DIA wrapper against ``where(mask, A @ x, 0)`` (exact),
      ``ell_spmv`` on 52^3, the masked ELL wrapper (exact), ``ell_spmv_tiled``
-     on the finest level's ``"ell-cols"`` plan, ``coo_spmv`` on 13^3 and
+     on the finest level's ``"ell-cols"`` plan with its tile index built
+     once beforehand (its build seconds, pairs and the bytes the kernel
+     stages are printed; the bound counts the real ids and values, x, y and
+     the index, and ``bound_every_id_slot_ms`` keeps the bound that reads
+     every id slot), ``coo_spmv`` on 13^3 and
      ``scoo_spmv_tiled`` on the finest level's ``"coo-cols"`` plan,
      ``scoo_spmv`` on the finest level's ``build_scoo`` layout (slices and
      blocks of 512; no dispatch path calls it, so its own path here is one
@@ -230,8 +234,9 @@ def phase_kernels(results: dict, block) -> tuple:
                                               scoo_spmv_tiled_plain)
     from repro_torch.kernels.dia_spmv import (dia_spmv, dia_spmv_plain, dia_spmv_tiled,
                                               dia_spmv_tiled_plain)
-    from repro_torch.kernels.ell_spmv import (ell_spmv, ell_spmv_plain, ell_spmv_tiled,
-                                              ell_spmv_tiled_plain)
+    from repro_torch.kernels.ell_spmv import (CHUNK_ROWS, ell_spmv, ell_spmv_plain,
+                                              ell_spmv_tiled, ell_spmv_tiled_plain,
+                                              ell_tile_index)
     from repro_torch.kernels.sell_spmv import scs_spmv_from_plan, scs_spmv_plain
 
     dev = torch.device("cuda")
@@ -354,20 +359,34 @@ def phase_kernels(results: dict, block) -> tuple:
     E = to_ell(s, device=dev)
     check(ops.cuda_strategy(E, ExecutionPolicy()) == "tiled", "ell 104^3 is not tiled")
     idx_t, dat_t = E.plan.arrays
-    ct_e = E.plan.ct
+    ct_e, width = E.plan.ct, int(idx_t.shape[2])
     valid = int((idx_t >= 0).sum())
     slots = idx_t.numel()
+    torch.cuda.synchronize()
+    t_index = time.perf_counter()
+    listed = ell_tile_index(idx_t)
+    torch.cuda.synchronize()
+    t_index = time.perf_counter() - t_index
+    tile_ptr, tile_ids, _ = listed
+    chunk_rows = torch.full((tile_ptr.shape[0] - 1,), CHUNK_ROWS, device=dev)
+    chunk_rows[-1] = n - CHUNK_ROWS * (chunk_rows.shape[0] - 1)
+    staged = int(((tile_ptr[1:] - tile_ptr[:-1]) * chunk_rows).sum()) * width * (
+        idx_t.element_size() + dat_t.element_size())
     out["ell_spmv_tiled"] = measure(
         "ell_spmv_tiled", f"ell_spmv_tiled {GRID}^3", s, x,
-        lambda: ell_spmv_tiled(idx_t, dat_t, x, col_tile=ct_e),
+        lambda: ell_spmv_tiled(idx_t, dat_t, x, col_tile=ct_e, tile_index=listed),
         lambda: ell_spmv_tiled_plain(idx_t, dat_t, x, col_tile=ct_e),
-        nbytes(idx_t, x) + valid * dat_t.element_size() + n * 4, "ell_kernel", plain_reps=3,
-        exact=True,
-        grid=GRID, strategy="tiled", ct=ct_e, ntiles=E.plan.ntiles,
-        width=int(idx_t.shape[2]), index_dtype=str(idx_t.dtype), slots=slots,
-        nonzeros=valid, padding=slots / valid,
+        valid * (idx_t.element_size() + dat_t.element_size())
+        + nbytes(x, tile_ptr, tile_ids) + n * 4,
+        "ell_listed_kernel", plain_reps=3, exact=True,
+        grid=GRID, strategy="tiled", ct=ct_e, ntiles=E.plan.ntiles, width=width,
+        index_dtype=str(idx_t.dtype), slots=slots, nonzeros=valid, padding=slots / valid,
+        pairs=int(tile_ids.shape[0]), chunks=int(tile_ptr.shape[0] - 1),
+        tile_index_build_s=t_index, staged_bytes=staged,
+        bound_every_id_slot_ms=bound(nbytes(idx_t, x) + valid * dat_t.element_size() + n * 4,
+                                     2 * s.nnz)[0],
         bound_all_ms=bound(nbytes(idx_t, dat_t, x) + n * 4, 2 * s.nnz)[0])
-    del E, idx_t, dat_t
+    del E, idx_t, dat_t, listed, tile_ptr, tile_ids
 
     # COO: full window on 13^3, sliced on the finest level
     g = GRID // 8

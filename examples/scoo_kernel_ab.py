@@ -9,58 +9,29 @@ runs ``repro_scoo_spmv_tiled`` over the ``"coo-cols"`` plan and, where it
 has ``repro_scoo_spmv``, over the ``build_scoo`` layout (slices and blocks
 of 512) of a row-sorted COO (``csr``) and of a column-major one (``csc``).
 Each result is held against the plain version (max abs error, equal bits
-over two launches); then the versions are timed in 8 rounds that alternate
-their order: CUDA events around 20 launches, median, min and max per
-launch. Compare versions only within one run. Needs a CUDA card and nvcc.
+over two launches); then the versions are timed in alternating rounds
+(``examples/_kernel_ab.py``). Compare versions only within one run. Needs
+a CUDA card and nvcc.
 """
-import ctypes
-import os
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+from _kernel_ab import build, time_versions  # also puts src/ on the path
 
-from repro_torch.core import matrices as M  # noqa: E402
-from repro_torch.core.convert import to_coo  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels._launch import segment_starts  # noqa: E402
-from repro_torch.kernels.coo_spmv import (build_scoo, scoo_spmv_plain,  # noqa: E402
-                                          scoo_spmv_tiled_plain)
+from repro_torch.core import matrices as M
+from repro_torch.core.convert import to_coo
+from repro_torch.kernels import _build
+from repro_torch.kernels._launch import segment_starts
+from repro_torch.kernels.coo_spmv import build_scoo, scoo_spmv_plain, scoo_spmv_tiled_plain
 
 GRID = 104
 SLICE = 512
-ROUNDS, REPS = 8, 20
-
-
-def build(sources):
-    """One shared library per source, all nvcc processes started together."""
-    out = os.path.join(os.path.dirname(str(_build.BUILD_ROOT)), "scoo_kernel_ab")
-    os.makedirs(out, exist_ok=True)
-    procs = []
-    for i, src in enumerate(sources):
-        so = os.path.join(out, f"{i}_{os.path.splitext(os.path.basename(src))[0]}.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.SRC_DIR),
-               src, "-o", so]
-        procs.append((src, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for src, so, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {src}:\n{log}")
-        lib = ctypes.CDLL(so)
-        for name in ("repro_scoo_spmv_tiled", "repro_scoo_spmv"):
-            if hasattr(lib, name):
-                getattr(lib, name).argtypes = list(_build._SIGNATURES[name])
-        libs[src] = lib
-    return libs
 
 
 def main(sources):
-    libs = build(sources)
+    libs = build(sources, "scoo_kernel_ab", ("repro_scoo_spmv_tiled", "repro_scoo_spmv"))
     dev = torch.device("cuda")
     s = M.fdm27(GRID, GRID, GRID)
     n = s.shape[0]
@@ -95,41 +66,18 @@ def main(sources):
         cases[f"scoo_{order}"] = ("repro_scoo_spmv", scoo,
                                   scoo_spmv_plain(r, c, v, sd, x, nrows=n))
 
-    runnable = {(case, src) for case, (entry, _, _) in cases.items()
-                for src, lib in libs.items() if hasattr(lib, entry)}
-    for case, (_, fn, want) in cases.items():
+    calls = {}
+    for case, (entry, fn, want) in cases.items():
         for src, lib in libs.items():
-            if (case, src) not in runnable:
+            if not hasattr(lib, entry):
                 continue
             y2 = torch.empty_like(y)
             if fn(lib, y) or fn(lib, y2):
                 raise SystemExit(f"{case} {src}: launch failed")
             print(f"check {case} {src}: max_abs_err={float((y - want).abs().max())} "
                   f"repeat_equal={bool(torch.equal(y, y2))}", flush=True)
-
-    times = {key: [] for key in runnable}
-    for rnd in range(ROUNDS):
-        for src in (sources if rnd % 2 == 0 else sources[::-1]):
-            for case, (_, fn, _) in cases.items():
-                if (case, src) not in runnable:
-                    continue
-                fn(libs[src], y)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(REPS):
-                    fn(libs[src], y)
-                end.record()
-                end.synchronize()
-                times[(case, src)].append(start.elapsed_time(end) / REPS)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip())
-    for case in cases:
-        for src in sources:
-            if (case, src) in runnable:
-                t = sorted(times[(case, src)])
-                print(f"{case} {src}: median_ms={t[len(t) // 2]} min_ms={t[0]} max_ms={t[-1]}")
+            calls[(case, src)] = lambda fn=fn, lib=lib: fn(lib, y)
+    time_versions(sources, calls)
 
 
 if __name__ == "__main__":

@@ -110,8 +110,8 @@ class KernelPlan:
     ``meta[0]`` is always the column-tile width ``ct``.
 
     ``cache`` holds tensors a kernel derives from the plan once (the SCS
-    window run boundaries, the DIA plan's offset range); it is not part of
-    the plan's value.
+    window run boundaries, the DIA plan's offset range, the ELL plan's tile
+    index); it is not part of the plan's value.
     """
 
     kind: str

@@ -93,7 +93,7 @@ COST: Dict[str, CostTable] = {
     # block_random(65536, 32, 16/2048). Uncalibrated: no fit has been run.
     "cuda": {
         ("coo", "cuda", "resident"): (77.52, 0.0, 0.0884449, 0.0),
-        ("coo", "cuda", "tiled"): (106.0, 0.0, 0.0170387, 0.0),
+        ("coo", "cuda", "tiled"): (65.15, 0.0, 0.00500898, 0.0),
         ("coo", "plain", ""): (77.52, 0.0, 0.195008, 0.0),
         ("csr", "cuda", "resident"): (48.5, 0.0, 0.00813194, 0.0),
         ("csr", "cuda", "tiled"): (32.0, 0.0, 0.0120545, 0.0),
@@ -102,7 +102,7 @@ COST: Dict[str, CostTable] = {
         ("dia", "cuda", "tiled"): (31.4, 0.0, 0.00327941, 0.0),
         ("dia", "plain", ""): (48.5, 0.0, 0.0757129, 0.0),
         ("ell", "cuda", "resident"): (53.6, 0.0, 0.00979872, 0.0),
-        ("ell", "cuda", "tiled"): (700.0, 0.0, 0.32939, 0.0),
+        ("ell", "cuda", "tiled"): (68.02, 0.0, 0.00486554, 0.0),
         ("ell", "plain", ""): (53.6, 0.0, 1.06664, 0.0),
         ("sell", "cuda", "resident"): (48.5, 0.0, 0.00742743, 0.0),
         ("sell", "cuda", "tiled"): (32.0, 0.0, 0.0111289, 0.0),

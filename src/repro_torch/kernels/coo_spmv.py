@@ -14,9 +14,10 @@ kernel for tensors on a CUDA device (or raises). Both accumulate in f32 over
 f32/bf16/f16 storage and return y in the storage dtype, without float
 atomics, so two launches give equal bits. ``coo_spmv`` sums each row's
 entries in entry order, as its plain version does, so in f32 the two agree
-exactly; ``scoo_spmv`` and ``scoo_spmv_tiled`` combine same-row products
-with a warp scan, so they agree with their plain versions to rounding. int8/int16 tile-local ids
-give the int32 result bit for bit.
+exactly; ``scoo_spmv`` and ``scoo_spmv_tiled`` split each slice across the
+warps of one CTA and combine same-row products with a warp scan and the
+warps' windows in warp order, so they agree with their plain versions to
+rounding. int8/int16 tile-local ids give the int32 result bit for bit.
 
 ``launches`` on each wrapper counts the kernel launches of this process.
 """
@@ -28,8 +29,9 @@ import torch
 from ._launch import (check_cuda_operands, current_stream, index_code, segment_starts,
                       value_code)
 
-#: Slice rows the sliced kernel holds in shared memory: four windows of f32
-#: per CTA within the 48 KB a CTA gets without opting in to more.
+#: Slice rows the sliced kernel holds in shared memory: one window of f32
+#: per warp of the slice's CTA, eight warps up to 1536 rows and four at
+#: 3072, within the 48 KB a CTA gets without opting in to more.
 MAX_SLICE_ROWS = 3072
 
 

@@ -5,7 +5,9 @@ resident x) and ``src/repro/kernels/ell_spmv.py:92`` (``ell_spmv_tiled``,
 over the ``"ell-cols"`` plan), and the masked ELL wrapper of
 ``src/repro/kernels/ops.py:217``. The CUDA source is
 ``src/repro_torch/csrc/ell_spmv.cu``; its header note gives the design and
-the byte bound.
+the byte bound. ``ell_spmv_tiled`` walks, for each chunk of
+:data:`CHUNK_ROWS` rows, only the column tiles :func:`ell_tile_index` lists
+for it.
 
 Each wrapper runs its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (or raises): there is no fallback from
@@ -21,11 +23,15 @@ outside it inside the kernel: no masked copy of the values is made.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ._launch import check_cuda_operands, current_stream, index_code, value_code
+
+#: Rows of one chunk of the tiled kernel (one CTA): the granularity of
+#: :func:`ell_tile_index` (``kRows`` in ``csrc/ell_spmv.cu``).
+CHUNK_ROWS = 128
 
 
 def _slab_sum(idx: torch.Tensor, data: torch.Tensor, xt: torch.Tensor,
@@ -93,11 +99,51 @@ def ell_spmv_tiled_plain(idx_t: torch.Tensor, dat_t: torch.Tensor, x: torch.Tens
     return y.to(dat_t.dtype)
 
 
+class EllTileIndex(NamedTuple):
+    """What :func:`ell_tile_index` builds: the CSR pair and the plan it
+    was built from (``idx_t``'s address, tile count and row count)."""
+
+    tile_ptr: torch.Tensor
+    tile_ids: torch.Tensor
+    source: tuple
+
+
+def _plan_key(idx_t: torch.Tensor) -> tuple:
+    return (idx_t.data_ptr(), idx_t.device, int(idx_t.shape[0]), int(idx_t.shape[1]))
+
+
+def ell_tile_index(idx_t: torch.Tensor) -> EllTileIndex:
+    """The tiles each chunk of :data:`CHUNK_ROWS` rows of an ``"ell-cols"``
+    plan has entries in, as a CSR pair ``(tile_ptr (nchunks + 1,), tile_ids
+    (npairs,))``, both int32, tiles ascending inside a chunk: tile ``t`` is
+    listed for chunk ``c`` when some slot of ``idx_t[t, c * CHUNK_ROWS :
+    (c + 1) * CHUNK_ROWS]`` holds an id >= 0, wherever in the row it lies.
+    Built on ``idx_t``'s device, one tile at a time (no temporary of the
+    plan's size)."""
+    ntiles, nrows, _ = idx_t.shape
+    nchunks = -(-nrows // CHUNK_ROWS)
+    used = torch.zeros(nchunks * CHUNK_ROWS, ntiles, dtype=torch.bool, device=idx_t.device)
+    for t in range(ntiles):
+        used[:nrows, t] = (idx_t[t] >= 0).any(-1)
+    used = used.view(nchunks, CHUNK_ROWS, ntiles).any(1)
+    tile_ptr = torch.zeros(nchunks + 1, dtype=torch.int32, device=idx_t.device)
+    tile_ptr[1:] = used.sum(1).cumsum(0)
+    return EllTileIndex(tile_ptr, used.nonzero()[:, 1].to(torch.int32), _plan_key(idx_t))
+
+
 def ell_spmv_tiled(idx_t: torch.Tensor, dat_t: torch.Tensor, x: torch.Tensor,
-                   col_tile: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   col_tile: int, mask: Optional[torch.Tensor] = None,
+                   tile_index: Optional[EllTileIndex] = None) -> torch.Tensor:
     """y = A @ x over the ``"ell-cols"`` plan: ``idx_t (ntiles, nrows, W)``
     tile-local ids (int8/int16/int32, -1 pads) and ``dat_t`` alike. An id
-    >= 0 always lies inside x, so x is not padded."""
+    >= 0 always lies inside x, so x is not padded. ``tile_index`` is
+    :func:`ell_tile_index` of this very ``idx_t``, cached by the caller
+    (computed here when omitted); the kernel reads the plan at the offsets
+    it lists, so an index of another tensor raises ``ValueError``."""
+    if tile_index is not None and (not isinstance(tile_index, EllTileIndex)
+                                   or tile_index.source != _plan_key(idx_t)):
+        raise ValueError("ell_spmv_tiled: tile_index must be ell_tile_index(idx_t) of "
+                         "this idx_t")
     if dat_t.device.type == "cpu":
         return ell_spmv_tiled_plain(idx_t, dat_t, x, col_tile, mask)
     ntiles, nrows, width = dat_t.shape
@@ -105,16 +151,20 @@ def ell_spmv_tiled(idx_t: torch.Tensor, dat_t: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"ell_spmv_tiled: idx_t {tuple(idx_t.shape)} and dat_t "
                          f"{tuple(dat_t.shape)} differ")
     _check_mask("ell_spmv_tiled", mask, nrows)
+    if tile_index is None:
+        tile_index = ell_tile_index(idx_t)
+    tile_ptr, tile_ids, _ = tile_index
     x = x.to(torch.float32)
-    check_cuda_operands("ell_spmv_tiled", idx_t, dat_t, x, mask)
+    check_cuda_operands("ell_spmv_tiled", idx_t, dat_t, x, mask, tile_ptr, tile_ids)
     vcode = value_code("ell_spmv_tiled", dat_t.dtype)
     icode = index_code("ell_spmv_tiled", idx_t.dtype)
     y = torch.empty(nrows, dtype=dat_t.dtype, device=dat_t.device)
     from ._build import library
 
-    library().call("repro_ell_spmv", idx_t.data_ptr(), dat_t.data_ptr(), x.data_ptr(),
-                   None if mask is None else mask.data_ptr(), y.data_ptr(), nrows,
-                   width, ntiles, col_tile, vcode, icode, current_stream(dat_t.device))
+    library().call("repro_ell_spmv_listed", idx_t.data_ptr(), dat_t.data_ptr(),
+                   x.data_ptr(), None if mask is None else mask.data_ptr(),
+                   tile_ptr.data_ptr(), tile_ids.data_ptr(), y.data_ptr(), nrows, width,
+                   col_tile, vcode, icode, current_stream(dat_t.device))
     ell_spmv_tiled.launches += 1
     return y
 

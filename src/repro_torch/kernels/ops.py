@@ -29,7 +29,7 @@ from ._launch import segment_starts
 from .bsr_spmm import BLOCK_SIZES, bsr_spmm
 from .coo_spmv import coo_spmv, scoo_spmv_tiled
 from .dia_spmv import dia_spmv, dia_spmv_tiled
-from .ell_spmv import ell_spmv, ell_spmv_tiled
+from .ell_spmv import ell_spmv, ell_spmv_tiled, ell_tile_index
 from .sell_spmv import scs_spmv_from_plan
 
 # --------------------------------------------------- capability predicates ----
@@ -133,7 +133,7 @@ def cuda_strategy(A, policy) -> str | None:
 
 def _cached(cache: dict, key: str, make):
     """``cache[key]``, made once: what a kernel derives from a container or
-    its plan (segment starts, offset range) is computed at its first call
+    its plan (segment starts, offset range, tile index) is computed at its first call
     and kept in the container's or the plan's ``cache``."""
     value = cache.get(key)
     if value is None:
@@ -163,8 +163,12 @@ def dia_spmv_cuda(A: DIA, x, policy):
 def ell_spmv_cuda(A: ELL, x, policy, mask=None):
     if cuda_strategy(A, policy) == "resident":
         return ell_spmv(A.indices, A.data, x, mask=mask)
-    idx_t, dat_t = A.plan.arrays
-    return ell_spmv_tiled(idx_t, dat_t, x, col_tile=A.plan.ct, mask=mask)
+    plan = A.plan
+    idx_t, dat_t = plan.arrays
+    listed = None
+    if dat_t.device.type != "cpu":
+        listed = _cached(plan.cache, "tile_index", lambda: ell_tile_index(idx_t))
+    return ell_spmv_tiled(idx_t, dat_t, x, col_tile=plan.ct, mask=mask, tile_index=listed)
 
 
 @register_spmv("coo", "cuda", supports=_coo_ok, needs_policy=True)

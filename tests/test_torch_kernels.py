@@ -31,8 +31,8 @@ from repro_torch.kernels.coo_spmv import (build_scoo, coo_spmv, coo_spmv_plain, 
                                           scoo_spmv_tiled_plain)
 from repro_torch.kernels.dia_spmv import (dia_spmv, dia_spmv_plain, dia_spmv_tiled,
                                           dia_spmv_tiled_plain)
-from repro_torch.kernels.ell_spmv import (ell_spmv, ell_spmv_plain, ell_spmv_tiled,
-                                          ell_spmv_tiled_plain)
+from repro_torch.kernels.ell_spmv import (CHUNK_ROWS, _slab_sum, ell_spmv, ell_spmv_plain,
+                                          ell_spmv_tiled, ell_spmv_tiled_plain, ell_tile_index)
 from repro_torch.kernels.sell_spmv import scs_spmv, scs_spmv_from_plan, scs_spmv_plain
 
 tconv = importlib.import_module("repro_torch.core.convert")
@@ -270,6 +270,116 @@ def test_ell_tiled_plain_sums_the_resident_products():
     assert E.plan.ntiles == 1
     assert torch.equal(ell_spmv_tiled(*E.plan.arrays, x, col_tile=128),
                        ell_spmv(E.indices, E.data, x))
+
+
+def _ell_index_matrix(col_tile):
+    """300 rows (three chunks, the last one ragged) over five and a bit
+    column tiles: chunk 0 has
+    entries only in column tiles 0 and 3 (not adjacent), with 40 in one
+    tile on row 2 where the tile is wider than 32 (W > 32); chunk 1 has
+    none; chunk 2 is random over every tile."""
+    import scipy.sparse as sp
+
+    n, m = 300, 5 * col_tile + 3
+    rng = np.random.default_rng(31)
+    dense = np.zeros((n, m))
+    for lo in (0, 3 * col_tile):
+        shape = (CHUNK_ROWS, col_tile)
+        dense[:CHUNK_ROWS, lo:lo + col_tile] = (
+            (rng.random(shape) < 0.1) * rng.standard_normal(shape))
+    if col_tile > 32:
+        dense[2, :40] = rng.standard_normal(40)
+    dense[2 * CHUNK_ROWS:] = (rng.random((n - 2 * CHUNK_ROWS, m)) < 0.05) * rng.standard_normal(
+        (n - 2 * CHUNK_ROWS, m))
+    return sp.csr_matrix(dense)
+
+
+def _listed_by_brute_force(idx_t: np.ndarray):
+    ntiles, nrows, _ = idx_t.shape
+    ptr, ids = [0], []
+    for c in range(-(-nrows // CHUNK_ROWS)):
+        chunk = idx_t[:, c * CHUNK_ROWS:(c + 1) * CHUNK_ROWS]
+        ids += [t for t in range(ntiles) if (chunk[t] >= 0).any()]
+        ptr.append(len(ids))
+    return np.array(ptr), np.array(ids)
+
+
+ELL_INDEX_CASES = [(16, "int8"), (16, "int32"), (64, "int8"), (64, "int16"), (128, "int16"),
+                   (128, "int32")]
+
+
+@pytest.mark.parametrize("col_tile,index_dtype", ELL_INDEX_CASES)
+def test_ell_tile_index_lists_each_chunks_tiles(jax_ref, col_tile, index_dtype):
+    """The tile index of an ``"ell-cols"`` plan that the reference builds
+    equals a brute-force listing: an empty chunk lists nothing, a chunk
+    lists tiles that are not adjacent, the ragged last chunk counts only
+    its rows; and it does not rely on a row's entries being packed left."""
+    s = _ell_index_matrix(col_tile)
+    plan = jax_ref["tiling"].build_ell_col_plan(s, col_tile, index_dtype=index_dtype)
+    idx_t = np.asarray(plan.arrays[0])
+    assert idx_t.dtype == np.dtype(index_dtype)
+    assert idx_t.shape[1] % CHUNK_ROWS and (col_tile <= 32 or idx_t.shape[2] > 32)
+    tile_ptr, tile_ids, _ = ell_tile_index(torch.from_numpy(idx_t))
+    assert tile_ptr.dtype == tile_ids.dtype == torch.int32
+    want_ptr, want_ids = _listed_by_brute_force(idx_t)
+    np.testing.assert_array_equal(tile_ptr.numpy(), want_ptr)
+    np.testing.assert_array_equal(tile_ids.numpy(), want_ids)
+    assert tile_ids[tile_ptr[0]:tile_ptr[1]].tolist() == [0, 3]  # chunk 0
+    assert tile_ptr[1] == tile_ptr[2]                             # chunk 1 is empty
+    flipped = ell_tile_index(torch.from_numpy(np.ascontiguousarray(idx_t[..., ::-1])))
+    assert all(torch.equal(a, b) for a, b in zip(flipped, (tile_ptr, tile_ids)))
+
+
+@pytest.mark.parametrize("col_tile,index_dtype", ELL_INDEX_CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_ell_sum_over_listed_tiles_equals_tiled_plain(jax_ref, col_tile, index_dtype, masked):
+    """Adding only the tiles the index lists for a row's chunk, in
+    ascending order, gives ``ell_spmv_tiled_plain`` (which adds every
+    tile's sum) bit for bit in f32: a skipped tile adds +0 to a total that
+    is never -0."""
+    s = _ell_index_matrix(col_tile)
+    plan = jax_ref["tiling"].build_ell_col_plan(s, col_tile, index_dtype=index_dtype)
+    idx_t = torch.from_numpy(np.asarray(plan.arrays[0]))
+    dat_t = torch.from_numpy(np.asarray(plan.arrays[1], np.float32))
+    x = torch.from_numpy(_x(s.shape[1]))
+    mask = torch.from_numpy(np.random.default_rng(6).random(s.shape[0]) < 0.5) if masked else None
+    tile_ptr, tile_ids, _ = ell_tile_index(idx_t)
+    chunk_of_row = torch.arange(s.shape[0]) // CHUNK_ROWS
+    y = torch.zeros(s.shape[0])
+    for t in range(idx_t.shape[0]):
+        listed = torch.zeros(len(tile_ptr) - 1, dtype=torch.bool)
+        for c in range(len(tile_ptr) - 1):
+            listed[c] = bool((tile_ids[tile_ptr[c]:tile_ptr[c + 1]] == t).any())
+        part = _slab_sum(idx_t[t], dat_t[t], x[t * col_tile:], mask)
+        y = torch.where(listed[chunk_of_row], y + part, y)
+    assert torch.equal(y, ell_spmv_tiled_plain(idx_t, dat_t, x, col_tile, mask))
+    assert int(tile_ptr[-1]) < idx_t.shape[0] * len(tile_ptr[1:])  # tiles were skipped
+
+
+@pytest.mark.parametrize("wrong", ["other_plan", "copy_of_plan", "bare_pair"])
+def test_ell_spmv_tiled_refuses_an_index_of_another_plan(wrong):
+    """The tiled ELL kernel reads the plan at the offsets its index lists,
+    so ``ell_spmv_tiled`` takes only ``ell_tile_index`` of the very
+    ``idx_t`` it is given (on the CPU too, where the plain version runs):
+    an index of another plan, of a copy of this one, or a bare
+    ``(tile_ptr, tile_ids)`` pair raises ``ValueError``; its own index
+    gives the plain result."""
+    s = _ell_index_matrix(16)
+    E = tconv.from_dense(s, "ell", col_tile=16, device="cpu")
+    idx_t, dat_t = E.plan.arrays
+    x = torch.from_numpy(_x(s.shape[1]))
+    own = ell_tile_index(idx_t)
+    assert torch.equal(ell_spmv_tiled(idx_t, dat_t, x, col_tile=16, tile_index=own),
+                       ell_spmv_tiled_plain(idx_t, dat_t, x, 16))
+    if wrong == "other_plan":
+        other = tconv.from_dense(s[:200], "ell", col_tile=16, device="cpu")
+        index = ell_tile_index(other.plan.arrays[0])
+    elif wrong == "copy_of_plan":
+        index = ell_tile_index(idx_t.clone())
+    else:
+        index = tuple(own[:2])
+    with pytest.raises(ValueError, match="tile_index"):
+        ell_spmv_tiled(idx_t, dat_t, x, col_tile=16, tile_index=index)
 
 
 # --------------------------------------------------- coo_spmv, scoo_spmv_tiled ----
@@ -626,6 +736,56 @@ def test_ell_kernels_match_plain_on_card(cuda, shape, dtype, index_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("col_tile,index_dtype", ELL_INDEX_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ell_listed_kernel_on_card(cuda, col_tile, index_dtype, dtype):
+    """The tiled ELL kernel walks only the listed tiles of each chunk (an
+    empty chunk, tiles that are not adjacent, a ragged last chunk, W > 32
+    staged in segments) and equals its plain version bit for bit in every
+    dtype, masked equals ``where(mask, A @ x, 0)``, narrow ids equal int32,
+    and two launches are bit-equal; so does a plan whose rows' slots are
+    not packed left."""
+    s = _ell_index_matrix(col_tile)
+    n, m = s.shape
+    E = tconv.from_dense(s, "ell", dtype=dtype, col_tile=col_tile, index_dtype=index_dtype,
+                         device=cuda)
+    idx_t, dat_t = E.plan.arrays
+    x = torch.from_numpy(_x(m)).to(cuda)
+    mask = torch.from_numpy(np.random.default_rng(9).random(n) < 0.5).to(cuda)
+    listed = ell_tile_index(idx_t)
+    before = ell_spmv_tiled.launches
+    y = ell_spmv_tiled(idx_t, dat_t, x, col_tile=col_tile, tile_index=listed)
+    assert ell_spmv_tiled.launches == before + 1
+    assert torch.equal(y, ell_spmv_tiled_plain(idx_t, dat_t, x, col_tile))
+    assert torch.equal(y, ell_spmv_tiled(idx_t, dat_t, x, col_tile=col_tile))
+    zero = torch.zeros((), dtype=y.dtype, device=cuda)
+    assert torch.equal(ell_spmv_tiled(idx_t, dat_t, x, col_tile=col_tile, mask=mask,
+                                      tile_index=listed), torch.where(mask, y, zero))
+    E32 = tconv.from_dense(s, "ell", dtype=dtype, col_tile=col_tile, index_dtype="int32",
+                           device=cuda)
+    assert torch.equal(y, ell_spmv_tiled(*E32.plan.arrays, x, col_tile=col_tile))
+    fi, fd = idx_t.flip(-1).contiguous(), dat_t.flip(-1).contiguous()
+    assert torch.equal(ell_spmv_tiled(fi, fd, x, col_tile=col_tile),
+                       ell_spmv_tiled_plain(fi, fd, x, col_tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntiles,ct", [(2, 64), (1, 64)])
+def test_resident_ell_entry_refuses_tiles_on_card(cuda, ntiles, ct):
+    """``repro_ell_spmv`` keeps its signature but runs only the resident
+    arrays (one tile, global ids): a tile count or width raises instead of
+    launching."""
+    from repro_torch.kernels._build import library
+
+    E = tconv.from_dense(_mat(64, 64, 3), "ell", device=cuda)
+    x = torch.from_numpy(_x(64)).to(cuda)
+    y = torch.empty(64, device=cuda)
+    with pytest.raises(RuntimeError, match="repro_ell_spmv failed to launch"):
+        library().call("repro_ell_spmv", E.indices.data_ptr(), E.data.data_ptr(), x.data_ptr(),
+                       None, y.data_ptr(), 64, E.width, ntiles, ct, 0, 2, None)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES + [(3000, 5000)])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("index_dtype", ["int8", "int16", "int32"])
@@ -749,6 +909,86 @@ def test_scoo_spmv_kernel_in_any_entry_order_on_card(cuda, order, dtype):
     y = scoo_spmv(*arrays, x, nrows=n, slice_rows=64, tile=128)
     _rel_close(y, scoo_spmv_plain(*arrays, x, nrows=n), dtype, s)
     assert torch.equal(y, scoo_spmv(*arrays, x, nrows=n, slice_rows=64, tile=128))
+
+
+def _split_slice_matrix(case):
+    """``(scipy matrix, slice_rows, tile)`` for the sliced COO kernel's
+    split of a slice across warps: ``"long_row"`` has a slice of 180
+    blocks (``build_scoo``) whose row 70 holds 5,000 entries, which
+    straddle the warps' shares; ``"one_block"`` slices of at most one block; ``"empty_slice"``
+    slices with no entries beside full ones; ``"max_slice_rows"`` slices of
+    ``MAX_SLICE_ROWS`` rows (fewer warps, larger windows)."""
+    import scipy.sparse as sp
+
+    from repro_torch.kernels.coo_spmv import MAX_SLICE_ROWS
+
+    rng = np.random.default_rng(33)
+    if case == "long_row":
+        n, m, slice_rows, tile = 256, 6000, 64, 32
+        s = sp.random(n, m, density=0.002, random_state=rng, format="lil")
+        s[70, rng.choice(m, 5000, replace=False)] = rng.standard_normal(5000)
+    elif case == "one_block":
+        n, m, slice_rows, tile = 512, 300, 64, 128
+        s = sp.random(n, m, density=0.002, random_state=rng, format="lil")
+    elif case == "empty_slice":
+        n, m, slice_rows, tile = 512, 300, 64, 32
+        s = sp.random(n, m, density=0.05, random_state=rng, format="lil")
+        s[64:192] = 0
+    else:
+        n, m, slice_rows, tile = 2 * MAX_SLICE_ROWS + 100, 700, MAX_SLICE_ROWS, 512
+        s = sp.random(n, m, density=0.01, random_state=rng, format="lil")
+    s = sp.csr_matrix(s)
+    s.data = rng.standard_normal(s.nnz)
+    return s, slice_rows, tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_row", "one_block", "empty_slice", "max_slice_rows"])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("kernel", ["scoo_spmv", "scoo_spmv_tiled"])
+def test_scoo_kernels_split_slices_across_warps_on_card(cuda, case, order, kernel):
+    """Both sliced COO kernels, each slice's run of blocks cut across the
+    warps of its CTA: within tolerance of the plain version and of scipy,
+    equal bits over two launches, int16 ids equal to int32, with the pad
+    runs and with entries shuffled inside each block (``scoo_spmv_tiled``)
+    or each slice (``scoo_spmv``)."""
+    s, slice_rows, tile = _split_slice_matrix(case)
+    n, m = s.shape
+    x = torch.from_numpy(_x(m)).to(cuda)
+    coo = s.tocoo()
+    rng = np.random.default_rng(34)
+    perm = rng.permutation(coo.nnz) if order == "shuffled" else np.lexsort((coo.col, coo.row))
+    row, col, val = coo.row[perm], coo.col[perm], coo.data[perm].astype(np.float32)
+    if kernel == "scoo_spmv":
+        arrays = [torch.from_numpy(a).to(cuda)
+                  for a in build_scoo(row, col, val, n, slice_rows, tile)]
+        if order == "shuffled":
+            assert bool((arrays[0][1:] < arrays[0][:-1]).any())
+
+        def run(a=arrays):
+            return scoo_spmv(*a, x, nrows=n, slice_rows=slice_rows, tile=tile)
+
+        plain, runs = scoo_spmv_plain(*arrays, x, nrows=n), [run]
+    else:
+        col_tile = 256
+        runs, at = [], None
+        for idt in ("int16", "int32"):
+            plan = ttiling.build_coo_col_plan(row, col, val, (n, m), col_tile, slice_rows, tile,
+                                              index_dtype=idt)
+            r, c, v, sid, ctile = (np.array(a) for a in plan.arrays)
+            if order == "shuffled":  # entries in any order inside each block, alike for both
+                if at is None:
+                    within = np.argsort(rng.random(r.shape[0]).reshape(-1, tile), axis=1)
+                    at = (within + np.arange(0, r.shape[0], tile)[:, None]).reshape(-1)
+                r, c, v = r[at], c[at], v[at]
+            a = [torch.from_numpy(u).to(cuda) for u in (r, c, v, sid, ctile)]
+            runs.append(lambda a=a: scoo_spmv_tiled(*a, x, nrows=n, col_tile=col_tile,
+                                                    slice_rows=slice_rows, tile=tile))
+        plain = scoo_spmv_tiled_plain(*a, x, nrows=n, col_tile=col_tile, tile=tile)
+    y = runs[0]()
+    _rel_close(y, plain, "float32", s)
+    _close(y.cpu().numpy(), s @ _x(m))
+    assert all(torch.equal(y, fn()) for fn in runs)
 
 
 @pytest.mark.cuda
