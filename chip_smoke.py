@@ -10,10 +10,17 @@ Phases, one or more lines each, each ending with its seconds:
      first use; ptxas register and spill lines are printed);
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes of the HPCG 104^3 path: ``scs_spmv`` on the finest level's tiled
-     plan and on the resident plan of 52^3, ``dia_spmv`` on the finest level,
+     plan, on the resident plan of 52^3 and on the resident plans of the
+     tuner's power law and of the block matrix (each with its blocks,
+     windows, chunks and real j-steps; the bound counts each entry's id and
+     value, x, y, perm and the cached index, ``bound_staged_ms`` what the
+     kernel stages, and ``bound_every_slot_ms`` the bound that reads every
+     slot),
+     ``dia_spmv`` on the finest level and on 13^3,
      ``dia_spmv_tiled`` on the finest level under ``max_resident_cols=1<<18``,
      the masked DIA wrapper against ``where(mask, A @ x, 0)`` (exact),
-     ``ell_spmv`` on 52^3, the masked ELL wrapper (exact), ``ell_spmv_tiled``
+     ``ell_spmv`` on 52^3 and 13^3, the masked ELL wrapper (exact),
+     ``ell_spmv_tiled``
      on the finest level's ``"ell-cols"`` plan with its tile index built
      once beforehand (its build seconds, pairs and the bytes the kernel
      stages are printed; the bound counts the real ids and values, x, y and
@@ -23,7 +30,8 @@ Phases, one or more lines each, each ending with its seconds:
      ``scoo_spmv`` on the finest level's ``build_scoo`` layout (slices and
      blocks of 512; no dispatch path calls it, so its own path here is one
      call, counted like the others), and ``bsr_spmm`` and its masked form on
-     the block matrix of phase 8 at 1 and 128 columns. Each line gives the
+     the block matrix of phase 8 at 1 and 128 columns (with the path that
+     ran: tensor cores or CUDA cores). Each line gives the
      median kernel time (CUDA events around one call, which also catch the
      wrapper's host time), the kernel's device time alone
      (``torch.profiler``), the plain version's time, one PyTorch library
@@ -130,6 +138,13 @@ REQUIRED_ON = {"scs_spmv": "hpcg", "dia_spmv": "hpcg", "dia_spmv_tiled": "tiled_
                "ell_spmv": "hpcg", "ell_spmv_tiled": "hpcg", "coo_spmv": "hpcg",
                "scoo_spmv_tiled": "hpcg", "scoo_spmv": "scoo", "bsr_spmm": "block"}
 
+#: What a kernel's entry in the JSON line carries beyond the contract's keys:
+#: its other shapes (``bsr_spmm``'s SpMM and masked forms, ``scs_spmv`` off
+#: the 104^3 plan, DIA and ELL at 13^3), the path ``bsr_spmm`` ran, and the
+#: staged and every-slot bounds.
+EXTRA_KEYS = ("path", "masked", "spmm", "coarse", "powerlaw", "block", "shape_13",
+              "bound_staged_ms", "bound_every_slot_ms", "bound_every_id_slot_ms")
+
 #: The block matrix of the block path: ``block_random(n, bs, density)``.
 BLOCK_MATRIX = (65536, 32, 16 / 2048)
 #: Columns of X on the block path's SpMM.
@@ -175,20 +190,24 @@ def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     """Device time of one ``fn()`` in ms spent in kernels whose name holds
     ``kernel``, from ``torch.profiler`` over ``reps`` calls: the kernel
     alone, without the wrapper's host time that CUDA events around a small
-    call also catch."""
+    call also catch. ``None`` when three traces in a row hold no record of
+    it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if e.device_type != DeviceType.CPU and kernel in e.key)
-    return us / reps / 1e3
+    for _ in range(3):  # a trace now and then comes back without the kernel's records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                 if e.device_type != DeviceType.CPU and kernel in e.key)
+        if us > 0:
+            return us / reps / 1e3
+    return None  # not measured
 
 
 def nbytes(*tensors) -> int:
@@ -228,7 +247,7 @@ def phase_kernels(results: dict, block) -> tuple:
     from repro_torch.core.convert import to_bsr, to_coo, to_csr, to_dia, to_ell
     from repro_torch.kernels import ops
     from repro_torch.kernels._launch import segment_starts
-    from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_path, bsr_spmm_plain
     from repro_torch.kernels.coo_spmv import (build_scoo, coo_spmv, coo_spmv_plain, scoo_spmv,
                                               scoo_spmv_plain, scoo_spmv_tiled,
                                               scoo_spmv_tiled_plain)
@@ -276,27 +295,55 @@ def phase_kernels(results: dict, block) -> tuple:
         results[name] = phase(f"kernel {label}", **rec)
         return rec
 
-    mats = {g: M.fdm27(g, g, g) for g in (GRID, GRID // 2, GRID // 8)}
-    for g, label in ((GRID, "finest"), (GRID // 2, "coarse")):
-        s = mats[g]
+    def scs_row(name, label, s, x, **extra):
+        """``scs_spmv`` on ``s``'s csr plan through the dispatch adapter
+        (real j-steps and work list cached on the plan). The bound counts
+        what the function needs: each entry's id and value, x, y, perm and
+        the cached index. ``bound_staged_ms`` counts what the kernel stages
+        (every slot of the real j-steps, their slices, each block's tile),
+        ``bound_every_slot_ms`` every slot of the plan, padding included."""
         n = s.shape[0]
-        x = vec(n)
         A = to_csr(s, device=dev)
         plan = A.plan
         btile, bwin, lsl, idx2, dat2, perm = plan.arrays
         ct, ntiles, C, sw, jb, nwin = plan.meta
-        run_start = segment_starts(bwin, nwin)
-        rec = measure(
-            f"scs_spmv_{label}", f"scs_spmv {label} {g}^3", s, x,
-            lambda: scs_spmv_from_plan(plan, x, nrows=n),
+        y = scs_spmv_from_plan(plan, x, nrows=n)  # fills the plan's cache
+        nreal, work = plan.cache["nreal"], plan.cache["work"]
+        real = int(nreal.sum())
+        runs = segment_starts(bwin, nwin)
+        rest = nbytes(x, perm, nreal, *work[:4]) + n * 4
+        needed = s.nnz * (idx2.element_size() + dat2.element_size()) + rest
+        staged = real * (C * (idx2.element_size() + dat2.element_size()) + 4) + rest + nbytes(
+            btile)
+        del y
+        return measure(
+            name, label, s, x, lambda: scs_spmv_from_plan(plan, x, nrows=n),
             lambda: scs_spmv_plain(*plan.arrays, x, nrows=n, col_tile=ct, ntiles=ntiles,
                                    C=C, sw=sw, jb=jb, nwin=nwin),
-            nbytes(btile, lsl, idx2, dat2, perm, run_start, x) + n * 4, "scs_kernel",
-            grid=g, strategy=ops.cuda_strategy(A, ExecutionPolicy()), ntiles=ntiles,
-            blocks=int(btile.shape[0]), index_dtype=str(idx2.dtype))
-        if label == "finest":
-            out["scs_spmv"] = rec
-        del A, plan, btile, bwin, lsl, idx2, dat2, perm, run_start
+            needed, "scs_", plain_reps=3, strategy=ops.cuda_strategy(A, ExecutionPolicy()),
+            ntiles=ntiles, blocks=int(btile.shape[0]), windows=nwin,
+            longest_window_blocks=int((runs[1:] - runs[:-1]).max()),
+            chunks=int(work.chunk_win.shape[0]), chunk_blocks=work.chunk_blocks,
+            split_windows=int(work.split_win.shape[0]), real_jsteps=real,
+            jstep_slots=int(idx2.shape[0]), index_dtype=str(idx2.dtype),
+            bound_staged_ms=bound(staged, 2 * s.nnz)[0],
+            bound_every_slot_ms=bound(nbytes(btile, lsl, idx2, dat2, perm, runs, x) + n * 4,
+                                      2 * s.nnz)[0], **extra)
+
+    mats = {g: M.fdm27(g, g, g) for g in (GRID, GRID // 2, GRID // 8)}
+    out["scs_spmv"] = scs_row("scs_spmv_finest", f"scs_spmv finest {GRID}^3", mats[GRID],
+                              vec(mats[GRID].shape[0]), grid=GRID)
+    others = {"coarse": (f"scs_spmv coarse {GRID // 2}^3", mats[GRID // 2]),
+              "powerlaw": ("scs_spmv powerlaw(10**6, 8)", M.powerlaw(10 ** 6, 8)),
+              "block": ("scs_spmv block_random(65536, 32, 16/2048)", block)}
+    for key, (label, s) in others.items():
+        rec = scs_row(f"scs_spmv_{key}", label, s, vec(s.shape[0]))
+        out["scs_spmv"][key] = {k: rec[k] for k in (
+            "max_abs_err", "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_staged_ms", "bound_every_slot_ms", "blocks", "windows", "chunks",
+            "real_jsteps")}
+        del s
+    torch.cuda.empty_cache()
 
     # resident DIA, the masked DIA wrapper and the tiled DIA, on the finest level
     s = mats[GRID]
@@ -388,11 +435,32 @@ def phase_kernels(results: dict, block) -> tuple:
         bound_all_ms=bound(nbytes(idx_t, dat_t, x) + n * 4, 2 * s.nnz)[0])
     del E, idx_t, dat_t, listed, tile_ptr, tile_ids
 
-    # COO: full window on 13^3, sliced on the finest level
+    # DIA and ELL at 13^3, the level where HPCG launches ell_spmv most
     g = GRID // 8
     s13 = mats[g]
     n13 = s13.shape[0]
     x13 = vec(n13)
+    D = to_dia(s13, device=dev)
+    E = to_ell(s13, device=dev)
+    valid = int((E.indices >= 0).sum())
+    for name, rec in (
+            ("dia_spmv", measure(
+                "dia_spmv_13", f"dia_spmv {g}^3", s13, x13,
+                lambda: dia_spmv(D.offsets, D.data, x13),
+                lambda: dia_spmv_plain(D.offsets, D.data, x13),
+                nbytes(D.offsets, D.data, x13) + n13 * 4, "dia_resident_kernel", exact=True,
+                grid=g)),
+            ("ell_spmv", measure(
+                "ell_spmv_13", f"ell_spmv {g}^3", s13, x13,
+                lambda: ell_spmv(E.indices, E.data, x13),
+                lambda: ell_spmv_plain(E.indices, E.data, x13),
+                nbytes(E.indices, x13) + valid * E.data.element_size() + n13 * 4,
+                "ell_kernel", exact=True, grid=g, width=E.width))):
+        out[name]["shape_13"] = {k: rec[k] for k in (
+            "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    del D, E
+
+    # COO: full window on 13^3, sliced on the finest level
     Co = to_coo(s13, device=dev)
     check(ops.cuda_strategy(Co, ExecutionPolicy()) == "resident", "coo 13^3 is not resident")
     starts = segment_starts(Co.row, n13)
@@ -482,9 +550,10 @@ def phase_kernels(results: dict, block) -> tuple:
         rec = measure(
             f"bsr_spmm_nf{nf}", f"bsr_spmm nf={nf}", block, X,
             lambda: bsr_spmm(B.bcols, B.blocks, X), lambda: bsr_spmm_plain(B.bcols, B.blocks, X),
-            real * bs * bs * esz + nbytes(B.bcols, X) + nb * nf * 4, "bsr_spmm_kernel",
+            real * bs * bs * esz + nbytes(B.bcols, X) + nb * nf * 4, "bsr_spmm_",
             plain_reps=3, flops=2 * real * bs * bs * nf, flops_per_s=TF32X3_FLOPS,
-            library=lambda: lib_ms, nf=nf, bs=bs, bwidth=B.bwidth, real_blocks=real,
+            library=lambda: lib_ms, nf=nf, path=bsr_spmm_path(bs, nf), bs=bs,
+            bwidth=B.bwidth, real_blocks=real,
             padded_blocks=int(valid.numel()))
         Ym = bsr_spmm(B.bcols, B.blocks, X, row_mask=mask)
         check(bool(torch.equal(Ym, torch.where(mask[:, None], Y, torch.zeros((), device=dev)))),
@@ -494,16 +563,18 @@ def phase_kernels(results: dict, block) -> tuple:
             lambda: bsr_spmm(B.bcols, B.blocks, X, row_mask=mask),
             lambda: bsr_spmm_plain(B.bcols, B.blocks, X, row_mask=mask),
             kept_entries * esz + nbytes(B.bcols, X, mask) + nb * nf * 4,
-            "bsr_spmm_kernel", plain_reps=3, flops=2 * kept_entries * nf,
-            flops_per_s=TF32X3_FLOPS, library=lambda: None, nf=nf, equals_where_of_unmasked=True)
+            "bsr_spmm_", plain_reps=3, flops=2 * kept_entries * nf,
+            flops_per_s=TF32X3_FLOPS, library=lambda: None, nf=nf, path=bsr_spmm_path(bs, nf),
+            equals_where_of_unmasked=True)
+        masked = {k: recm[k] for k in (
+            "nf", "path", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
         if nf == 1:
-            out["bsr_spmm"], out["bsr_masked"] = rec, recm
+            out["bsr_spmm"] = dict(rec, masked=masked)
         else:
             out["bsr_spmm"]["spmm"] = {k: rec[k] for k in (
-                "nf", "max_abs_err", "ms", "kernel_ms", "plain_ms", "library_ms",
+                "nf", "path", "max_abs_err", "ms", "kernel_ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by")}
-            out["bsr_masked"]["spmm"] = {k: recm[k] for k in (
-                "nf", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+            out["bsr_spmm"]["spmm"]["masked"] = masked
         del X, Y, Ym
     del B, bsr_lib
     torch.cuda.empty_cache()
@@ -858,7 +929,8 @@ def main() -> int:
             **{f"launches_{p}": counts[name] for p, counts in by_path.items()},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"], **({"spmm": k["spmm"]} if "spmm" in k else {})})
+            "library_ms": k["library_ms"],
+            **{key: k[key] for key in EXTRA_KEYS if key in k}})
     results["seconds"] = seconds
     results["total_s"] = round(time.perf_counter() - t_start, 1)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -1,7 +1,8 @@
 """What the kernel A/B scripts share: build versions of one CUDA source side
 by side, and time them in rounds that alternate their order.
 
-Used by ``examples/ell_kernel_ab.py`` and ``examples/scoo_kernel_ab.py``.
+Used by ``examples/ell_kernel_ab.py``, ``examples/scoo_kernel_ab.py``,
+``examples/scs_kernel_ab.py`` and ``examples/bsr_kernel_ab.py``.
 Needs a CUDA card and nvcc.
 """
 import ctypes
@@ -21,7 +22,10 @@ ROUNDS, REPS = 8, 20
 def build(sources, dirname, entries):
     """One shared library per source in ``build/<dirname>/``, every nvcc
     process started together, with the port's flags; the C ``entries`` a
-    library has get their argument types. Returns ``{source: library}``."""
+    library has get their argument types (``entries`` names them, or maps
+    each name to its ctypes argument types where the port's table lacks
+    it, as for an entry only an older source has). Returns ``{source:
+    library}``."""
     out = os.path.join(os.path.dirname(str(_build.BUILD_ROOT)), dirname)
     os.makedirs(out, exist_ok=True)
     procs = []
@@ -39,7 +43,8 @@ def build(sources, dirname, entries):
         lib = ctypes.CDLL(so)
         for name in entries:
             if hasattr(lib, name):
-                getattr(lib, name).argtypes = list(_build._SIGNATURES[name])
+                args = entries[name] if isinstance(entries, dict) else _build._SIGNATURES[name]
+                getattr(lib, name).argtypes = list(args)
         libs[src] = lib
     return libs
 

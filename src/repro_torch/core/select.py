@@ -86,17 +86,22 @@ COST: Dict[str, CostTable] = {
     # One line a + c * kentries per key through one chip_smoke.py phase 2
     # measurement on an NVIDIA H100 80GB HBM3 at power limit 700.00 W (PERF.md
     # names the runs): a = the host time of one call (CUDA-event ms minus the
-    # kernel's profiler time; a plain key takes its format's cuda a), c = the
+    # kernel's profiler time; a plain key took its format's cuda a when its
+    # line was drawn, and keeps it until a plain run measures it), c = the
     # device time per thousand stored entries at int32/f32 width, on HPCG's
     # fdm27 grid (52^3 resident, 104^3 tiled, 13^3 resident COO; tiled DIA
     # under max_resident_cols=1<<18) or, for bsr, on
-    # block_random(65536, 32, 16/2048). Uncalibrated: no fit has been run.
+    # block_random(65536, 32, 16/2048). The csr, sell and bsr c come from
+    # examples/cuda_cost_lines.py after their kernels' redesign; their a stays
+    # the one measured before it: the csr/sell wrapper's host time per call
+    # did not change (examples/scs_wrapper_ab.py), and the bsr wrapper's host
+    # work gained only two pointer checks. Uncalibrated: no fit has been run.
     "cuda": {
         ("coo", "cuda", "resident"): (77.52, 0.0, 0.0884449, 0.0),
         ("coo", "cuda", "tiled"): (65.15, 0.0, 0.00500898, 0.0),
         ("coo", "plain", ""): (77.52, 0.0, 0.195008, 0.0),
-        ("csr", "cuda", "resident"): (48.5, 0.0, 0.00813194, 0.0),
-        ("csr", "cuda", "tiled"): (32.0, 0.0, 0.0120545, 0.0),
+        ("csr", "cuda", "resident"): (48.5, 0.0, 0.00607523, 0.0),
+        ("csr", "cuda", "tiled"): (32.0, 0.0, 0.00597676, 0.0),
         ("csr", "plain", ""): (48.5, 0.0, 0.139338, 0.0),
         ("dia", "cuda", "resident"): (48.5, 0.0, 0.00165617, 0.0),
         ("dia", "cuda", "tiled"): (31.4, 0.0, 0.00327941, 0.0),
@@ -104,11 +109,11 @@ COST: Dict[str, CostTable] = {
         ("ell", "cuda", "resident"): (53.6, 0.0, 0.00979872, 0.0),
         ("ell", "cuda", "tiled"): (68.02, 0.0, 0.00486554, 0.0),
         ("ell", "plain", ""): (53.6, 0.0, 1.06664, 0.0),
-        ("sell", "cuda", "resident"): (48.5, 0.0, 0.00742743, 0.0),
-        ("sell", "cuda", "tiled"): (32.0, 0.0, 0.0111289, 0.0),
+        ("sell", "cuda", "resident"): (48.5, 0.0, 0.0055489, 0.0),
+        ("sell", "cuda", "tiled"): (32.0, 0.0, 0.00551783, 0.0),
         ("sell", "plain", ""): (48.5, 0.0, 0.128639, 0.0),
         ("bsr", "plain", ""): (78.4, 0.0, 0.0231596, 0.0),
-        ("bsr", "cuda", "block"): (78.4, 0.0, 0.00434822, 0.0),
+        ("bsr", "cuda", "block"): (78.4, 0.0, 0.00155187, 0.0),
     },
 }
 

@@ -40,13 +40,14 @@ _SIGNATURES = {
                               _I, _I, _P),
     "repro_scoo_spmv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _P),
     "repro_bsr_spmm": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P),
+    "repro_bsr_spmm_tensor_cores": (_I, _LL),
     "repro_ell_spmv": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P),
     "repro_ell_spmv_listed": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P),
     "repro_dia_spmv": (_P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
     "repro_dia_spmv_tiled": (_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _LL,
                              _LL, _I, _P),
-    "repro_scs_spmv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
-                       _LL, _LL, _I, _I, _P),
+    "repro_scs_spmv_chunked": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _LL, _LL, _LL, _I, _I, _P),
 }
 
 

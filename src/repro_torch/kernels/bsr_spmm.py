@@ -10,9 +10,11 @@ kernel for tensors on a CUDA device (or raises). Both multiply the blocks,
 upcast to f32, with X in f32 and return Y in f32. A block id < 0 or >=
 nbcols (``ceil(ncols / bs)``) contributes zero, and rows of X past
 ``ncols`` read as zero: no padded copy of X is made. ``row_mask`` (bool,
-``(nbrows * bs,)``) zeroes the rows outside it inside the kernel. The
-kernel sums with fused multiply-adds, the plain version through a batched
-matmul, so the two agree to rounding; two launches give equal bits.
+``(nbrows * bs,)``) zeroes the rows outside it inside the kernel. At block
+edges 16, 32 and 64 with 8 or more columns the kernel multiplies on the
+tensor cores in 3xTF32 (:func:`bsr_spmm_path`), else on the CUDA cores with
+fused multiply-adds; the plain version sums through a batched matmul, so
+the two agree to rounding; two launches give equal bits.
 
 ``launches`` on the wrapper counts the kernel launches of this process.
 """
@@ -60,6 +62,15 @@ def bsr_spmm_plain(bcols: torch.Tensor, blocks: torch.Tensor, X: torch.Tensor,
     return Y
 
 
+def bsr_spmm_path(bs: int, nf: int) -> str:
+    """Which multiply :func:`bsr_spmm`'s kernel runs at block edge ``bs``
+    and ``nf`` columns, as the built kernels decide it: ``"tensor-core"``
+    (3xTF32 ``mma.sync``) or ``"cuda-core"``. Needs the kernels' build."""
+    from ._build import library
+
+    return "tensor-core" if library().lib.repro_bsr_spmm_tensor_cores(bs, nf) else "cuda-core"
+
+
 def bsr_spmm(bcols: torch.Tensor, blocks: torch.Tensor, X: torch.Tensor,
              row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Y = A @ X, ``(nbrows * bs, nf)`` f32, for BSR arrays: ``bcols
@@ -77,7 +88,11 @@ def bsr_spmm(bcols: torch.Tensor, blocks: torch.Tensor, X: torch.Tensor,
         raise ValueError("bsr_spmm: row_mask must be a bool tensor of shape (nbrows * bs,)")
     ncols, nf = X.shape
     X = X.to(torch.float32).contiguous()
+    if X.data_ptr() % 16:  # the kernel stages X with 16-byte copies
+        X = X.clone()
     check_cuda_operands("bsr_spmm", bcols, blocks, X, row_mask)
+    if blocks.data_ptr() % 16:
+        raise ValueError("bsr_spmm: blocks must start on a 16-byte boundary")
     code = value_code("bsr_spmm", blocks.dtype)
     Y = torch.empty((nbrows * bs, nf), dtype=torch.float32, device=blocks.device)
     from ._build import library

@@ -33,7 +33,8 @@ from repro_torch.kernels.dia_spmv import (dia_spmv, dia_spmv_plain, dia_spmv_til
                                           dia_spmv_tiled_plain)
 from repro_torch.kernels.ell_spmv import (CHUNK_ROWS, _slab_sum, ell_spmv, ell_spmv_plain,
                                           ell_spmv_tiled, ell_spmv_tiled_plain, ell_tile_index)
-from repro_torch.kernels.sell_spmv import scs_spmv, scs_spmv_from_plan, scs_spmv_plain
+from repro_torch.kernels.sell_spmv import (CHUNK_BLOCKS, scs_real_jsteps, scs_spmv,
+                                          scs_spmv_from_plan, scs_spmv_plain, scs_work_list)
 
 tconv = importlib.import_module("repro_torch.core.convert")
 ttiling = importlib.import_module("repro_torch.core.tiling")
@@ -136,6 +137,167 @@ def test_scs_narrow_indices_bit_identical(fmt):
         assert T.plan.index_dtype() == getattr(torch, idx)
         ys[idx] = scs_spmv_from_plan(T.plan, x, nrows=257)
     assert torch.equal(ys["int8"], ys["int32"]) and torch.equal(ys["int16"], ys["int32"])
+
+
+def _scs_case(case):
+    """Small plans of the shapes the SCS kernel meets: a 27-point stencil
+    over column tiles (HPCG's), a power law whose longest rows span many
+    blocks, a block matrix whose windows hold many full blocks, and one row
+    far longer than the rest."""
+    import scipy.sparse as sp
+
+    from repro_torch.core import matrices as M
+
+    if case == "stencil_tiled":
+        return M.fdm27(8, 8, 8), 64
+    if case == "powerlaw":
+        return M.powerlaw(4000, 8), None
+    if case == "block":
+        return M.block_random(1024, 32, block_density=16 / 256, seed=0), None
+    s = _mat(200, 2000, 4, density=0.01).tolil()
+    s[17, :] = np.random.default_rng(5).standard_normal(2000)
+    return s.tocsr(), None
+
+
+def _scs_plan(case, dtype="float32", index_dtype="auto"):
+    s, col_tile = _scs_case(case)
+    T = tconv.from_dense(s, "csr", dtype=dtype, col_tile=col_tile, index_dtype=index_dtype,
+                         device="cpu")
+    return s, T.plan
+
+
+SCS_CASES = ["stencil_tiled", "powerlaw", "block", "long_row"]
+
+
+@pytest.mark.parametrize("case", SCS_CASES)
+@pytest.mark.parametrize("chunk_blocks", [1, 4, 8, 32])
+def test_scs_work_list_covers_every_block_once_in_order(case, chunk_blocks):
+    """Chunks tile the blocks in order, each inside one window and at most
+    ``chunk_blocks`` long; every window has at least one chunk; the split
+    windows are those of more than one; and summing each chunk's blocks
+    over their real j-steps, then each window's chunks in order, gives
+    ``scs_spmv_plain``'s y."""
+    s, plan = _scs_plan(case)
+    btile, bwin, lsl, idx2, dat2, perm = plan.arrays
+    ct, ntiles, C, sw, jb, nwin = plan.meta
+    nb = btile.shape[0]
+    work = scs_work_list(segment_starts(bwin, nwin), chunk_blocks)
+    cb, cw, wc = (t.long().numpy() for t in work[:3])
+    assert (work.nblocks, work.nwin, work.chunk_blocks) == (nb, nwin, chunk_blocks)
+    assert cb[0] == 0 and cb[-1] == nb and (np.diff(cb) >= 0).all()
+    assert np.diff(cb).max() <= chunk_blocks and len(cw) == len(cb) - 1
+    bw = bwin.numpy()
+    for c in range(len(cw)):
+        assert (bw[cb[c]:cb[c + 1]] == cw[c]).all()
+    assert (np.diff(cw) >= 0).all() and wc[0] == 0 and wc[-1] == len(cw)
+    per_win = np.diff(wc)
+    assert (per_win >= 1).all() and (np.bincount(cw, minlength=nwin) == per_win).all()
+    assert work.split_win.long().tolist() == np.nonzero(per_win > 1)[0].tolist()
+    longest = int(np.diff(segment_starts(bwin, nwin).numpy()).max())
+    assert (len(work.split_win) > 0) == (longest > chunk_blocks)
+    if case != "stencil_tiled" and chunk_blocks <= 4:
+        assert len(work.split_win) > 0  # some window spans several chunks
+
+    # the kernel's sums, in numpy: chunk partials over real prefixes, then
+    # each window's partials in chunk order
+    x = _x(s.shape[1]).astype(np.float64)
+    nreal = scs_real_jsteps(idx2, jb).numpy()
+    ids = idx2.long().numpy().reshape(nb, jb, C)
+    vals = dat2.double().numpy().reshape(nb, jb, C)
+    sl = lsl.numpy().reshape(nb, jb)
+    bt = btile.numpy()
+    ywin = np.zeros((nwin, sw, C))
+    for c in range(len(cw)):
+        part = np.zeros((sw, C))
+        for b in range(cb[c], cb[c + 1]):
+            r = nreal[b]
+            cols = bt[b] * ct + np.maximum(ids[b, :r], 0)
+            prod = np.where(ids[b, :r] >= 0, vals[b, :r] * x[np.minimum(cols, len(x) - 1)], 0)
+            np.add.at(part, sl[b, :r], prod)
+        ywin[cw[c]] += part
+    yp = ywin.reshape(-1)[: perm.shape[0]]
+    y = np.zeros(s.shape[0] + 1)
+    y[np.minimum(perm.numpy(), s.shape[0])] = yp
+    want = scs_spmv_plain(*plan.arrays, torch.from_numpy(x.astype(np.float32)),
+                          nrows=s.shape[0], col_tile=ct, ntiles=ntiles, C=C, sw=sw, jb=jb,
+                          nwin=nwin)
+    _close(y[: s.shape[0]], want.numpy())
+    _close(y[: s.shape[0]], s @ x)
+
+
+@pytest.mark.parametrize("case", SCS_CASES)
+def test_scs_real_jsteps_are_a_prefix_of_each_block(case):
+    """Each block's real j-steps (one id >= 0) are a prefix whose suffix is
+    all -1, and their count equals a count in numpy from the plan."""
+    _, plan = _scs_plan(case)
+    btile, _, _, idx2, _, _ = plan.arrays
+    jb, C = plan.meta[4], plan.meta[2]
+    nreal = scs_real_jsteps(idx2, jb)
+    assert nreal.dtype == torch.int32 and nreal.shape == btile.shape
+    ids = idx2.numpy().reshape(-1, jb, C)
+    real = (ids >= 0).any(axis=2)
+    want = real.sum(axis=1)
+    assert (nreal.numpy() == want).all()
+    prefix = np.arange(jb)[None, :] < want[:, None]
+    assert (real == prefix).all()
+    assert (ids[~prefix] == -1).all()
+    if case != "block":  # a block matrix's rows fill whole blocks
+        assert int(nreal.sum()) < ids.shape[0] * jb  # padding exists, and is skipped
+
+
+def test_scs_plain_matches_pallas_interpret_on_a_long_row(jax_ref):
+    """One row of 2,000 entries among rows of about 20: its window spans 63
+    blocks, many chunks at any chunk size the kernel takes."""
+    s, _ = _scs_case("long_row")
+    n, m = s.shape
+    x = _x(m)
+    jnp = jax_ref["jnp"]
+    J = jax_ref["convert"].from_dense(s, "csr")
+    want = jax_ref["sell"].scs_spmv_from_plan(J.plan, jnp.asarray(x), nrows=n, interpret=True)
+    _, plan = _scs_plan("long_row")
+    bwin, nwin = plan.arrays[1], plan.meta[5]
+    runs = segment_starts(bwin, nwin)
+    assert int((runs[1:] - runs[:-1]).max()) > 32
+    got = scs_spmv_from_plan(plan, torch.from_numpy(x), nrows=n)
+    _close(got.numpy(), np.asarray(want, np.float32))
+    _close(got.numpy(), s @ x)
+
+
+#: (C, sw, jb) plans beside the default (8, 4, 32): windows of 64, 128 and
+#: 256 rows, and j-step blocks the kernel cannot stage (jb % 16 != 0).
+SCS_PLAN_SHAPES = [(16, 4, 32), (16, 8, 32), (32, 8, 32), (8, 4, 8), (4, 8, 24)]
+
+
+def _scs_plans_of_shape(s, C, sw, jb, index_dtype="auto", device="cpu"):
+    """The port's plan of ``s`` at (C, sw, jb) on ``device``, and the
+    reference's numpy plan."""
+    kw = dict(C=C, slice_window=sw, jstep_block=jb, index_dtype=index_dtype)
+    plan = ttiling.build_scs_plan(s, **kw)
+    return ttiling.plan_to_tensors(plan, torch.float32, device), plan
+
+
+@pytest.mark.parametrize("C,sw,jb", SCS_PLAN_SHAPES)
+def test_scs_plain_matches_pallas_interpret_at_other_plan_shapes(jax_ref, C, sw, jb):
+    """Plans of other slice widths, windows and j-step blocks: the port's
+    arrays equal the reference's, and on the CPU the wrapper's plain
+    version matches the Pallas kernel in interpret mode (the card's kernel
+    takes jb a multiple of 16 only; the CPU takes any)."""
+    s, _ = _scs_case("long_row")
+    n, m = s.shape
+    x = _x(m)
+    T, host = _scs_plans_of_shape(s, C, sw, jb)
+    ref = importlib.import_module("repro.core.tiling").build_scs_plan(
+        s, C=C, slice_window=sw, jstep_block=jb)
+    assert tuple(host.meta) == tuple(ref.meta)
+    for a, b in zip(host.arrays, ref.arrays):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    jnp = jax_ref["jnp"]
+    want = jax_ref["sell"].scs_spmv_from_plan(
+        type(ref)(ref.kind, tuple(jnp.asarray(a) for a in ref.arrays), ref.meta),
+        jnp.asarray(x), nrows=n, interpret=True)
+    got = scs_spmv_from_plan(T, torch.from_numpy(x), nrows=n)
+    _close(got.numpy(), np.asarray(want, np.float32))
+    _close(got.numpy(), s @ x)
 
 
 # ----------------------------------------------------------- dia_spmv (CPU) ----
@@ -683,6 +845,79 @@ def test_scs_kernel_matches_plain_on_card(cuda, shape, dtype, index_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", SCS_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,sw", [(8, 4), (16, 4), (16, 8), (32, 8)])
+def test_scs_kernel_splits_long_windows_on_card(cuda, case, dtype, C, sw):
+    """Windows cut into chunks (long rows, a block matrix's full windows)
+    and windows of one chunk, at the default 32 rows a window and at 64,
+    128 and 256 (a lane owning 2, 4 or 8 rows), against the plain version,
+    equal bits over two launches, and int16 ids equal to int32."""
+    s, col_tile = _scs_case(case)
+    n = s.shape[0]
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(_x(s.shape[1])).to(cuda)
+    ys = {}
+    for index_dtype in ("int16", "int32"):
+        plan = ttiling.plan_to_tensors(
+            ttiling.build_scs_plan(s, col_tile=col_tile, C=C, slice_window=sw, dtype=tdt,
+                                   index_dtype=index_dtype), tdt, cuda)
+        assert plan.meta[2:4] == (C, sw)
+        before = scs_spmv.launches
+        y = scs_spmv_from_plan(plan, x, nrows=n)
+        assert scs_spmv.launches == before + 1
+        work = plan.cache["work"]
+        assert work.chunk_blocks == CHUNK_BLOCKS
+        runs = segment_starts(plan.arrays[1], plan.meta[5])
+        longest = int((runs[1:] - runs[:-1]).max())
+        assert (work.split_win.shape[0] > 0) == (longest > work.chunk_blocks)
+        ct, ntiles, _, _, jb, nwin = plan.meta
+        y_plain = scs_spmv_plain(*plan.arrays, x, nrows=n, col_tile=ct, ntiles=ntiles, C=C,
+                                 sw=sw, jb=jb, nwin=nwin)
+        _rel_close(y, y_plain, dtype, s)
+        assert torch.equal(y, scs_spmv_from_plan(plan, x, nrows=n))
+        ys[index_dtype] = y
+    assert torch.equal(ys["int16"], ys["int32"])
+
+
+@pytest.mark.cuda
+def test_scs_kernel_refuses_plans_it_cannot_stage_on_card(cuda):
+    """The kernel copies blocks with 16-byte loads: a plan of jb = 8 and an
+    lsl that starts off a 16-byte boundary raise ValueError before any
+    launch, and nothing is cached."""
+    s = _mat(300, 300, 1)
+    x = torch.from_numpy(_x(300)).to(cuda)
+    plan, _ = _scs_plans_of_shape(s, 8, 4, 8, device=cuda)
+    before = scs_spmv.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        scs_spmv_from_plan(plan, x, nrows=300)
+    assert "work" not in plan.cache and scs_spmv.launches == before
+    A = tconv.from_dense(s, "csr", device=cuda)
+    btile, bwin, lsl, idx2, dat2, perm = A.plan.arrays
+    ct, ntiles, C, sw, jb, nwin = A.plan.meta
+    shifted = torch.empty(lsl.numel() + 1, dtype=lsl.dtype, device=cuda)[1:]
+    shifted.copy_(lsl)
+    with pytest.raises(ValueError, match="16-byte"):
+        scs_spmv(btile, bwin, shifted, idx2, dat2, perm, x, nrows=300, col_tile=ct,
+                 ntiles=ntiles, C=C, sw=sw, jb=jb, nwin=nwin)
+    assert scs_spmv.launches == before
+    torch.cuda.synchronize()  # the card is still sound
+
+
+@pytest.mark.cuda
+def test_scs_kernel_refuses_a_work_list_of_another_plan(cuda):
+    s1, s2 = _mat(300, 300, 1), _mat(600, 300, 2)
+    A = tconv.from_dense(s1, "csr", device=cuda)
+    B = tconv.from_dense(s2, "csr", device=cuda)
+    x = torch.from_numpy(_x(300)).to(cuda)
+    scs_spmv_from_plan(B.plan, x, nrows=600)
+    ct, ntiles, C, sw, jb, nwin = A.plan.meta
+    with pytest.raises(ValueError, match="work list"):
+        scs_spmv(*A.plan.arrays, x, nrows=300, col_tile=ct, ntiles=ntiles, C=C, sw=sw,
+                 jb=jb, nwin=nwin, work=B.plan.cache["work"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES + [(3000, 5000)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_dia_kernels_match_plain_on_card(cuda, shape, dtype):
@@ -993,13 +1228,15 @@ def test_scoo_kernels_split_slices_across_warps_on_card(cuda, case, order, kerne
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs", BLOCK_SIZES)
-@pytest.mark.parametrize("nf", [1, 5, 130])
+@pytest.mark.parametrize("nf", [1, 5, 8, 16, 128, 130])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_bsr_kernel_matches_plain_on_card(cuda, bs, nf, dtype):
     """``bsr_spmm`` against its plain version (rtol 2e-4 in f32: the kernel
-    adds with fused multiply-adds, the plain version through a matmul),
-    with a block id past the last block column; two launches give equal
-    bits; the row mask gives ``where(mask, Y, 0)`` exactly."""
+    adds in 3xTF32 on the tensor cores or with fused multiply-adds, the
+    plain version through a matmul), with a block id past the last block
+    column; two launches give equal bits; the row mask gives ``where(mask,
+    Y, 0)`` exactly. Both paths of the kernel are met: the tensor cores at
+    bs >= 16 and nf >= 8, the CUDA cores otherwise."""
     s, bcols, blocks, X = _bsr_operands(3000, 5000 if bs < 64 else 2000, bs, nf, dtype)
     bcols, blocks = bcols.to(cuda), blocks.to(cuda)
     X = torch.from_numpy(X).to(cuda)
@@ -1034,6 +1271,21 @@ def test_bsr_entries_on_card(cuda, bs):
     assert bsr_spmm.launches == before + 2
     assert torch.equal(ym, torch.where(mask, y, torch.zeros((), device=cuda)))
     _close(y.cpu().numpy(), s @ _x(900))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf", [1, 16])
+def test_bsr_kernel_takes_an_unaligned_x_on_card(cuda, nf):
+    """X that starts off a 16-byte boundary (a view at an offset) gives the
+    result of an aligned copy bit for bit."""
+    s, bcols, blocks, X = _bsr_operands(500, 400, 32, nf, "float32")
+    bcols, blocks = bcols.to(cuda), blocks.to(cuda)
+    buf = torch.empty(X.size + 1, device=cuda)
+    Xv = buf[1:].view(X.shape)
+    Xv.copy_(torch.from_numpy(X))
+    assert Xv.data_ptr() % 16
+    assert torch.equal(bsr_spmm(bcols, blocks, Xv),
+                       bsr_spmm(bcols, blocks, torch.from_numpy(X).to(cuda)))
 
 
 @pytest.mark.cuda
