@@ -16,10 +16,15 @@ Phases, one or more lines each, each ending with its seconds:
      value, x, y, perm and the cached index, ``bound_staged_ms`` what the
      kernel stages, and ``bound_every_slot_ms`` the bound that reads every
      slot),
-     ``dia_spmv`` on the finest level and on 13^3,
+     ``dia_spmv`` through its dispatch adapter on every HPCG level (104^3,
+     52^3, 26^3, 13^3) and masked, on each level, with the first color of
+     the masks ``SymGS.build`` makes, against ``where(mask, A @ x, 0)``
+     (exact; its bound counts the in-range values of the color's rows, the
+     x words they read, the mask and y; its yardstick is cuSPARSE on the
+     color's rows with the others left empty),
      ``dia_spmv_tiled`` on the finest level under ``max_resident_cols=1<<18``,
-     the masked DIA wrapper against ``where(mask, A @ x, 0)`` (exact),
-     ``ell_spmv`` on 52^3 and 13^3, the masked ELL wrapper (exact),
+     ``ell_spmv`` on 52^3 and 13^3 with its one-tile index built once, the
+     masked ELL wrapper (exact),
      ``ell_spmv_tiled``
      on the finest level's ``"ell-cols"`` plan with its tile index built
      once beforehand (its build seconds, pairs and the bytes the kernel
@@ -31,12 +36,17 @@ Phases, one or more lines each, each ending with its seconds:
      blocks of 512; no dispatch path calls it, so its own path here is one
      call, counted like the others), and ``bsr_spmm`` and its masked form on
      the block matrix of phase 8 at 1 and 128 columns (with the path that
-     ran: tensor cores or CUDA cores). Each line gives the
+     ran: tensor cores or CUDA cores; at 128 columns both paths and the
+     plain version are also held against an f64 oracle, on the block matrix
+     and on the conformance grid's matrix, at rtol 2e-4 with atol 2e-4).
+     Each line gives the
      median kernel time (CUDA events around one call, which also catch the
      wrapper's host time), the kernel's device time alone
      (``torch.profiler``), the plain version's time, one PyTorch library
      call on the same matrix as a yardstick (never called by the port: a
-     cuSPARSE CSR SpMV, or for ``bsr_spmm`` ``torch.sparse_bsr_tensor @ X``),
+     cuSPARSE CSR SpMV, or for ``bsr_spmm`` ``torch.sparse_bsr_tensor @ X``)
+     by events (``library_ms``) and by its device time in every kernel it
+     runs (``library_kernel_ms``),
      the bound from the run's own arrays (bytes at 3.35 TB/s against flops
      at 67 TFLOP/s, or for ``bsr_spmm`` at 165 TFLOP/s), and whether two
      launches gave equal bits;
@@ -76,7 +86,9 @@ Phases, one or more lines each, each ending with its seconds:
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
-``launches_<path>`` gives every path's count); the last line is
+``launches_<path>`` gives every path's count, and ``dia_spmv``'s
+``launches_split`` its launches on the two HPCG paths by level, masked or
+not); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero. It needs ``torch.cuda.is_available()`` and the repository's
 ``src/`` and ``tests/fixtures/corpus`` beside it. Full numbers also go to
@@ -105,6 +117,8 @@ TF32X3_FLOPS = 495e12 / 3
 
 #: HPCG's default local grid (the ``hpcg.dat`` of the reference distribution).
 GRID = 104
+#: The grids of its multigrid levels at depth 4.
+LEVELS = (GRID, GRID // 2, GRID // 4, GRID // 8)
 #: The ``max_resident_cols`` that sends the 104^3 matrix to the tiled kernels.
 COLUMN_LIMIT = 1 << 18
 
@@ -140,9 +154,10 @@ REQUIRED_ON = {"scs_spmv": "hpcg", "dia_spmv": "hpcg", "dia_spmv_tiled": "tiled_
 
 #: What a kernel's entry in the JSON line carries beyond the contract's keys:
 #: its other shapes (``bsr_spmm``'s SpMM and masked forms, ``scs_spmv`` off
-#: the 104^3 plan, DIA and ELL at 13^3), the path ``bsr_spmm`` ran, and the
-#: staged and every-slot bounds.
-EXTRA_KEYS = ("path", "masked", "spmm", "coarse", "powerlaw", "block", "shape_13",
+#: the 104^3 plan, DIA at 52^3, 26^3 and 13^3 and masked per level, ELL at
+#: 13^3), the path ``bsr_spmm`` ran, and the staged and every-slot bounds.
+EXTRA_KEYS = ("path", "masked", "spmm", "coarse", "powerlaw", "block", "shape_52",
+              "shape_26", "shape_13",
               "bound_staged_ms", "bound_every_slot_ms", "bound_every_id_slot_ms")
 
 #: The block matrix of the block path: ``block_random(n, bs, density)``.
@@ -220,6 +235,23 @@ def bound(nbytes_moved: int, flops: int, flops_per_s: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def color_bytes(offsets, mask, n: int) -> int:
+    """Bytes a masked resident DIA call must move (f32 values): the
+    in-range stored values of the mask's rows, the distinct x words they
+    read, the mask and y (written whole)."""
+    import torch
+
+    rows = mask.nonzero().flatten().long()
+    seen = torch.zeros(n, dtype=torch.bool, device=mask.device)
+    values = 0
+    for off in offsets.tolist():
+        k = rows + off
+        k = k[(k >= 0) & (k < n)]
+        values += k.numel()
+        seen[k] = True
+    return 4 * values + 4 * int(seen.sum()) + n + 4 * n
+
+
 def within(what: str, y, want, rtol=2e-4) -> float:
     """Max abs error of ``y`` against ``want``, which it must meet at the
     conformance grid's f32 tolerance: rtol 2e-4 with an atol scaled to
@@ -241,9 +273,10 @@ def phase_kernels(results: dict, block) -> tuple:
     per-kernel numbers the JSON line reports and the launches of the one
     ``scoo_spmv`` call that is that kernel's path."""
     import numpy as np
+    import scipy.sparse as sp
     import torch
 
-    from repro_torch.core import ExecutionPolicy, matrices as M
+    from repro_torch.core import ExecutionPolicy, as_operator, matrices as M
     from repro_torch.core.convert import to_bsr, to_coo, to_csr, to_dia, to_ell
     from repro_torch.kernels import ops
     from repro_torch.kernels._launch import segment_starts
@@ -251,22 +284,24 @@ def phase_kernels(results: dict, block) -> tuple:
     from repro_torch.kernels.coo_spmv import (build_scoo, coo_spmv, coo_spmv_plain, scoo_spmv,
                                               scoo_spmv_plain, scoo_spmv_tiled,
                                               scoo_spmv_tiled_plain)
-    from repro_torch.kernels.dia_spmv import (dia_spmv, dia_spmv_plain, dia_spmv_tiled,
-                                              dia_spmv_tiled_plain)
+    from repro_torch.kernels.dia_spmv import (dia_spmv_from_container, dia_spmv_plain,
+                                              dia_spmv_tiled, dia_spmv_tiled_plain)
     from repro_torch.kernels.ell_spmv import (CHUNK_ROWS, ell_spmv, ell_spmv_plain,
                                               ell_spmv_tiled, ell_spmv_tiled_plain,
                                               ell_tile_index)
     from repro_torch.kernels.sell_spmv import scs_spmv_from_plan, scs_spmv_plain
+    from repro_torch.solvers.symgs import SymGS
 
     dev = torch.device("cuda")
     out = {}
 
-    def library_ms(s, x):
+    def csr_library(s, x):
+        """One cuSPARSE CSR SpMV of ``s`` and ``x``: the yardstick call."""
         A = torch.sparse_csr_tensor(torch.from_numpy(s.indptr.astype(np.int64)),
                                     torch.from_numpy(s.indices.astype(np.int64)),
                                     torch.from_numpy(s.data.astype(np.float32)),
                                     size=s.shape).to(dev)
-        return cuda_ms(lambda: A @ x, reps=20)
+        return lambda: A @ x
 
     def vec(n):
         return torch.from_numpy(np.random.default_rng(0).standard_normal(n)
@@ -277,8 +312,10 @@ def phase_kernels(results: dict, block) -> tuple:
         """Kernel against plain (exactly when ``exact``), two launches
         bit-equal, then the times; ``moved`` is the bytes the function must
         move for this input, ``flops`` its operations (default two per
-        nonzero) at ``flops_per_s``, ``kernel`` the CUDA kernel's name, ``library`` the
-        yardstick's time (default a cuSPARSE CSR SpMV of ``s`` and ``x``)."""
+        nonzero) at ``flops_per_s``, ``kernel`` the CUDA kernel's name,
+        ``library`` the yardstick call (default a cuSPARSE CSR SpMV of ``s``
+        and ``x``; ``False``: none), timed by events (``library_ms``) and by
+        its device time in every kernel it runs (``library_kernel_ms``)."""
         y, y_plain = fn(), plain()
         err = within(f"{label} against its plain version", y, y_plain)
         same = bool(torch.equal(y, y_plain))
@@ -286,12 +323,15 @@ def phase_kernels(results: dict, block) -> tuple:
             check(same, f"{label}: kernel differs from its plain version")
         check(bool(torch.equal(y, fn())), f"{label}: two launches differ")
         b_ms, b_by = bound(moved, 2 * s.nnz if flops is None else flops, flops_per_s)
+        lib = csr_library(s, x) if library is None else library
         rec = dict(extra, exact=same, repeat_equal=True, max_abs_err=err,
                    ms=cuda_ms(fn, 50), kernel_ms=kernel_ms(fn, kernel),
                    plain_ms=cuda_ms(plain, plain_reps),
-                   library_ms=library_ms(s, x) if library is None else library(),
+                   library_ms=cuda_ms(lib, reps=20) if lib else None,
+                   library_kernel_ms=kernel_ms(lib, "") if lib else None,
                    bytes=moved, flops=2 * s.nnz if flops is None else flops,
                    bound_ms=b_ms, bound_by=b_by)
+        del lib
         results[name] = phase(f"kernel {label}", **rec)
         return rec
 
@@ -330,7 +370,7 @@ def phase_kernels(results: dict, block) -> tuple:
             bound_every_slot_ms=bound(nbytes(btile, lsl, idx2, dat2, perm, runs, x) + n * 4,
                                       2 * s.nnz)[0], **extra)
 
-    mats = {g: M.fdm27(g, g, g) for g in (GRID, GRID // 2, GRID // 8)}
+    mats = {g: M.fdm27(g, g, g) for g in LEVELS}
     out["scs_spmv"] = scs_row("scs_spmv_finest", f"scs_spmv finest {GRID}^3", mats[GRID],
                               vec(mats[GRID].shape[0]), grid=GRID)
     others = {"coarse": (f"scs_spmv coarse {GRID // 2}^3", mats[GRID // 2]),
@@ -339,31 +379,53 @@ def phase_kernels(results: dict, block) -> tuple:
     for key, (label, s) in others.items():
         rec = scs_row(f"scs_spmv_{key}", label, s, vec(s.shape[0]))
         out["scs_spmv"][key] = {k: rec[k] for k in (
-            "max_abs_err", "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err", "ms", "kernel_ms", "plain_ms", "library_ms", "library_kernel_ms",
+            "bound_ms",
             "bound_staged_ms", "bound_every_slot_ms", "blocks", "windows", "chunks",
             "real_jsteps")}
         del s
     torch.cuda.empty_cache()
 
-    # resident DIA, the masked DIA wrapper and the tiled DIA, on the finest level
-    s = mats[GRID]
-    n = s.shape[0]
-    x = vec(n)
+    # resident DIA at every HPCG level, and masked on one SymGS color of each
     pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False)
-    D = to_dia(s, device=dev)
-    out["dia_spmv"] = measure(
-        "dia_spmv", f"dia_spmv {GRID}^3", s, x,
-        lambda: dia_spmv(D.offsets, D.data, x), lambda: dia_spmv_plain(D.offsets, D.data, x),
-        nbytes(D.offsets, D.data, x) + n * 4, "dia_resident_kernel", exact=True,
-        grid=GRID, strategy=ops.cuda_strategy(D, ExecutionPolicy()))
-    mask = torch.from_numpy((np.arange(n) % 8) == 3).to(dev)
-    ym = ops.dia_masked_spmv_cuda(D, x, mask, pol)
-    want = torch.where(mask, ops.dia_spmv_cuda(D, x, pol), torch.zeros((), device=dev))
-    check(bool(torch.equal(ym, want)), "masked DIA != where(mask, A @ x, 0)")
-    results["dia_masked"] = phase(
-        f"kernel dia_masked {GRID}^3", exact=True,
-        ms=cuda_ms(lambda: ops.dia_masked_spmv_cuda(D, x, mask, pol), 50))
-    del D
+    zero = torch.zeros((), device=dev)
+    for g in LEVELS:
+        sg = mats[g]
+        ng = sg.shape[0]
+        xg = vec(ng)
+        D = to_dia(sg, device=dev)
+        rec = measure(
+            f"dia_spmv_{g}", f"dia_spmv {g}^3", sg, xg,
+            lambda: dia_spmv_from_container(D, xg), lambda: dia_spmv_plain(D.offsets, D.data, xg),
+            nbytes(D.offsets, D.data, xg) + ng * 4, "dia_resident_kernel", exact=True,
+            grid=g, strategy=ops.cuda_strategy(D, ExecutionPolicy()), ndiags=D.ndiags)
+        if g == GRID:
+            out["dia_spmv"] = rec
+        else:
+            out["dia_spmv"][f"shape_{g}"] = {k: rec[k] for k in (
+                "ms", "kernel_ms", "plain_ms", "library_ms", "library_kernel_ms", "bound_ms",
+                "bound_by")}
+        # the masks SymGS.build makes (the greedy coloring's classes); the first
+        mask = SymGS.build(sg, operator=as_operator(D)).masks[0]
+        ym = ops.dia_masked_spmv_cuda(D, xg, mask, pol)
+        check(bool(torch.equal(ym, torch.where(mask, ops.dia_spmv_cuda(D, xg, pol), zero))),
+              f"masked DIA {g}^3 != where(mask, A @ x, 0)")
+        rows = mask.nonzero().flatten().cpu().numpy()
+        # yardstick: cuSPARSE on the color's rows, the other rows left empty
+        sm = sp.csr_matrix(sp.diags(mask.cpu().numpy().astype(np.float64)) @ sg)
+        rec = measure(
+            f"dia_masked_{g}", f"dia_spmv masked {g}^3 (one SymGS color)", sg, xg,
+            lambda: ops.dia_masked_spmv_cuda(D, xg, mask, pol),
+            lambda: dia_spmv_plain(D.offsets, D.data, xg, mask),
+            color_bytes(D.offsets, mask, ng), "dia_resident_kernel", exact=True,
+            flops=2 * int(sm.nnz), library=csr_library(sm, xg), grid=g,
+            color_rows=int(rows.size), equals_where_of_unmasked=True)
+        out["dia_spmv"].setdefault("masked", {})[f"{g}^3"] = {k: rec[k] for k in (
+            "color_rows", "ms", "kernel_ms", "plain_ms", "library_ms", "library_kernel_ms",
+            "bound_ms", "bound_by", "bytes")}
+        del D, sm
+    s, n = mats[GRID], mats[GRID].shape[0]
+    x = vec(n)
 
     tpol = ExecutionPolicy(max_resident_cols=COLUMN_LIMIT)
     DT = to_dia(s, col_tile=tpol.col_tile(n), device=dev)
@@ -388,12 +450,13 @@ def phase_kernels(results: dict, block) -> tuple:
     E = to_ell(s52, device=dev)
     check(ops.cuda_strategy(E, ExecutionPolicy()) == "resident", "ell 52^3 is not resident")
     valid = int((E.indices >= 0).sum())
+    listed52 = ell_tile_index(E.indices.unsqueeze(0))
     out["ell_spmv"] = measure(
         "ell_spmv", f"ell_spmv {g}^3", s52, x52,
-        lambda: ell_spmv(E.indices, E.data, x52), lambda: ell_spmv_plain(E.indices, E.data, x52),
-        nbytes(E.indices, x52) + valid * E.data.element_size() + n52 * 4, "ell_kernel",
-        exact=True,
-        grid=g, strategy="resident", width=E.width)
+        lambda: ell_spmv(E.indices, E.data, x52, tile_index=listed52),
+        lambda: ell_spmv_plain(E.indices, E.data, x52),
+        nbytes(E.indices, x52, *listed52[:2]) + valid * E.data.element_size() + n52 * 4,
+        "ell_listed_kernel", exact=True, grid=g, strategy="resident", width=E.width)
     mask52 = torch.from_numpy((np.arange(n52) % 8) == 3).to(dev)
     ym = ops.ell_masked_spmv_cuda(E, x52, mask52, pol)
     want = torch.where(mask52, ops.ell_spmv_cuda(E, x52, pol), torch.zeros((), device=dev))
@@ -435,30 +498,24 @@ def phase_kernels(results: dict, block) -> tuple:
         bound_all_ms=bound(nbytes(idx_t, dat_t, x) + n * 4, 2 * s.nnz)[0])
     del E, idx_t, dat_t, listed, tile_ptr, tile_ids
 
-    # DIA and ELL at 13^3, the level where HPCG launches ell_spmv most
+    # ELL at 13^3, the level where HPCG launches ell_spmv most
     g = GRID // 8
     s13 = mats[g]
     n13 = s13.shape[0]
     x13 = vec(n13)
-    D = to_dia(s13, device=dev)
     E = to_ell(s13, device=dev)
+    listed13 = ell_tile_index(E.indices.unsqueeze(0))
     valid = int((E.indices >= 0).sum())
-    for name, rec in (
-            ("dia_spmv", measure(
-                "dia_spmv_13", f"dia_spmv {g}^3", s13, x13,
-                lambda: dia_spmv(D.offsets, D.data, x13),
-                lambda: dia_spmv_plain(D.offsets, D.data, x13),
-                nbytes(D.offsets, D.data, x13) + n13 * 4, "dia_resident_kernel", exact=True,
-                grid=g)),
-            ("ell_spmv", measure(
-                "ell_spmv_13", f"ell_spmv {g}^3", s13, x13,
-                lambda: ell_spmv(E.indices, E.data, x13),
-                lambda: ell_spmv_plain(E.indices, E.data, x13),
-                nbytes(E.indices, x13) + valid * E.data.element_size() + n13 * 4,
-                "ell_kernel", exact=True, grid=g, width=E.width))):
-        out[name]["shape_13"] = {k: rec[k] for k in (
-            "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-    del D, E
+    rec = measure(
+        "ell_spmv_13", f"ell_spmv {g}^3", s13, x13,
+        lambda: ell_spmv(E.indices, E.data, x13, tile_index=listed13),
+        lambda: ell_spmv_plain(E.indices, E.data, x13),
+        nbytes(E.indices, x13, *listed13[:2]) + valid * E.data.element_size() + n13 * 4,
+        "ell_listed_kernel", exact=True, grid=g, width=E.width)
+    out["ell_spmv"]["shape_13"] = {k: rec[k] for k in (
+        "ms", "kernel_ms", "plain_ms", "library_ms", "library_kernel_ms", "bound_ms",
+        "bound_by")}
+    del E
 
     # COO: full window on 13^3, sliced on the finest level
     Co = to_coo(s13, device=dev)
@@ -491,8 +548,6 @@ def phase_kernels(results: dict, block) -> tuple:
 
     # a group of two entries: the slice's first row, another row and the pad
     # run (rows = the slice's first row) share one warp step
-    import scipy.sparse as sp
-
     dense = np.zeros((512, 128))
     dense[:, :64] = np.random.default_rng(19).standard_normal((512, 64)) * (
         np.arange(512 * 64).reshape(512, 64) % 17 == 0)
@@ -529,6 +584,37 @@ def phase_kernels(results: dict, block) -> tuple:
     del srow, scol, sval, ssid, sruns
     torch.cuda.empty_cache()
 
+    def bsr_f64_errors(label, sm, B, X):
+        """``bsr_spmm`` on the tensor cores (X whole), on the CUDA cores (X a
+        column at a time) and its plain version, each against an f64 oracle
+        (the stored f32 values and X in f64, a cuSPARSE product on the card):
+        the max abs error and the largest ratio of the error to the
+        conformance grid's f32 tolerance ``2e-4 + 2e-4 * |y|``."""
+        c = sp.csr_matrix(sm)
+        A64 = torch.sparse_csr_tensor(
+            torch.from_numpy(c.indptr.astype(np.int64)),
+            torch.from_numpy(c.indices.astype(np.int64)),
+            torch.from_numpy(c.data.astype(np.float32).astype(np.float64)),
+            size=c.shape).to(dev)
+        n = c.shape[0]
+        want = A64 @ X.double()
+        check(bsr_spmm_path(B.bs, X.shape[1]) == "tensor-core",
+              f"bsr {label}: {X.shape[1]} columns do not take the tensor cores")
+        ys = {"tensor_core": bsr_spmm(B.bcols, B.blocks, X),
+              "cuda_core": torch.cat([bsr_spmm(B.bcols, B.blocks, X[:, j:j + 1].contiguous())
+                                      for j in range(X.shape[1])], 1),
+              "plain": bsr_spmm_plain(B.bcols, B.blocks, X)}
+        errs = {}
+        for path, y in ys.items():
+            err = (y[:n].double() - want).abs()
+            errs[path] = dict(max_abs_err=float(err.max()), tol_ratio=float(
+                (err / (2e-4 + 2e-4 * want.abs())).max()))
+        phase(f"bsr_spmm f64 oracle, {label}, {X.shape[1]} columns", **{
+            f"{p}_{k}": v for p, e in errs.items() for k, v in e.items()})
+        check(errs["tensor_core"]["tol_ratio"] <= 1 and errs["cuda_core"]["tol_ratio"] <= 1,
+              f"bsr {label}: a path misses rtol 2e-4 with atol 2e-4 against f64: {errs}")
+        return errs
+
     # bsr_spmm and its masked form on the block matrix, one and 128 columns
     B = to_bsr(block, device=dev)
     nb = block.shape[0]
@@ -545,14 +631,13 @@ def phase_kernels(results: dict, block) -> tuple:
     for nf in (1, BLOCK_NF):
         X = torch.from_numpy(np.random.default_rng(3).standard_normal((nb, nf))
                              .astype(np.float32)).to(dev)
-        lib_ms = cuda_ms(lambda: bsr_lib @ X, reps=20)
         Y = bsr_spmm(B.bcols, B.blocks, X)
         rec = measure(
             f"bsr_spmm_nf{nf}", f"bsr_spmm nf={nf}", block, X,
             lambda: bsr_spmm(B.bcols, B.blocks, X), lambda: bsr_spmm_plain(B.bcols, B.blocks, X),
             real * bs * bs * esz + nbytes(B.bcols, X) + nb * nf * 4, "bsr_spmm_",
             plain_reps=3, flops=2 * real * bs * bs * nf, flops_per_s=TF32X3_FLOPS,
-            library=lambda: lib_ms, nf=nf, path=bsr_spmm_path(bs, nf), bs=bs,
+            library=lambda X=X: bsr_lib @ X, nf=nf, path=bsr_spmm_path(bs, nf), bs=bs,
             bwidth=B.bwidth, real_blocks=real,
             padded_blocks=int(valid.numel()))
         Ym = bsr_spmm(B.bcols, B.blocks, X, row_mask=mask)
@@ -564,16 +649,23 @@ def phase_kernels(results: dict, block) -> tuple:
             lambda: bsr_spmm_plain(B.bcols, B.blocks, X, row_mask=mask),
             kept_entries * esz + nbytes(B.bcols, X, mask) + nb * nf * 4,
             "bsr_spmm_", plain_reps=3, flops=2 * kept_entries * nf,
-            flops_per_s=TF32X3_FLOPS, library=lambda: None, nf=nf, path=bsr_spmm_path(bs, nf),
+            flops_per_s=TF32X3_FLOPS, library=False, nf=nf, path=bsr_spmm_path(bs, nf),
             equals_where_of_unmasked=True)
         masked = {k: recm[k] for k in (
             "nf", "path", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+        if nf == BLOCK_NF:
+            rec["f64"] = bsr_f64_errors("block", block, B, X)
+            sgrid = M.banded(96, 3, seed=0) + M.random_uniform(96, 0.02, seed=1)
+            Xg = torch.from_numpy(np.random.default_rng(10).standard_normal((96, nf))
+                                  .astype(np.float32)).to(dev)
+            rec["f64_grid"] = bsr_f64_errors("conformance grid", sgrid,
+                                             to_bsr(sgrid, device=dev), Xg)
         if nf == 1:
             out["bsr_spmm"] = dict(rec, masked=masked)
         else:
             out["bsr_spmm"]["spmm"] = {k: rec[k] for k in (
                 "nf", "path", "max_abs_err", "ms", "kernel_ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by")}
+                "library_kernel_ms", "bound_ms", "bound_by", "f64", "f64_grid")}
             out["bsr_spmm"]["spmm"]["masked"] = masked
         del X, Y, Ym
     del B, bsr_lib
@@ -596,6 +688,17 @@ def counters() -> dict:
 
 def launch_counts() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
+
+
+def dia_split(by_shape) -> dict:
+    """``dia_spmv``'s launches by level (``g^3`` for a cube of g^3 rows,
+    else the row count) and by masked or not."""
+    out = {}
+    for (rows, masked), count in sorted(by_shape.items(), reverse=True):
+        g = round(rows ** (1 / 3))
+        out.setdefault(f"{g}^3" if g ** 3 == rows else str(rows), {})[
+            "masked" if masked else "unmasked"] = count
+    return out
 
 
 @contextlib.contextmanager
@@ -639,11 +742,14 @@ def counted(label: str, drive):
 
     for fn in counters().values():
         fn.launches = 0
+    dia = counters()["dia_spmv"]
+    dia.by_shape.clear()
     health_registry().reset()
     races = []
     with recorded_races(races):
         value = drive()
     launches = launch_counts()
+    launches["dia_spmv_split"] = dia_split(dia.by_shape)
     faults = {k: v for k, v in health_registry().snapshot()["keys"].items()
               if v["failures"] or v["nonfinite"]}
     phase(f"{label} counts", launches=json.dumps(launches), faults=json.dumps(faults),
@@ -929,8 +1035,11 @@ def main() -> int:
             **{f"launches_{p}": counts[name] for p, counts in by_path.items()},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
+            "library_ms": k["library_ms"], "library_kernel_ms": k["library_kernel_ms"],
             **{key: k[key] for key in EXTRA_KEYS if key in k}})
+        if name == "dia_spmv":  # by level, masked or not, on the two HPCG paths
+            line["kernels"][-1]["launches_split"] = {
+                p: by_path[p]["dia_spmv_split"] for p in ("hpcg", "hpcg_predict")}
     results["seconds"] = seconds
     results["total_s"] = round(time.perf_counter() - t_start, 1)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

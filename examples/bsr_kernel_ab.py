@@ -10,7 +10,13 @@ blocks of 32x32, f32): ``nf1`` (SpMV) and ``nf128`` (SpMM of 128 columns),
 each also masked (``masked_nf1``, ``masked_nf128``: every eighth row
 kept). Each result is held against the plain version (rtol 2e-4) and over
 two launches, a masked one against ``where(mask, Y, 0)`` of the same
-version bit for bit; then the versions are timed in alternating rounds
+version bit for bit. Each version, and the plain version, also prints its
+error against an f64 oracle (the stored f32 values and X in f64, a
+cuSPARSE product on the card): the max abs error and the largest ratio of
+the error to the conformance grid's f32 tolerance, ``2e-4 + 2e-4 * |y|``
+(at most 1 meets it); and whether a 0/1 matrix with at most one 1 a row
+(MoE dispatch's kind) gives X's rows back bit for bit at 128 columns.
+Then the versions are timed in alternating rounds
 (``examples/_kernel_ab.py``), with torch's own BSR product
 (``torch.sparse_bsr_tensor @ X``) on the same operands as a yardstick.
 Compare versions only within one run. Needs a CUDA card and nvcc.
@@ -18,6 +24,7 @@ Compare versions only within one run. Needs a CUDA card and nvcc.
 import sys
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from _kernel_ab import build, time_versions  # also puts src/ on the path
@@ -43,11 +50,34 @@ def main(sources):
     mask = torch.from_numpy((np.arange(n) % 8) == 3).to(dev)
     print(f"block: {n} rows, {int(valid.sum())} blocks of {B.bs}, bwidth {B.bwidth}",
           flush=True)
+    c = s.tocsr()
+    A64 = torch.sparse_csr_tensor(torch.from_numpy(c.indptr.astype(np.int64)),
+                                  torch.from_numpy(c.indices.astype(np.int64)),
+                                  torch.from_numpy(c.data.astype(np.float32).astype(np.float64)),
+                                  size=s.shape).to(dev)
+
+    def f64_error(Y, want64):
+        err = (Y.double() - want64).abs()
+        return (f"f64_max_abs_err={float(err.max())} "
+                f"f64_tol_ratio={float((err / (2e-4 + 2e-4 * want64.abs())).max())}")
+
+    # a one-hot dispatch: row i takes X row perm[i] of block row i's block
+    # column, or nothing
+    rng = np.random.default_rng(5)
+    perm = rng.permutation(n)
+    keep = rng.random(n) < 0.9
+    onehot = to_bsr(sp.csr_matrix((np.ones(int(keep.sum()), np.float32),
+                                   (np.nonzero(keep)[0], perm[keep])), shape=(n, n)),
+                    device=dev)
     calls = {}
     for nf in (1, 128):
         X = torch.from_numpy(np.random.default_rng(3).standard_normal((n, nf))
                              .astype(np.float32)).to(dev)
         want = bsr_spmm_plain(B.bcols, B.blocks, X)
+        want64 = A64 @ X.double()
+        print(f"check nf{nf} plain: {f64_error(want, want64)}", flush=True)
+        gathered = torch.where(torch.from_numpy(keep).to(dev)[:, None],
+                               X[torch.from_numpy(perm).to(dev)], torch.zeros((), device=dev))
         atol = 2e-4 * float(want.abs().max())
         print(f"nf{nf}: the new kernel's path is {bsr_spmm_path(B.bs, nf)}", flush=True)
         for src, lib in libs.items():
@@ -65,8 +95,17 @@ def main(sources):
             ok = bool((err <= atol + 2e-4 * want.abs()).all())
             masked = bool(torch.equal(Ym, torch.where(mask[:, None], Y,
                                                       torch.zeros((), device=dev))))
+            Yo = torch.empty((onehot.bcols.shape[0] * onehot.bs, nf), device=dev)
+            if lib.repro_bsr_spmm(onehot.bcols.data_ptr(), onehot.blocks.data_ptr(),
+                                  X.data_ptr(), None, Yo.data_ptr(), onehot.bcols.shape[0],
+                                  onehot.bwidth, onehot.bs, n, nf,
+                                  _build.VALUE_CODES["float32"], None):
+                raise SystemExit(f"nf{nf} {src}: one-hot launch failed")
+            torch.cuda.synchronize()
             print(f"check nf{nf} {src}: within_rtol_2e-4={ok} max_abs_err={float(err.max())} "
-                  f"repeat_equal={bool(torch.equal(Y, Y2))} masked_exact={masked}", flush=True)
+                  f"repeat_equal={bool(torch.equal(Y, Y2))} masked_exact={masked} "
+                  f"{f64_error(Y, want64)} "
+                  f"one_hot_exact={bool(torch.equal(Yo[:n], gathered))}", flush=True)
             if not (ok and masked):
                 raise SystemExit(f"nf{nf} {src}: disagrees with the plain version")
             calls[(f"nf{nf}", src)] = lambda launch=launch, Y=Y: launch(Y)

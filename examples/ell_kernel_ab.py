@@ -12,8 +12,10 @@ and loaded with ctypes. Cases (f32 values):
     ``"ell-cols"`` plan, x past the column limit and about 9.6 entries
     per row spread over 74 tiles, so every chunk reaches every tile and
     the plan's slots are mostly padding;
-  - ``resident`` and ``masked``: HPCG 52^3 through ``repro_ell_spmv``,
-    whole and with every eighth row kept.
+  - ``resident`` and ``masked``: HPCG 52^3 (int32 ids, global), whole and
+    with every eighth row kept, through ``repro_ell_spmv`` where the
+    version has it, else ``repro_ell_spmv_listed`` over the arrays as a
+    plan of one tile; and ``resident_13`` at 13^3.
 
 Each tiled case also runs masked (``tiled_masked``, ``scattered_masked``,
 every eighth row kept). A tiled case runs ``repro_ell_spmv_listed`` with
@@ -23,6 +25,7 @@ against ``where(mask, A @ x, 0)``) and over two launches; then the versions
 are timed in alternating rounds (``examples/_kernel_ab.py``). Compare
 versions only within one run. Needs a CUDA card and nvcc.
 """
+import ctypes
 import sys
 
 import numpy as np
@@ -38,6 +41,10 @@ from repro_torch.kernels.ell_spmv import (ell_spmv_plain, ell_spmv_tiled_plain,
 
 GRID = 104
 SCATTERED = (1_200_000, 8e-6)
+#: The argument types of the resident entry of versions that have one.
+RESIDENT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
 
 
 def tiled_cases(name, s, x):
@@ -74,7 +81,9 @@ def tiled_cases(name, s, x):
 
 
 def main(sources):
-    libs = build(sources, "ell_kernel_ab", ("repro_ell_spmv", "repro_ell_spmv_listed"))
+    libs = build(sources, "ell_kernel_ab", {
+        "repro_ell_spmv": RESIDENT_ARGS,
+        "repro_ell_spmv_listed": _build._SIGNATURES["repro_ell_spmv_listed"]})
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
@@ -84,20 +93,32 @@ def main(sources):
     cases = {**tiled_cases("tiled", M.fdm27(GRID, GRID, GRID), vec(GRID ** 3)),
              **tiled_cases("scattered", M.random_uniform(*SCATTERED), vec(SCATTERED[0]))}
 
-    s52 = M.fdm27(GRID // 2, GRID // 2, GRID // 2)
-    n52 = s52.shape[0]
-    x52 = vec(n52)
-    R = to_ell(s52, device=dev)
-    mask = torch.from_numpy((np.arange(n52) % 8) == 3).to(dev)
-    want = ell_spmv_plain(R.indices, R.data, x52)
-    for name, m in (("resident", None), ("masked", mask)):
-        def resident(lib, out, m=m):
-            return lib.repro_ell_spmv(R.indices.data_ptr(), R.data.data_ptr(), x52.data_ptr(),
-                                      None if m is None else m.data_ptr(), out.data_ptr(), n52,
-                                      R.width, 1, 0, 0, _build.INDEX_CODES["int32"], None)
+    for g, names in ((GRID // 2, ("resident", "masked")), (GRID // 8, ("resident_13",))):
+        sg = M.fdm27(g, g, g)
+        ng = sg.shape[0]
+        xg = vec(ng)
+        R = to_ell(sg, device=dev)
+        tile_ptr, tile_ids, _ = ell_tile_index(R.indices.unsqueeze(0))
+        mask = torch.from_numpy((np.arange(ng) % 8) == 3).to(dev)
+        want = ell_spmv_plain(R.indices, R.data, xg)
+        # bound: every id slot, the real values, x and y, once, at 3.35 TB/s
+        needed = 4 * (R.indices.numel() + int((R.indices >= 0).sum()) + 2 * ng)
+        print(f"resident {g}^3: {ng} rows, width {R.width}, needed_bytes={needed} "
+              f"bound_ms={needed / 3.35e9}", flush=True)
+        for name, m in zip(names, (None, mask)):
+            def resident(lib, out, m=m, R=R, xg=xg, ng=ng, tp=tile_ptr, ti=tile_ids):
+                mp = None if m is None else m.data_ptr()
+                if hasattr(lib, "repro_ell_spmv"):
+                    return lib.repro_ell_spmv(R.indices.data_ptr(), R.data.data_ptr(),
+                                              xg.data_ptr(), mp, out.data_ptr(), ng, R.width,
+                                              1, 0, 0, _build.INDEX_CODES["int32"], None)
+                return lib.repro_ell_spmv_listed(
+                    R.indices.data_ptr(), R.data.data_ptr(), xg.data_ptr(), mp, tp.data_ptr(),
+                    ti.data_ptr(), out.data_ptr(), ng, R.width, ng, 0,
+                    _build.INDEX_CODES["int32"], None)
 
-        cases[name] = (resident, want if m is None else
-                       torch.where(m, want, torch.zeros((), device=dev)), n52)
+            cases[name] = (resident, want if m is None else
+                           torch.where(m, want, torch.zeros((), device=dev)), ng)
 
     calls = {}
     for case, (fn, want, rows) in cases.items():

@@ -3,134 +3,32 @@ the port, on the card.
 
   python examples/scs_wrapper_ab.py OLD_TREE NEW_TREE
 
-Each argument is the root of a checkout of this repo, for example an older
-commit unpacked with ``git archive`` under the gitignored ``build/``. Each
-tree runs in a process of its own, which imports that tree's
-``repro_torch`` (its kernels build into the tree's own ``build/``), builds
-the csr containers of HPCG's 52^3 (resident plan) and 104^3 (tiled plan),
-and then waits. Both processes stay up, and the rounds alternate between
-them (old, new, then new, old), so drift of the shared host lands on both
-alike. In a round a process calls the dispatch adapter
-``scs_spmv_from_plan`` on each container and reports:
-
-  - ``call_us``: host wall time per call over 200 calls in a row with no
-    synchronisation between them: what the wrapper costs the host while
-    the card keeps up;
-  - ``ms``: median of CUDA events around one call, as ``chip_smoke.py``
-    reads ``ms`` (the wrapper's host time shows in it when the kernel is
-    shorter);
-  - ``kernel_ms``: the kernel's device time alone, from ``torch.profiler``.
-
-The ``scs_`` kernels are the trees' own, so ``ms`` minus ``kernel_ms`` is
-the host share each tree's wrapper adds to ``ms``. Prints every round and
-then the median of each number per tree. Compare trees only within one
-run. Needs a CUDA card and nvcc.
+Calls the dispatch adapter ``scs_spmv_from_plan`` on the csr containers of
+HPCG's 52^3 (resident plan) and 104^3 (tiled plan), one process per tree,
+in alternating rounds; ``examples/_wrapper_ab.py`` says what each round
+reports. Needs a CUDA card and nvcc.
 """
-import json
-import os
-import subprocess
-import sys
-import time
-
-ROUNDS, CALLS, REPS = 10, 200, 50
+from _wrapper_ab import run
 
 
-def one(tree):
-    """Serve rounds for one tree: a line ``go`` on stdin runs one round and
-    prints its times as one JSON line; end of input ends the process."""
-    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+def calls(dev):
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import matrices as M
     from repro_torch.core.convert import to_csr
     from repro_torch.kernels.sell_spmv import scs_spmv_from_plan
 
-    dev = torch.device("cuda")
-    calls = {}
+    out = {}
     for g in (52, 104):
         s = M.fdm27(g, g, g)
         n = s.shape[0]
         A = to_csr(s, device=dev)
         x = torch.from_numpy(np.random.default_rng(0).standard_normal(n)
                              .astype(np.float32)).to(dev)
-        calls[f"{g}^3"] = lambda A=A, x=x, n=n: scs_spmv_from_plan(A.plan, x, nrows=n)
-        for _ in range(3):
-            calls[f"{g}^3"]()
-    torch.cuda.synchronize()
-    print("ready", flush=True)
-    for _ in sys.stdin:
-        out = {}
-        for shape, fn in calls.items():
-            t0 = time.perf_counter()
-            for _ in range(CALLS):
-                fn()
-            call_us = (time.perf_counter() - t0) / CALLS * 1e6
-            torch.cuda.synchronize()
-            ms = []
-            for _ in range(REPS):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                end.synchronize()
-                ms.append(start.elapsed_time(end))
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    fn()
-                torch.cuda.synchronize()
-            dev_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                         if e.device_type != DeviceType.CPU and "scs_" in e.key)
-            out[shape] = dict(call_us=call_us, ms=sorted(ms)[REPS // 2],
-                              kernel_ms=dev_us / 20 / 1e3)
-        print(json.dumps(out), flush=True)
-
-
-def main(old, new):
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip(), flush=True)
-    procs = {}
-    for tree in (old, new):
-        procs[tree] = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--one", tree], stdin=subprocess.PIPE,
-            stdout=subprocess.PIPE, text=True, bufsize=1)
-
-    def reply(tree):
-        for line in procs[tree].stdout:
-            if line.startswith(("ready", "{")):
-                return line
-        raise SystemExit(f"{tree}: the process ended early")
-
-    try:
-        for tree in procs:
-            reply(tree)
-        runs = {old: [], new: []}
-        for rnd in range(ROUNDS):
-            for tree in ((old, new) if rnd % 2 == 0 else (new, old)):
-                procs[tree].stdin.write("go\n")
-                procs[tree].stdin.flush()
-                rec = json.loads(reply(tree))
-                print(f"round {rnd} {tree}: {json.dumps(rec)}", flush=True)
-                runs[tree].append(rec)
-    finally:
-        for p in procs.values():
-            p.stdin.close()
-            p.wait(timeout=60)
-    for tree, recs in runs.items():
-        for shape in recs[0]:
-            med = {k: sorted(r[shape][k] for r in recs)[len(recs) // 2] for k in recs[0][shape]}
-            print(f"{shape} {tree}: median of {len(recs)} rounds: "
-                  + " ".join(f"{k}={v}" for k, v in med.items()))
+        out[f"{g}^3"] = lambda A=A, x=x, n=n: scs_spmv_from_plan(A.plan, x, nrows=n)
+    return out
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        one(sys.argv[2])
-    elif len(sys.argv) == 3:
-        main(sys.argv[1], sys.argv[2])
-    else:
-        raise SystemExit(__doc__)
+    run(__file__, calls, "scs_", __doc__)

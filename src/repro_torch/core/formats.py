@@ -258,7 +258,11 @@ class CSR(_Container):
 @_register
 @dataclass(frozen=True)
 class DIA(_Container):
-    """Diagonal format: ``data[d, i]`` holds A[i, i + offsets[d]]."""
+    """Diagonal format: ``data[d, i]`` holds A[i, i + offsets[d]].
+
+    ``cache`` holds what the resident kernel's adapter checked on its first
+    call (as ``COO.cache``); it is not part of the value.
+    """
 
     offsets: torch.Tensor  # (ndiags,) int32, sorted
     data: torch.Tensor     # (ndiags, nrows) float, 0 where out of range
@@ -266,6 +270,8 @@ class DIA(_Container):
     plan: Any = None       # optional KernelPlan ("dia-cols")
     #: upper bound on max|offset| recorded by ``to_dia``; None = unknown
     extent: Any = None
+    cache: Dict[str, Any] = field(default_factory=dict, init=False, compare=False,
+                                  repr=False)
 
     format: ClassVar[str] = "dia"
 
@@ -300,12 +306,18 @@ class DIA(_Container):
 @_register
 @dataclass(frozen=True)
 class ELL(_Container):
-    """ELLPACK: every row padded to ``width`` entries (col=-1 sentinel)."""
+    """ELLPACK: every row padded to ``width`` entries (col=-1 sentinel).
+
+    ``cache`` holds the resident kernel's tile index of ``indices`` (as
+    ``COO.cache``); it is not part of the value.
+    """
 
     indices: torch.Tensor  # (nrows, width) int32, -1 = padding
     data: torch.Tensor     # (nrows, width) float, 0 at padding
     shape: Shape
     plan: Any = None       # optional KernelPlan ("ell-cols")
+    cache: Dict[str, Any] = field(default_factory=dict, init=False, compare=False,
+                                  repr=False)
 
     format: ClassVar[str] = "ell"
 

@@ -269,7 +269,8 @@ def _dispatch_spmm(A, X, policy: ExecutionPolicy) -> torch.Tensor:
             break
         reg.record_success(entry.key)
         return Y
-    cols = [_dispatch_spmv(A, X[:, j], policy) for j in range(X.shape[1])]
+    Xt = X.t().contiguous()  # each column one contiguous vector, as the kernels take x
+    cols = [_dispatch_spmv(A, Xt[j], policy) for j in range(X.shape[1])]
     if not cols:
         return torch.zeros((A.shape[0], 0), dtype=X.dtype, device=X.device)
     return torch.stack(cols, dim=1)

@@ -27,7 +27,11 @@
 //    registers. One TF32 pass keeps 11 bits, which misses rtol 2e-4, so an
 //    f32 block and X are split into hi + lo TF32 parts and three products
 //    are added (lo*hi, hi*lo, hi*hi); a bf16/f16 block is exact in TF32, so
-//    only X is split (two products).
+//    only X is split (two products). The mma instructions add one block's
+//    products into a partial that starts at zero, and the partial goes into
+//    the row's running sum with a separately rounded f32 add: accumulating
+//    every block inside the tensor core erred 5x more than the CUDA cores
+//    (PERF.md, PR 16).
 //  - CUDA cores (bs 8, or nf < 8, SpMV among them): TPR threads share a
 //    block row, each adds its slice of the block's columns with fused
 //    multiply-adds over the whole walk, and a butterfly over the TPR lanes
@@ -250,6 +254,17 @@ bsr_spmm_tc_kernel(const int32_t* __restrict__ bcols, const T* __restrict__ bloc
       }
       __syncthreads();
     }
+    // The block's products go to a partial of their own, which is added to
+    // the running sum with a separately rounded add, outside the tensor
+    // core: its f32 accumulation of mma results into a large sum loses
+    // bits the add keeps.
+    float part[MPW][NPW][4];
+#pragma unroll
+    for (int mi = 0; mi < MPW; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NPW; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) part[mi][ni][r] = 0.f;
 #pragma unroll
     for (int k0 = 0; k0 < BS; k0 += 8) {
       unsigned bh[NPW][2], bl[NPW][2];
@@ -274,12 +289,18 @@ bsr_spmm_tc_kernel(const int32_t* __restrict__ bcols, const T* __restrict__ bloc
         }
 #pragma unroll
         for (int ni = 0; ni < NPW; ++ni) {
-          if (!kExactA) mma_tf32(acc[mi][ni], al, bh[ni]);
-          mma_tf32(acc[mi][ni], ah, bl[ni]);
-          mma_tf32(acc[mi][ni], ah, bh[ni]);
+          if (!kExactA) mma_tf32(part[mi][ni], al, bh[ni]);
+          mma_tf32(part[mi][ni], ah, bl[ni]);
+          mma_tf32(part[mi][ni], ah, bh[ni]);
         }
       }
     }
+#pragma unroll
+    for (int mi = 0; mi < MPW; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NPW; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] = __fadd_rn(acc[mi][ni][r], part[mi][ni][r]);
   };
   if (keep_any) {
     Walk walk{bcols + b * bwidth, bwidth, nbcols};

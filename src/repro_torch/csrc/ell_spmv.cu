@@ -1,54 +1,54 @@
-// ELL SpMV for Hopper (sm_90a): the resident kernel, the column-tiled kernel
-// that walks only the (row chunk, column tile) pairs holding entries, and
-// the optional row mask.
+// ELL SpMV for Hopper (sm_90a): one kernel for the resident arrays and the
+// column-tiled plan, walking only the (row chunk, column tile) pairs that
+// hold entries, with the optional row mask.
 //
 // Replaces the TPU kernels src/repro/kernels/ell_spmv.py:43 (ell_spmv) and
 // src/repro/kernels/ell_spmv.py:92 (ell_spmv_tiled), and the masked ELL
 // wrapper of src/repro/kernels/ops.py:217.
 //
-// Bound: bytes. The resident kernel reads every index slot once (the -1
-// padding included: it cannot know where it is without reading it), the
+// Bound: bytes. The resident arrays need every index slot once (the -1
+// padding included: no one knows where it is without reading it), the
 // value of every real slot once, x and y once; 2 flops per real slot. At
 // HPCG 52^3 (W = 27, int32 ids, f32 values) that is about 31.5 MB, 9.4 us
 // at 3.35 TB/s. The tiled "ell-cols" plan of HPCG 104^3 is dense in (tile,
 // row): 69 tiles x 1,124,864 rows x W = 18 slots for 29.8 M nonzeros (47x),
-// but a chunk of 128 rows has entries in only 2 or 3 of the 69 tiles (the
-// 27-point stencil reaches +-10,921 columns, a tile is 16,384 wide). What
-// the data needs is the real ids and values, x and y: about 188 MB, 56 us.
+// but a chunk of 128 rows has entries in only 2 or 3 of the 69 column tiles
+// (the 27-point stencil reaches +-10,921 columns, a tile is 16,384 wide).
+// What the data needs is the real ids and values, x and y: about 188 MB,
+// 56 us.
 //
-// Design (resident, ell_kernel). The container is row-major (nrows, W), so
-// one thread per row reading its own slots would stride by W across a warp.
-// Instead a CTA owns kRows consecutive rows, whose slots are one contiguous
-// run of the array: the CTA copies them to shared memory with coalesced
-// loads, kChunk slots per row at a time (ids widened to int32, values to
-// f32, rows padded to kChunk + 1 words against bank conflicts), and then
-// each thread sums its row's staged slots in ascending k. A value is loaded
-// only where its id is >= 0, and a masked-out row loads nothing and writes
-// 0: the mask goes into the kernel, with no masked copy of data.
-//
-// Design (tiled, ell_listed_kernel). The wrapper hands over an index of
-// the tiles each chunk of kRows rows has entries in, as a CSR pair
-// (tile_ptr, tile_ids), built once per plan on the device from the plan's
-// ids. One CTA per chunk walks only its listed tiles, in ascending order.
-// For each, the chunk's slots are one contiguous run of rows x W ids and
-// values; the CTA copies the run to shared memory as it lies (raw ids and
-// values, 16-byte vector loads between a scalar head and tail, no division
-// per element), kRows x min(W, kChunk) slots at a time, so a W above
-// kChunk is staged in several segments of the run. Each thread then sums
-// its row's staged slots in ascending k, and adds the tile's sum to the
-// row's total in ascending tile order. A chunk whose rows are all masked
-// out stages nothing; a masked-out row of another chunk is staged with its
-// neighbours but not summed, and writes 0. The run is staged whole, the
-// padding at the end of each row's slots included: loading a value vector
-// only where one of its ids is >= 0 needs the ids first, and each such
-// variant measured was slower than this one, on the stencil and on
-// scattered columns alike, where the runs are mostly padding (PERF.md).
+// Design (ell_listed_kernel). The wrapper hands over an index of the tiles
+// each chunk of kRows rows has entries in, as a CSR pair (tile_ptr,
+// tile_ids), built once on the device from the ids. The resident arrays
+// are the one-tile case (ids global, tile 0 at column 0), so one kernel
+// serves both. One CTA per chunk walks only its listed tiles, in ascending
+// order. For each, the chunk's slots are one contiguous run of rows x W ids
+// and values (the container is row-major, so one thread per row reading
+// its own slots would stride by W across a warp). The CTA copies the run
+// to shared memory as it lies: raw ids and values, 16-byte cp.async copies
+// between a scalar head and tail, no division per element, kRows x min(W,
+// kChunk) slots at a time, so a W above kChunk is staged in several
+// segments of the run. cp.async puts every copy of a thread in flight
+// without holding the data in registers: vector loads through registers
+// raised the kernel from 40 to 48 registers (10 CTAs an SM, not 12) and
+// slowed runs that are mostly padding by 18% (PERF.md, PR 16). Values are loaded
+// without waiting on their ids: a pad's value is staged but never added.
+// Each thread then sums its row's staged slots in ascending k, kUnroll x
+// gathers in flight, and adds the tile's sum to the row's total in
+// ascending tile order. A chunk whose rows are all masked out stages
+// nothing; a masked-out row of another chunk is staged with its neighbours
+// but not summed, and writes 0: the mask goes into the kernel, with no
+// masked copy of data. Loading a value vector only where one of its ids is
+// >= 0 needs the ids first, and each such variant measured was slower
+// than staging the run whole, on the stencil and on scattered columns
+// alike, where the runs are mostly padding (PERF.md).
 //
 // Why skipping a tile keeps the bits. The plain version adds every tile's
 // sum, the empty ones included, and an empty tile's sum is +0. A row's
 // total starts at +0 and is never -0 (under round to nearest, +0 + -0 and
 // x + -x are +0), so adding +0 leaves it unchanged: summing only the listed
-// tiles gives the same total bit for bit.
+// tiles gives the same total bit for bit, and the resident sum taken as a
+// tile's gives the plain resident sum.
 //
 // Products and sums are rounded separately (common.cuh: mul_add_rn), in the
 // order of the plain PyTorch versions in kernels/ell_spmv.py, so f32 results
@@ -60,57 +60,13 @@ namespace repro {
 
 constexpr int kRows = 128;   // rows (threads) per CTA
 constexpr int kChunk = 32;   // slots per row staged at a time
-constexpr int kStride = kChunk + 1;
-
-template <typename T, typename I>
-__global__ void ell_kernel(const I* __restrict__ idx, const T* __restrict__ data,
-                           const float* __restrict__ x,
-                           const uint8_t* __restrict__ mask, T* __restrict__ y,
-                           int64_t nrows, int width) {
-  __shared__ int32_t s_idx[kRows * kStride];
-  __shared__ float s_val[kRows * kStride];
-  __shared__ uint8_t s_on[kRows];
-
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int rows = nrows - r0 < kRows ? static_cast<int>(nrows - r0) : kRows;
-  const int tid = threadIdx.x;
-  if (tid < rows) s_on[tid] = (mask == nullptr || mask[r0 + tid]) ? 1 : 0;
-  __syncthreads();
-  const bool on = tid < rows && s_on[tid];
-
-  const I* it = idx + r0 * width;
-  const T* dt = data + r0 * width;
-  float acc = 0.f;
-  for (int k0 = 0; k0 < width; k0 += kChunk) {
-    const int kw = min(kChunk, width - k0);
-    __syncthreads();  // the previous chunk has been consumed
-    for (int e = tid; e < rows * kw; e += kRows) {
-      const int rr = e / kw, kk = e - rr * kw;
-      int32_t c = -1;
-      float v = 0.f;
-      if (s_on[rr]) {
-        const int64_t src = static_cast<int64_t>(rr) * width + k0 + kk;
-        c = static_cast<int32_t>(it[src]);
-        if (c >= 0) v = to_f32(dt[src]);
-      }
-      s_idx[rr * kStride + kk] = c;
-      s_val[rr * kStride + kk] = v;
-    }
-    __syncthreads();
-    if (on) {
-      for (int kk = 0; kk < kw; ++kk) {
-        const int32_t c = s_idx[tid * kStride + kk];
-        if (c >= 0) acc = mul_add_rn(acc, s_val[tid * kStride + kk], x[c]);
-      }
-    }
-  }
-  if (tid < rows) y[r0 + tid] = from_f32<T>(acc);
-}
 
 // Copies g[0, n) into shared memory at s[pad + j], where pad is g's offset
 // from a 16-byte boundary in elements, so that every aligned 16 bytes of g
 // lands on aligned 16 bytes of s (s is 16-byte aligned and holds n + 16 /
-// sizeof(E) elements). Returns pad.
+// sizeof(E) elements). Returns pad. The aligned part goes by cp.async: the
+// caller waits for it (cp.async.wait_all) before the barrier that
+// publishes the run.
 template <typename E>
 __device__ __forceinline__ int stage_run(E* __restrict__ s, const E* __restrict__ g, int n) {
   constexpr int kVec = 16 / sizeof(E);
@@ -120,9 +76,13 @@ __device__ __forceinline__ int stage_run(E* __restrict__ s, const E* __restrict_
   const int nvec = (n - head) / kVec;
   const uint4* gv = reinterpret_cast<const uint4*>(g + head);
   uint4* dv = reinterpret_cast<uint4*>(d + head);
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) dv[i] = __ldg(gv + i);
-  for (int i = threadIdx.x; i < head; i += blockDim.x) d[i] = g[i];
-  for (int i = head + nvec * kVec + threadIdx.x; i < n; i += blockDim.x) d[i] = g[i];
+  const int step = blockDim.x;
+  for (int i = threadIdx.x; i < nvec; i += step) {  // no registers hold the copy
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(dv + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gv + i));
+  }
+  for (int j = threadIdx.x; j < head; j += step) d[j] = g[j];
+  for (int j = head + nvec * kVec + threadIdx.x; j < n; j += step) d[j] = g[j];
   return pad;
 }
 
@@ -165,6 +125,7 @@ __global__ void ell_listed_kernel(const I* __restrict__ idx, const T* __restrict
         __syncthreads();  // the previous segment has been consumed
         const int pi = stage_run(s_idx, idx + off + a, n);
         const int pv = stage_run(s_val, data + off + a, n);
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
         __syncthreads();
         if (!on) continue;
         const int bi = pi - a, bv = pv - a;  // slot j of the run: s_idx[bi + j]
@@ -193,33 +154,6 @@ __global__ void ell_listed_kernel(const I* __restrict__ idx, const T* __restrict
     }
   }
   if (tid < rows) y[r0 + tid] = from_f32<T>(total);
-}
-
-template <typename T, typename I>
-cudaError_t launch_ell(const void* idx, const void* data, const void* x,
-                       const void* mask, void* y, int64_t nrows, int width,
-                       cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((nrows + kRows - 1) / kRows);
-  ell_kernel<T, I><<<blocks, kRows, 0, stream>>>(
-      static_cast<const I*>(idx), static_cast<const T*>(data),
-      static_cast<const float*>(x), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(y), nrows, width);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_ell_index(int itype, const void* idx, const void* data,
-                             const void* x, const void* mask, void* y,
-                             int64_t nrows, int width, cudaStream_t stream) {
-  switch (itype) {
-    case kI8:
-      return launch_ell<T, int8_t>(idx, data, x, mask, y, nrows, width, stream);
-    case kI16:
-      return launch_ell<T, int16_t>(idx, data, x, mask, y, nrows, width, stream);
-    case kI32:
-      return launch_ell<T, int32_t>(idx, data, x, mask, y, nrows, width, stream);
-  }
-  return cudaErrorInvalidValue;
 }
 
 template <typename T, typename I>
@@ -259,33 +193,11 @@ cudaError_t launch_ell_listed_index(int itype, const void* idx, const void* data
 
 }  // namespace repro
 
-// y = A @ x over the resident ELL arrays idx/data (nrows, width) with
-// global ids; mask may be null. ntiles must be 1 and ct 0: they stay in the
-// signature so that examples/ell_kernel_ab.py calls every version of this
-// file alike (the tiled arrays go to repro_ell_spmv_listed).
-extern "C" int repro_ell_spmv(const void* idx, const void* data, const void* x,
-                              const void* mask, void* y, long long nrows, int width,
-                              int ntiles, long long ct, int dtype, int itype,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (width <= 0 || ntiles != 1 || ct != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (nrows == 0) return 0;
-  switch (dtype) {
-    case repro::kF32:
-      return repro::launch_ell_index<float>(itype, idx, data, x, mask, y, nrows, width, s);
-    case repro::kBF16:
-      return repro::launch_ell_index<__nv_bfloat16>(itype, idx, data, x, mask, y, nrows,
-                                                    width, s);
-    case repro::kF16:
-      return repro::launch_ell_index<__half>(itype, idx, data, x, mask, y, nrows, width, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // y = A @ x over an "ell-cols" plan idx/data (ntiles, nrows, width) with
 // tile-local ids, walking for each chunk of 128 rows only the tiles that
 // tile_ptr (nchunks + 1,) / tile_ids (npairs,) int32 list for it, in
-// ascending order; ct is the column-tile width. mask may be null.
+// ascending order; ct is the column-tile width. The resident arrays are
+// the plan of one tile (ids global). mask may be null.
 extern "C" int repro_ell_spmv_listed(const void* idx, const void* data, const void* x,
                                      const void* mask, const void* tile_ptr,
                                      const void* tile_ids, void* y, long long nrows,

@@ -41,9 +41,9 @@ _SIGNATURES = {
     "repro_scoo_spmv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _P),
     "repro_bsr_spmm": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P),
     "repro_bsr_spmm_tensor_cores": (_I, _LL),
-    "repro_ell_spmv": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P),
     "repro_ell_spmv_listed": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P),
     "repro_dia_spmv": (_P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
+    "repro_dia_spmv_listed": (_P, _P, _P, _P, _P, _LL, _P, _I, _LL, _LL, _I, _P),
     "repro_dia_spmv_tiled": (_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _LL,
                              _LL, _I, _P),
     "repro_scs_spmv_chunked": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -68,7 +68,10 @@ class KernelLibrary:
 
     def call(self, name: str, *args) -> None:
         """Launch through ``name``; raise on a non-zero cudaError_t."""
-        code = getattr(self.lib, name)(*args)
+        self.check(name, getattr(self.lib, name)(*args))
+
+    def check(self, name: str, code: int) -> None:
+        """Raise for a non-zero cudaError_t that entry ``name`` returned."""
         if code != 0:
             msg = self.lib.repro_error_string(code).decode()
             raise RuntimeError(f"{name} failed to launch: cudaError {code} ({msg})")

@@ -44,5 +44,6 @@ def segment_starts(keys: torch.Tensor, nseg: int) -> torch.Tensor:
 
 
 def current_stream(device: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    device with its index), without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

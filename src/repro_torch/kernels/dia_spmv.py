@@ -6,6 +6,11 @@ over the ``"dia-cols"`` plan). The CUDA sources are
 ``src/repro_torch/csrc/dia_spmv.cu``; their header note gives the design
 and the byte bound.
 
+The dispatch table calls :func:`dia_spmv_from_container`, which checks a
+container's arrays once and keeps the result in its ``cache``, and gives a
+masked call on many rows the list of the mask's rows (:func:`dia_row_list`,
+cached too), so that the kernel's warps run only rows the mask keeps.
+
 Each wrapper runs its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (or raises): there is no fallback from
 one to the other. Both accumulate in f32 over f32/bf16/f16 storage and
@@ -13,11 +18,13 @@ return y in the storage dtype — the contract of ``ops._precision_ok``. In
 f32 the kernels and the plain versions add the same products in the same
 order, so they agree exactly.
 
-``launches`` on each wrapper counts the kernel launches of this process.
+``launches`` on each wrapper counts the kernel launches of this process;
+``dia_spmv.by_shape`` splits them by ``(nrows, masked)``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from collections import Counter
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,13 +51,80 @@ def dia_spmv_plain(offsets: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
     return acc.to(data.dtype)
 
 
-def dia_spmv(offsets: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
-             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = A @ x for DIA arrays (``offsets (ndiags,)`` int32, ``data
-    (ndiags, nrows)``, ``x (ncols,)``), x read whole. ``mask`` (bool,
-    ``(nrows,)``) zeroes the rows outside it and skips their work."""
-    if data.device.type == "cpu":
-        return dia_spmv_plain(offsets, data, x, mask)
+class DiaRowList(NamedTuple):
+    """The rows a row mask keeps, ascending, int32 on the mask's device
+    (``rows``), and the mask it was built from: ``source`` is its address,
+    device and length, ``mask`` the tensor itself (held, so that its memory
+    is not reused while the list lives) and ``version`` its count of
+    in-place writes when the list was built."""
+
+    rows: torch.Tensor
+    source: tuple
+    mask: torch.Tensor
+    version: int
+
+
+def _mask_key(mask: torch.Tensor) -> tuple:
+    return (mask.data_ptr(), mask.device, mask.numel())
+
+
+def dia_row_list(mask: torch.Tensor) -> DiaRowList:
+    """The list of ``mask``'s rows that the masked kernel walks instead of
+    every row (built on the mask's device; it waits for the device once,
+    to learn the count)."""
+    return DiaRowList(torch.nonzero(mask).flatten().to(torch.int32), _mask_key(mask), mask,
+                      mask._version)
+
+
+def _check_rows(rows: DiaRowList, mask: Optional[torch.Tensor]) -> None:
+    if (not isinstance(rows, DiaRowList) or mask is None
+            or rows.source != _mask_key(mask) or rows.version != mask._version):
+        raise ValueError("dia_spmv: rows must be dia_row_list of this very mask, built "
+                         "since its last in-place write")
+
+
+#: Row lists a container keeps, one per mask, the oldest dropped first.
+MAX_ROW_LISTS = 16
+#: Rows from which a masked call walks the mask's row list: it is 15-20%
+#: faster at HPCG 52^3 (140,608 rows) and 104^3, 1-4% slower at 26^3
+#: (17,576) and 13^3, where one more dependent load shows in a launch of
+#: about 3 us (examples/dia_kernel_ab.py, PERF.md, PR 16).
+LIST_MIN_ROWS = 1 << 16
+
+
+def _cached_rows(cache: dict, mask: torch.Tensor) -> DiaRowList:
+    """``mask``'s row list from ``cache``, built on first sight and again
+    after an in-place write to the mask."""
+    lists = cache.setdefault("rows", {})
+    key = _mask_key(mask)
+    got = lists.get(key)
+    if got is None or got.version != mask._version:
+        if got is None and len(lists) >= MAX_ROW_LISTS:
+            del lists[next(iter(lists))]
+        got = lists[key] = dia_row_list(mask)
+    return got
+
+
+class _Resident(NamedTuple):
+    """What the first launch on a pair of resident arrays checked and keeps:
+    the arrays, their addresses and sizes, the value code and the
+    library's entries (whole or masked; over a row list)."""
+
+    offsets: torch.Tensor
+    data: torch.Tensor
+    ptrs: Tuple[int, int]
+    ndiags: int
+    nrows: int
+    code: int
+    device: torch.device
+    lib: object
+    entry: object
+    listed: object
+
+
+def _resident(offsets: torch.Tensor, data: torch.Tensor) -> _Resident:
+    """Check resident DIA arrays on the card in full (raise on what the
+    kernel does not take) and keep what the launches need."""
     ndiags, nrows = data.shape
     if offsets.dtype is not torch.int32 or offsets.shape != (ndiags,):
         raise ValueError(f"dia_spmv: offsets must be int32 of shape ({ndiags},), "
@@ -58,23 +132,90 @@ def dia_spmv(offsets: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
     if ndiags > MAX_RESIDENT_DIAGS:
         raise ValueError(f"dia_spmv: {ndiags} diagonals exceed the kernel's "
                          f"{MAX_RESIDENT_DIAGS}")
-    if mask is not None and (mask.dtype is not torch.bool or mask.shape != (nrows,)):
-        raise ValueError("dia_spmv: mask must be a bool tensor of shape (nrows,)")
-    x = x.to(torch.float32)
-    check_cuda_operands("dia_spmv", offsets, data, x, mask)
+    check_cuda_operands("dia_spmv", offsets, data)
     code = value_code("dia_spmv", data.dtype)
-    y = torch.empty(nrows, dtype=data.dtype, device=data.device)
     from ._build import library
 
-    library().call("repro_dia_spmv", offsets.data_ptr(), data.data_ptr(),
-                   x.data_ptr(), None if mask is None else mask.data_ptr(),
-                   y.data_ptr(), ndiags, nrows, x.shape[0], code,
-                   current_stream(data.device))
+    lib = library()
+    return _Resident(offsets, data, (offsets.data_ptr(), data.data_ptr()), ndiags, nrows,
+                     code, data.device, lib, lib.lib.repro_dia_spmv,
+                     lib.lib.repro_dia_spmv_listed)
+
+
+def _checked_x(r: _Resident, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x`` in f32, once it and ``mask`` have been checked against ``r``."""
+    if x.dtype is not torch.float32:
+        x = x.float()
+    dev = r.device
+    if x.device != dev or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"dia_spmv: operands must lie on one CUDA device, and x must be "
+                         f"a contiguous vector on {dev}, got {x.device}")
+    if mask is not None and (mask.dtype is not torch.bool or mask.shape != (r.nrows,)
+                             or mask.device != dev or not mask.is_contiguous()):
+        raise ValueError(f"dia_spmv: mask must be a contiguous bool tensor of shape "
+                         f"({r.nrows},) on {dev}")
+    return x
+
+
+def _launch(r: _Resident, x: torch.Tensor, mask: Optional[torch.Tensor],
+            rows: Optional[DiaRowList]) -> torch.Tensor:
+    """The kernel's launch on checked operands: over ``rows`` when given,
+    else over every row (the masked-out ones written 0)."""
+    dev = r.device
+    y = torch.empty(r.nrows, dtype=r.data.dtype, device=dev)
+    mp = None if mask is None else mask.data_ptr()
+    if rows is None:
+        code = r.entry(r.ptrs[0], r.ptrs[1], x.data_ptr(), mp, y.data_ptr(), r.ndiags,
+                       r.nrows, x.shape[0], r.code, current_stream(dev))
+    else:
+        code = r.listed(r.ptrs[0], r.ptrs[1], x.data_ptr(), mp, rows.rows.data_ptr(),
+                        rows.rows.shape[0], y.data_ptr(), r.ndiags, r.nrows, x.shape[0],
+                        r.code, current_stream(dev))
+    r.lib.check("repro_dia_spmv" if rows is None else "repro_dia_spmv_listed", code)
     dia_spmv.launches += 1
+    dia_spmv.by_shape[(r.nrows, mask is not None)] += 1
     return y
 
 
+def dia_spmv(offsets: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
+             mask: Optional[torch.Tensor] = None,
+             rows: Optional[DiaRowList] = None) -> torch.Tensor:
+    """y = A @ x for DIA arrays (``offsets (ndiags,)`` int32, ``data
+    (ndiags, nrows)``, ``x (ncols,)``), x read whole. ``mask`` (bool,
+    ``(nrows,)``) zeroes the rows outside it and skips their work;
+    ``rows``, :func:`dia_row_list` of this very mask, has the kernel walk
+    only the mask's rows (a list of another mask, or one built before the
+    mask's last in-place write, raises ``ValueError``)."""
+    if rows is not None:
+        _check_rows(rows, mask)
+    if data.device.type == "cpu":
+        return dia_spmv_plain(offsets, data, x, mask)
+    r = _resident(offsets, data)
+    return _launch(r, _checked_x(r, x, mask), mask, rows)
+
+
+#: Launches of this process, and of each ``(nrows, masked)`` among them.
 dia_spmv.launches = 0
+dia_spmv.by_shape = Counter()
+
+
+def dia_spmv_from_container(A, x: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dispatch-table adapter: :func:`dia_spmv` on a DIA container. The
+    first call on the card checks ``A``'s arrays in full and keeps the
+    result in ``A.cache``; later calls check only ``x`` and ``mask``. A
+    masked call on :data:`LIST_MIN_ROWS` rows or more walks the mask's row
+    list, kept in ``A.cache`` too (the last :data:`MAX_ROW_LISTS` masks)."""
+    r = A.cache.get("resident")
+    if r is None:
+        if A.data.device.type == "cpu":
+            return dia_spmv_plain(A.offsets, A.data, x, mask)
+        r = A.cache["resident"] = _resident(A.offsets, A.data)
+    x = _checked_x(r, x, mask)
+    rows = None
+    if mask is not None and r.nrows >= LIST_MIN_ROWS:
+        rows = _cached_rows(A.cache, mask)
+    return _launch(r, x, mask, rows)
 
 
 def _offset_range(offs_t: torch.Tensor) -> Tuple[int, int]:

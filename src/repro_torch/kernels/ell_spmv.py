@@ -5,9 +5,9 @@ resident x) and ``src/repro/kernels/ell_spmv.py:92`` (``ell_spmv_tiled``,
 over the ``"ell-cols"`` plan), and the masked ELL wrapper of
 ``src/repro/kernels/ops.py:217``. The CUDA source is
 ``src/repro_torch/csrc/ell_spmv.cu``; its header note gives the design and
-the byte bound. ``ell_spmv_tiled`` walks, for each chunk of
-:data:`CHUNK_ROWS` rows, only the column tiles :func:`ell_tile_index` lists
-for it.
+the byte bound. One kernel serves both wrappers: it walks, for each chunk
+of :data:`CHUNK_ROWS` rows, only the column tiles :func:`ell_tile_index`
+lists for it, and ``ell_spmv``'s arrays are a plan of one tile.
 
 Each wrapper runs its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (or raises): there is no fallback from
@@ -60,26 +60,26 @@ def ell_spmv_plain(indices: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
 
 
 def ell_spmv(indices: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
-             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             mask: Optional[torch.Tensor] = None,
+             tile_index: Optional["EllTileIndex"] = None) -> torch.Tensor:
     """y = A @ x for ELL arrays: ``indices (nrows, W)`` int32 with -1 pads,
-    ``data (nrows, W)``, ``x (ncols,)`` read whole."""
+    ``data (nrows, W)``, ``x (ncols,)`` read whole. On the card this is the
+    tiled kernel's case of one tile: ``tile_index`` is
+    :func:`ell_tile_index` of ``indices[None]``, these very indices seen as
+    a plan of one tile, cached by the caller (computed here when omitted);
+    an index of another tensor raises ``ValueError``."""
+    if tile_index is not None:
+        _check_index("ell_spmv", tile_index, indices.unsqueeze(0))
     if data.device.type == "cpu":
         return ell_spmv_plain(indices, data, x, mask)
     nrows, width = data.shape
     if indices.dtype is not torch.int32 or indices.shape != data.shape:
         raise ValueError(f"ell_spmv: indices must be int32 of shape {tuple(data.shape)}, "
                          f"got {indices.dtype} {tuple(indices.shape)}")
-    _check_mask("ell_spmv", mask, nrows)
-    x = x.to(torch.float32)
-    check_cuda_operands("ell_spmv", indices, data, x, mask)
-    code = value_code("ell_spmv", data.dtype)
-    y = torch.empty(nrows, dtype=data.dtype, device=data.device)
-    from ._build import library
-
-    library().call("repro_ell_spmv", indices.data_ptr(), data.data_ptr(), x.data_ptr(),
-                   None if mask is None else mask.data_ptr(), y.data_ptr(), nrows,
-                   width, 1, 0, code, index_code("ell_spmv", indices.dtype),
-                   current_stream(data.device))
+    if tile_index is None:
+        tile_index = ell_tile_index(indices.unsqueeze(0))
+    y = _launch_listed("ell_spmv", indices, data, x, mask, tile_index, nrows, width,
+                       x.shape[0])
     ell_spmv.launches += 1
     return y
 
@@ -131,6 +131,31 @@ def ell_tile_index(idx_t: torch.Tensor) -> EllTileIndex:
     return EllTileIndex(tile_ptr, used.nonzero()[:, 1].to(torch.int32), _plan_key(idx_t))
 
 
+def _check_index(name: str, tile_index, idx_t: torch.Tensor) -> None:
+    if not isinstance(tile_index, EllTileIndex) or tile_index.source != _plan_key(idx_t):
+        raise ValueError(f"{name}: tile_index must be ell_tile_index of this very "
+                         f"index tensor")
+
+
+def _launch_listed(name, idx, dat, x, mask, tile_index, nrows, width, col_tile):
+    """``repro_ell_spmv_listed`` on checked plan arrays: checks the mask and
+    ``x``, and that every operand lies on one CUDA device."""
+    _check_mask(name, mask, nrows)
+    tile_ptr, tile_ids, _ = tile_index
+    x = x.to(torch.float32)
+    check_cuda_operands(name, idx, dat, x, mask, tile_ptr, tile_ids)
+    vcode = value_code(name, dat.dtype)
+    icode = index_code(name, idx.dtype)
+    y = torch.empty(nrows, dtype=dat.dtype, device=dat.device)
+    from ._build import library
+
+    library().call("repro_ell_spmv_listed", idx.data_ptr(), dat.data_ptr(), x.data_ptr(),
+                   None if mask is None else mask.data_ptr(), tile_ptr.data_ptr(),
+                   tile_ids.data_ptr(), y.data_ptr(), nrows, width, col_tile, vcode, icode,
+                   current_stream(dat.device))
+    return y
+
+
 def ell_spmv_tiled(idx_t: torch.Tensor, dat_t: torch.Tensor, x: torch.Tensor,
                    col_tile: int, mask: Optional[torch.Tensor] = None,
                    tile_index: Optional[EllTileIndex] = None) -> torch.Tensor:
@@ -140,31 +165,18 @@ def ell_spmv_tiled(idx_t: torch.Tensor, dat_t: torch.Tensor, x: torch.Tensor,
     :func:`ell_tile_index` of this very ``idx_t``, cached by the caller
     (computed here when omitted); the kernel reads the plan at the offsets
     it lists, so an index of another tensor raises ``ValueError``."""
-    if tile_index is not None and (not isinstance(tile_index, EllTileIndex)
-                                   or tile_index.source != _plan_key(idx_t)):
-        raise ValueError("ell_spmv_tiled: tile_index must be ell_tile_index(idx_t) of "
-                         "this idx_t")
+    if tile_index is not None:
+        _check_index("ell_spmv_tiled", tile_index, idx_t)
     if dat_t.device.type == "cpu":
         return ell_spmv_tiled_plain(idx_t, dat_t, x, col_tile, mask)
     ntiles, nrows, width = dat_t.shape
     if idx_t.shape != dat_t.shape:
         raise ValueError(f"ell_spmv_tiled: idx_t {tuple(idx_t.shape)} and dat_t "
                          f"{tuple(dat_t.shape)} differ")
-    _check_mask("ell_spmv_tiled", mask, nrows)
     if tile_index is None:
         tile_index = ell_tile_index(idx_t)
-    tile_ptr, tile_ids, _ = tile_index
-    x = x.to(torch.float32)
-    check_cuda_operands("ell_spmv_tiled", idx_t, dat_t, x, mask, tile_ptr, tile_ids)
-    vcode = value_code("ell_spmv_tiled", dat_t.dtype)
-    icode = index_code("ell_spmv_tiled", idx_t.dtype)
-    y = torch.empty(nrows, dtype=dat_t.dtype, device=dat_t.device)
-    from ._build import library
-
-    library().call("repro_ell_spmv_listed", idx_t.data_ptr(), dat_t.data_ptr(),
-                   x.data_ptr(), None if mask is None else mask.data_ptr(),
-                   tile_ptr.data_ptr(), tile_ids.data_ptr(), y.data_ptr(), nrows, width,
-                   col_tile, vcode, icode, current_stream(dat_t.device))
+    y = _launch_listed("ell_spmv_tiled", idx_t, dat_t, x, mask, tile_index, nrows, width,
+                       col_tile)
     ell_spmv_tiled.launches += 1
     return y
 

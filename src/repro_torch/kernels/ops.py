@@ -28,7 +28,7 @@ from repro_torch.core.spmv import register_masked_spmv, register_spmm, register_
 from ._launch import segment_starts
 from .bsr_spmm import BLOCK_SIZES, bsr_spmm
 from .coo_spmv import coo_spmv, scoo_spmv_tiled
-from .dia_spmv import dia_spmv, dia_spmv_tiled
+from .dia_spmv import dia_spmv_from_container, dia_spmv_tiled
 from .ell_spmv import ell_spmv, ell_spmv_tiled, ell_tile_index
 from .sell_spmv import scs_spmv_from_plan
 
@@ -155,14 +155,18 @@ def _dia_tiled(A: DIA, x, mask=None):
 @register_spmv("dia", "cuda", supports=_dia_ok, needs_policy=True)
 def dia_spmv_cuda(A: DIA, x, policy):
     if cuda_strategy(A, policy) == "resident":
-        return dia_spmv(A.offsets, A.data, x)
+        return dia_spmv_from_container(A, x)
     return _dia_tiled(A, x)
 
 
 @register_spmv("ell", "cuda", supports=_ell_ok, needs_policy=True)
 def ell_spmv_cuda(A: ELL, x, policy, mask=None):
     if cuda_strategy(A, policy) == "resident":
-        return ell_spmv(A.indices, A.data, x, mask=mask)
+        listed = None
+        if A.data.device.type != "cpu":
+            listed = _cached(A.cache, "tile_index",
+                             lambda: ell_tile_index(A.indices.unsqueeze(0)))
+        return ell_spmv(A.indices, A.data, x, mask=mask, tile_index=listed)
     plan = A.plan
     idx_t, dat_t = plan.arrays
     listed = None
@@ -213,7 +217,7 @@ def dia_masked_spmv_cuda(A: DIA, x, row_mask, policy):
     ``data`` (121 MB per color at HPCG 104^3). Equal to
     ``where(row_mask, A @ x, 0)``."""
     if cuda_strategy(A, policy) == "resident":
-        return dia_spmv(A.offsets, A.data, x, mask=row_mask)
+        return dia_spmv_from_container(A, x, row_mask)
     return _dia_tiled(A, x, mask=row_mask)
 
 

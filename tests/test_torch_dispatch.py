@@ -230,7 +230,7 @@ def test_autotune_race_records_a_raising_cuda_kernel(monkeypatch):
     def broken(*args, **kwargs):
         raise RuntimeError("kernel fault")
 
-    monkeypatch.setattr(tops, "dia_spmv", broken)
+    monkeypatch.setattr(tops, "dia_spmv_from_container", broken)
     reg = HealthRegistry()
     with use_health(reg):
         res = T.autotune_spmv(M.fdm27(4, 4, 4), device="cpu", iters=2, warmup=1,
@@ -290,7 +290,7 @@ def test_autotune_race_on_card_lists_a_raising_cuda_kernel(monkeypatch, on_card)
     def broken(*args, **kwargs):
         raise RuntimeError("kernel fault")
 
-    monkeypatch.setattr(tops, "dia_spmv", broken)
+    monkeypatch.setattr(tops, "dia_spmv_from_container", broken)
     with use_health(HealthRegistry()):
         res = T.autotune_spmv(M.fdm27(4, 4, 4), device="cpu", iters=2, warmup=1,
                               candidates=[("dia", "cuda"), ("csr", "cuda")])

@@ -544,6 +544,166 @@ def test_ell_spmv_tiled_refuses_an_index_of_another_plan(wrong):
         ell_spmv_tiled(idx_t, dat_t, x, col_tile=16, tile_index=index)
 
 
+def _ell_resident_case(case):
+    """A resident ELL matrix: ``"ragged"`` 300 rows whose chunk 1 is empty
+    (its rows hold only padding); ``"stencil"`` the 27-point stencil of 9^3
+    (W = 27); ``"wide"`` rows of up to 64 slots."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(35)
+    if case == "ragged":
+        dense = (rng.random((300, 150)) < 0.05) * rng.standard_normal((300, 150))
+        dense[CHUNK_ROWS:2 * CHUNK_ROWS] = 0
+        return sp.csr_matrix(dense)
+    if case == "stencil":
+        from repro_torch.core import matrices as TM
+
+        return TM.fdm27(9, 9, 9)
+    dense = (rng.random((200, 90)) < 0.3) * rng.standard_normal((200, 90))
+    dense[5, :64] = rng.standard_normal(64)
+    return sp.csr_matrix(dense)
+
+
+@pytest.mark.parametrize("case", ["ragged", "stencil", "wide"])
+def test_ell_resident_tile_index_is_the_one_tile_listing(jax_ref, case):
+    """The resident ELL kernel is the tiled one over a plan of one tile: the
+    index it takes, ``ell_tile_index(indices[None])`` of the indices the
+    reference's ``to_ell`` builds, lists tile 0 for exactly the chunks
+    that hold an id >= 0 (a brute-force listing), and the tiled plain
+    version over that one-tile plan is the resident plain version bit for
+    bit, masked too."""
+    s = _ell_resident_case(case)
+    J = jax_ref["convert"].from_dense(s, "ell")
+    idx = np.asarray(J.indices)
+    E = tconv.from_dense(s, "ell", device="cpu")
+    np.testing.assert_array_equal(E.indices.numpy(), idx)
+    listed = ell_tile_index(E.indices.unsqueeze(0))
+    tile_ptr, tile_ids, source = listed
+    want_ptr, want_ids = _listed_by_brute_force(idx[None])
+    np.testing.assert_array_equal(tile_ptr.numpy(), want_ptr)
+    np.testing.assert_array_equal(tile_ids.numpy(), want_ids)
+    assert set(tile_ids.tolist()) <= {0}
+    assert source == (E.indices.data_ptr(), E.indices.device, 1, s.shape[0])
+    x = torch.from_numpy(_x(s.shape[1]))
+    mask = torch.from_numpy(np.random.default_rng(36).random(s.shape[0]) < 0.5)
+    for m in (None, mask):
+        assert torch.equal(
+            ell_spmv_tiled_plain(E.indices[None], E.data[None], x, s.shape[1], m),
+            ell_spmv(E.indices, E.data, x, mask=m, tile_index=listed))
+
+
+@pytest.mark.parametrize("wrong", ["other_indices", "copy_of_indices", "tiled_plan", "bare_pair"])
+def test_ell_spmv_refuses_an_index_of_other_indices(wrong):
+    """``ell_spmv`` takes only the one-tile index of its very ``indices``
+    (on the CPU too): an index of other indices, of a copy, of a tiled
+    plan, or a bare pair raises ``ValueError``; its own gives the plain
+    result."""
+    s = _ell_resident_case("ragged")
+    E = tconv.from_dense(s, "ell", col_tile=64, device="cpu")
+    x = torch.from_numpy(_x(s.shape[1]))
+    own = ell_tile_index(E.indices.unsqueeze(0))
+    assert torch.equal(ell_spmv(E.indices, E.data, x, tile_index=own),
+                       ell_spmv_plain(E.indices, E.data, x))
+    if wrong == "other_indices":
+        index = ell_tile_index(tconv.from_dense(s[:200], "ell", device="cpu").indices[None])
+    elif wrong == "copy_of_indices":
+        index = ell_tile_index(E.indices.clone().unsqueeze(0))
+    elif wrong == "tiled_plan":
+        index = ell_tile_index(E.plan.arrays[0])
+    else:
+        index = tuple(own[:2])
+    with pytest.raises(ValueError, match="tile_index"):
+        ell_spmv(E.indices, E.data, x, tile_index=index)
+
+
+def _row_mask(kind, n=729, seed=40):
+    if kind == "random":
+        return torch.from_numpy(np.random.default_rng(seed).random(n) < 0.4)
+    if kind == "symgs":
+        from repro_torch.core import matrices as TM
+        from repro_torch.solvers.symgs import greedy_coloring
+
+        return torch.from_numpy(greedy_coloring(TM.fdm27(9, 9, 9)) == 5)
+    return torch.full((n,), kind == "all", dtype=torch.bool)
+
+
+@pytest.mark.parametrize("kind", ["random", "symgs", "none", "all"])
+def test_dia_row_list_is_the_masks_rows(kind):
+    """``dia_row_list`` lists the rows a mask keeps, ascending, as int32
+    (its plain definition: ``np.nonzero``), and records the mask."""
+    from repro_torch.kernels.dia_spmv import dia_row_list
+
+    mask = _row_mask(kind)
+    rows = dia_row_list(mask)
+    assert rows.rows.dtype == torch.int32
+    np.testing.assert_array_equal(rows.rows.numpy(), np.nonzero(mask.numpy())[0])
+    assert rows.source == (mask.data_ptr(), mask.device, mask.numel())
+    assert rows.mask is mask and rows.version == mask._version
+
+
+@pytest.mark.parametrize("wrong", ["other_mask", "written_since", "no_mask", "bare_tensor"])
+def test_dia_spmv_refuses_a_stale_row_list(wrong):
+    """``dia_spmv`` takes only the row list of its very mask, built since
+    the mask's last in-place write (on the CPU too): anything else raises
+    ``ValueError``; its own list gives the plain result."""
+    from repro_torch.kernels.dia_spmv import dia_row_list
+
+    s = _mat(729, 729, 41, "banded")
+    D = tconv.from_dense(s, "dia", device="cpu")
+    x = torch.from_numpy(_x(729))
+    mask = _row_mask("symgs").clone()
+    own = dia_row_list(mask)
+    assert torch.equal(dia_spmv(D.offsets, D.data, x, mask, rows=own),
+                       dia_spmv_plain(D.offsets, D.data, x, mask))
+    if wrong == "other_mask":
+        rows, m = dia_row_list(mask.clone()), mask
+    elif wrong == "written_since":
+        mask[3] = ~mask[3]
+        rows, m = own, mask
+    elif wrong == "no_mask":
+        rows, m = own, None
+    else:
+        rows, m = own.rows, mask
+    with pytest.raises(ValueError, match="rows"):
+        dia_spmv(D.offsets, D.data, x, m, rows=rows)
+
+
+def test_dia_cached_row_lists_follow_their_masks():
+    """The adapter's cache holds one list per mask: the same mask finds its
+    list again, an in-place write to the mask rebuilds it, and past
+    ``MAX_ROW_LISTS`` masks the oldest list is dropped."""
+    from repro_torch.kernels.dia_spmv import MAX_ROW_LISTS, _cached_rows
+
+    cache = {}
+    masks = [_row_mask("random", seed=k) for k in range(MAX_ROW_LISTS + 1)]
+    first = _cached_rows(cache, masks[0])
+    assert _cached_rows(cache, masks[0]) is first
+    masks[0][: 10] = True
+    rebuilt = _cached_rows(cache, masks[0])
+    assert rebuilt is not first
+    np.testing.assert_array_equal(rebuilt.rows.numpy(), np.nonzero(masks[0].numpy())[0])
+    for m in masks[1:]:
+        _cached_rows(cache, m)
+    assert len(cache["rows"]) == MAX_ROW_LISTS
+    assert (masks[0].data_ptr(), masks[0].device, masks[0].numel()) not in cache["rows"]
+
+
+def test_dia_adapter_runs_plain_on_the_host_and_caches_nothing():
+    """On host tensors the DIA adapter is the plain version (masked too)
+    and leaves the container's cache empty: only a launch on the card
+    keeps its checked arrays there."""
+    from repro_torch.kernels.dia_spmv import dia_spmv_from_container
+
+    s = _mat(300, 280, 37, "banded")
+    D = tconv.from_dense(s, "dia", device="cpu")
+    x = torch.from_numpy(_x(280))
+    mask = torch.from_numpy(np.random.default_rng(38).random(300) < 0.5)
+    assert torch.equal(dia_spmv_from_container(D, x), dia_spmv_plain(D.offsets, D.data, x))
+    assert torch.equal(dia_spmv_from_container(D, x, mask),
+                       dia_spmv_plain(D.offsets, D.data, x, mask))
+    assert D.cache == {} and "cache" not in repr(D)
+
+
 # --------------------------------------------------- coo_spmv, scoo_spmv_tiled ----
 
 
@@ -938,6 +1098,197 @@ def test_dia_kernels_match_plain_on_card(cuda, shape, dtype):
     assert torch.equal(ym, torch.where(mask, y, torch.zeros((), dtype=y.dtype, device=cuda)))
 
 
+def _dia_arrays(n, m, ndiags, dtype, seed):
+    """Raw DIA arrays: ``ndiags`` distinct offsets, most near the main
+    diagonal and, from 3 on, two past both ends of the matrix (no row
+    reaches them); values everywhere, out-of-range positions included."""
+    rng = np.random.default_rng(seed)
+    near = rng.choice(np.arange(-70, 71), size=max(ndiags - 2, 1), replace=False)
+    far = np.array([-(n + 2), m + 2]) if ndiags >= 3 else np.array([], np.int64)
+    offsets = np.sort(np.concatenate([near, far])[:ndiags]).astype(np.int32)
+    assert len(np.unique(offsets)) == ndiags
+    data = rng.standard_normal((ndiags, n)).astype(np.float32)
+    return (torch.from_numpy(offsets),
+            torch.from_numpy(data).to(getattr(torch, dtype)))
+
+
+#: Row counts on both sides of the resident DIA kernel's switch from small
+#: CTAs to 256 threads (two CTAs per SM on 132 SMs: 67,329 rows), none a
+#: multiple of 32.
+DIA_ROWS = [1001, 20001, 67001, 70001]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndiags", [1, 7, 27, 33, 125])
+@pytest.mark.parametrize("n", DIA_ROWS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_resident_kernel_batches_on_card(cuda, ndiags, n, dtype):
+    """The resident DIA kernel with the 27-diagonal batch and batches of 8
+    with a short last one: equal to its plain version bit for bit in every
+    dtype (the same products in the same order, one rounding to the storage
+    dtype), with offsets past both ends and x longer or shorter than the
+    rows; equal bits over two launches; masked equal to ``where(mask, A @
+    x, 0)`` and to the masked plain version, over every row and over the
+    mask's row list alike."""
+    from repro_torch.kernels.dia_spmv import dia_row_list
+
+    m = n + 37 if n % 3 == 2 else n - 50
+    offsets, data = (t.to(cuda) for t in _dia_arrays(n, m, ndiags, dtype, n + ndiags))
+    x = torch.from_numpy(_x(m)).to(cuda)
+    mask = torch.from_numpy(np.random.default_rng(ndiags).random(n) < 0.3).to(cuda)
+    before = dia_spmv.launches
+    y = dia_spmv(offsets, data, x)
+    assert dia_spmv.launches == before + 1
+    assert torch.equal(y, dia_spmv_plain(offsets, data, x))
+    assert torch.equal(y, dia_spmv(offsets, data, x))
+    ym = dia_spmv(offsets, data, x, mask=mask)
+    assert torch.equal(ym, torch.where(mask, y, torch.zeros((), dtype=y.dtype, device=cuda)))
+    assert torch.equal(ym, dia_spmv_plain(offsets, data, x, mask))
+    rows = dia_row_list(mask)
+    assert torch.equal(dia_spmv(offsets, data, x, mask, rows=rows), ym)
+    assert torch.equal(dia_spmv(offsets, data, x, mask, rows=rows), ym)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [13, 26, 41])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_masked_symgs_colors_on_card(cuda, g, dtype):
+    """Every SymGS color of the 27-point stencil (the masks ``SymGS.build``
+    makes) through the dispatch entries: masked equal to ``where(mask, A @
+    x, 0)`` and to the plain version bit for bit, twice; the adapter checks
+    the container once, keeps one row list per mask from ``LIST_MIN_ROWS``
+    rows (41^3 = 68,921; rebuilt after an in-place write to the mask) and
+    none below, and counts each launch by rows and mask."""
+    from repro_torch.core import ExecutionPolicy, as_operator
+    from repro_torch.core import matrices as TM
+    from repro_torch.kernels.dia_spmv import LIST_MIN_ROWS
+    from repro_torch.solvers.symgs import SymGS
+
+    s = TM.fdm27(g, g, g)
+    n = s.shape[0]
+    D = tconv.from_dense(s, "dia", dtype=dtype, device=cuda)
+    masks = SymGS.build(s, operator=as_operator(D)).masks
+    assert masks.shape[0] == 8
+    pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False)
+    x = torch.from_numpy(_x(n)).to(cuda)
+    y = ops.dia_spmv_cuda(D, x, pol)
+    assert "resident" in D.cache
+    assert torch.equal(y, dia_spmv_plain(D.offsets, D.data, x))
+    before = dia_spmv.by_shape[(n, True)]
+    zero = torch.zeros((), dtype=y.dtype, device=cuda)
+    for mask in masks:
+        ym = ops.dia_masked_spmv_cuda(D, x, mask, pol)
+        assert torch.equal(ym, torch.where(mask, y, zero))
+        assert torch.equal(ym, dia_spmv_plain(D.offsets, D.data, x, mask))
+        assert torch.equal(ym, ops.dia_masked_spmv_cuda(D, x, mask, pol))
+    assert dia_spmv.by_shape[(n, True)] == before + 2 * len(masks)
+    assert len(D.cache.get("rows", ())) == (len(masks) if n >= LIST_MIN_ROWS else 0)
+    mask = masks[0].clone()
+    ops.dia_masked_spmv_cuda(D, x, mask, pol)
+    mask[: n // 2] = ~mask[: n // 2]  # written in place: the cached list is rebuilt
+    assert torch.equal(ops.dia_masked_spmv_cuda(D, x, mask, pol), torch.where(mask, y, zero))
+
+
+@pytest.mark.cuda
+def test_dia_adapter_checks_x_and_mask_on_every_call_on_card(cuda):
+    """After the first call has checked and kept the arrays, a mask of the
+    wrong shape or dtype, or an x on the host, still raises ``ValueError``
+    before any launch."""
+    from repro_torch.kernels.dia_spmv import dia_spmv_from_container
+
+    D = tconv.from_dense(_mat(500, 500, 39, "banded"), "dia", device=cuda)
+    x = torch.from_numpy(_x(500)).to(cuda)
+    y = dia_spmv_from_container(D, x)
+    before = dia_spmv.launches
+    for bad_x, bad_mask in ((x, torch.ones(499, dtype=torch.bool, device=cuda)),
+                            (x, torch.ones(500, dtype=torch.uint8, device=cuda)),
+                            (x.cpu(), None)):
+        with pytest.raises(ValueError):
+            dia_spmv_from_container(D, bad_x, bad_mask)
+    assert dia_spmv.launches == before
+    assert torch.equal(y, dia_spmv_from_container(D, x))
+
+
+def _ell_arrays(n, m, width, dtype, seed):
+    """Raw resident ELL arrays: each slot an id in [0, m) or a -1 pad
+    anywhere in the row (not packed left), values everywhere, pads
+    included."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, m, size=(n, width)).astype(np.int32)
+    idx[rng.random((n, width)) < 0.3] = -1
+    data = rng.standard_normal((n, width)).astype(np.float32)
+    return torch.from_numpy(idx), torch.from_numpy(data).to(getattr(torch, dtype))
+
+
+def _shifted(t, dev):
+    """A copy of ``t`` on ``dev`` that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 27, 33, 64])
+@pytest.mark.parametrize("n", [301, 1001, 40001])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ell_resident_kernel_on_card(cuda, width, n, dtype):
+    """The resident ELL wrapper runs the tiled kernel's case of one tile:
+    equal to its plain version bit for bit in every dtype (pad values never
+    added), with odd n x W, W above the 32 slots staged at a time, ids and
+    values that start off a 16-byte boundary, equal bits over two launches,
+    masked equal to ``where(mask, A @ x, 0)``; an index of other indices
+    raises ``ValueError``."""
+    m = 3 * n // 2 + 1
+    idx, data = (t.to(cuda) for t in _ell_arrays(n, m, width, dtype, n + width))
+    x = torch.from_numpy(_x(m)).to(cuda)
+    mask = torch.from_numpy(np.random.default_rng(width).random(n) < 0.5).to(cuda)
+    listed = ell_tile_index(idx.unsqueeze(0))
+    before = ell_spmv.launches
+    y = ell_spmv(idx, data, x, tile_index=listed)
+    assert ell_spmv.launches == before + 1
+    assert torch.equal(y, ell_spmv_plain(idx, data, x))
+    assert torch.equal(y, ell_spmv(idx, data, x, tile_index=listed))
+    assert torch.equal(y, ell_spmv(idx, data, x))  # the index built here
+    zero = torch.zeros((), dtype=y.dtype, device=cuda)
+    assert torch.equal(ell_spmv(idx, data, x, mask=mask, tile_index=listed),
+                       torch.where(mask, y, zero))
+    si, sd = _shifted(idx, cuda), _shifted(data, cuda)
+    assert torch.equal(ell_spmv(si, sd, x), y)
+    with pytest.raises(ValueError, match="tile_index"):
+        ell_spmv(si, sd, x, tile_index=listed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ell_resident_entry_on_the_stencil_on_card(cuda, dtype):
+    """Through dispatch on 26^3 (W = 27): the ELL entry caches the one-tile
+    index on the container once, equals the plain version, and the masked
+    entry equals ``where(mask, A @ x, 0)`` for every SymGS color."""
+    from repro_torch.core import ExecutionPolicy
+    from repro_torch.core import matrices as TM
+    from repro_torch.solvers.symgs import greedy_coloring
+
+    s = TM.fdm27(26, 26, 26)
+    n = s.shape[0]
+    E = tconv.from_dense(s, "ell", dtype=dtype, device=cuda)
+    pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False)
+    assert ops.cuda_strategy(E, pol) == "resident"
+    x = torch.from_numpy(_x(n)).to(cuda)
+    y = ops.ell_spmv_cuda(E, x, pol)
+    listed = E.cache["tile_index"]
+    assert torch.equal(y, ell_spmv_plain(E.indices, E.data, x))
+    assert ops.ell_spmv_cuda(E, x, pol) is not y and E.cache["tile_index"] is listed
+    colors = torch.from_numpy(greedy_coloring(s)).to(cuda)
+    zero = torch.zeros((), dtype=y.dtype, device=cuda)
+    for c in range(int(colors.max()) + 1):
+        mask = colors == c
+        assert torch.equal(ops.ell_masked_spmv_cuda(E, x, mask, pol),
+                           torch.where(mask, y, zero))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES + [(3000, 5000)])
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1007,17 +1358,17 @@ def test_ell_listed_kernel_on_card(cuda, col_tile, index_dtype, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ntiles,ct", [(2, 64), (1, 64)])
 def test_resident_ell_entry_refuses_tiles_on_card(cuda, ntiles, ct):
-    """``repro_ell_spmv`` keeps its signature but runs only the resident
-    arrays (one tile, global ids): a tile count or width raises instead of
-    launching."""
-    from repro_torch.kernels._build import library
-
-    E = tconv.from_dense(_mat(64, 64, 3), "ell", device=cuda)
-    x = torch.from_numpy(_x(64)).to(cuda)
-    y = torch.empty(64, device=cuda)
-    with pytest.raises(RuntimeError, match="repro_ell_spmv failed to launch"):
-        library().call("repro_ell_spmv", E.indices.data_ptr(), E.data.data_ptr(), x.data_ptr(),
-                       None, y.data_ptr(), 64, E.width, ntiles, ct, 0, 2, None)
+    """``ell_spmv`` runs only the resident arrays (one tile, global ids):
+    the tile index of an ``"ell-cols"`` plan (two tiles, or one of width
+    ``ct``) raises ``ValueError`` instead of launching."""
+    s = _mat(64, 64 * ntiles, 3)
+    E = tconv.from_dense(s, "ell", col_tile=ct, device=cuda)
+    assert E.plan.ntiles == ntiles
+    x = torch.from_numpy(_x(64 * ntiles)).to(cuda)
+    before = ell_spmv.launches
+    with pytest.raises(ValueError, match="tile_index"):
+        ell_spmv(E.indices, E.data, x, tile_index=ell_tile_index(E.plan.arrays[0]))
+    assert ell_spmv.launches == before
 
 
 @pytest.mark.cuda
@@ -1304,7 +1655,7 @@ def test_raising_cuda_kernel_on_card_does_not_fall_back(cuda, monkeypatch):
     def broken(*args, **kwargs):
         raise RuntimeError("kernel fault")
 
-    monkeypatch.setattr(ops, "dia_spmv", broken)
+    monkeypatch.setattr(ops, "dia_spmv_from_container", broken)
     A = as_operator(_mat(64, 64, 1, "banded"), "dia", device=cuda).using("cuda")
     with pytest.raises(KernelExecutionError):
         A @ torch.ones(64, device=cuda)
