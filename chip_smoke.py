@@ -22,15 +22,18 @@ Phases, one or more lines each, each ending with its seconds:
      (exact; its bound counts the in-range values of the color's rows, the
      x words they read, the mask and y; its yardstick is cuSPARSE on the
      color's rows with the others left empty),
-     ``dia_spmv_tiled`` on the finest level under ``max_resident_cols=1<<18``,
+     ``dia_spmv_tiled`` through its plan adapter on the finest level under
+     ``max_resident_cols=1<<18``,
      ``ell_spmv`` on 52^3 and 13^3 with its one-tile index built once, the
-     masked ELL wrapper (exact),
+     masked ELL wrapper on every 8th row of 52^3 (exact; its bound counts
+     the kept rows' id slots and real values, the x words they read, the
+     mask and y; its yardstick is cuSPARSE on the kept rows),
      ``ell_spmv_tiled``
      on the finest level's ``"ell-cols"`` plan with its tile index built
      once beforehand (its build seconds, pairs and the bytes the kernel
      stages are printed; the bound counts the real ids and values, x, y and
      the index, and ``bound_every_id_slot_ms`` keeps the bound that reads
-     every id slot), ``coo_spmv`` on 13^3 and
+     every id slot), ``coo_spmv`` through its container adapter on 13^3 and
      ``scoo_spmv_tiled`` on the finest level's ``"coo-cols"`` plan,
      ``scoo_spmv`` on the finest level's ``build_scoo`` layout (slices and
      blocks of 512; no dispatch path calls it, so its own path here is one
@@ -281,11 +284,11 @@ def phase_kernels(results: dict, block) -> tuple:
     from repro_torch.kernels import ops
     from repro_torch.kernels._launch import segment_starts
     from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_path, bsr_spmm_plain
-    from repro_torch.kernels.coo_spmv import (build_scoo, coo_spmv, coo_spmv_plain, scoo_spmv,
-                                              scoo_spmv_plain, scoo_spmv_tiled,
-                                              scoo_spmv_tiled_plain)
+    from repro_torch.kernels.coo_spmv import (build_scoo, coo_spmv_from_container,
+                                              coo_spmv_plain, scoo_spmv, scoo_spmv_plain,
+                                              scoo_spmv_tiled, scoo_spmv_tiled_plain)
     from repro_torch.kernels.dia_spmv import (dia_spmv_from_container, dia_spmv_plain,
-                                              dia_spmv_tiled, dia_spmv_tiled_plain)
+                                              dia_spmv_tiled_from_plan, dia_spmv_tiled_plain)
     from repro_torch.kernels.ell_spmv import (CHUNK_ROWS, ell_spmv, ell_spmv_plain,
                                               ell_spmv_tiled, ell_spmv_tiled_plain,
                                               ell_tile_index)
@@ -432,10 +435,9 @@ def phase_kernels(results: dict, block) -> tuple:
     check(ops.cuda_strategy(DT, tpol) == "tiled", "dia under the column limit is not tiled")
     offs_t, dat_w = DT.plan.arrays
     ct_d = DT.plan.ct
-    rng = (int(offs_t.min()), int(offs_t.max()))
     out["dia_spmv_tiled"] = measure(
         "dia_spmv_tiled", f"dia_spmv_tiled {GRID}^3", s, x,
-        lambda: dia_spmv_tiled(offs_t, dat_w, x, nrows=n, col_tile=ct_d, offset_range=rng),
+        lambda: dia_spmv_tiled_from_plan(DT.plan, x, n),
         lambda: dia_spmv_tiled_plain(offs_t, dat_w, x, nrows=n, col_tile=ct_d),
         nbytes(offs_t, dat_w, x) + n * 4, "dia_tiled_kernel", plain_reps=3, exact=True,
         grid=GRID, strategy="tiled", max_resident_cols=tpol.max_resident_cols, ct=ct_d,
@@ -461,10 +463,25 @@ def phase_kernels(results: dict, block) -> tuple:
     ym = ops.ell_masked_spmv_cuda(E, x52, mask52, pol)
     want = torch.where(mask52, ops.ell_spmv_cuda(E, x52, pol), torch.zeros((), device=dev))
     check(bool(torch.equal(ym, want)), "masked ELL != where(mask, A @ x, 0)")
-    results["ell_masked"] = phase(
-        f"kernel ell_masked {g}^3", exact=True,
-        ms=cuda_ms(lambda: ops.ell_masked_spmv_cuda(E, x52, mask52, pol), 50))
-    del E
+    # its bound: the kept rows' id slots and real values, the x words they
+    # read, the mask and y; its yardstick cuSPARSE on the kept rows alone
+    kept_ids = E.indices[mask52]
+    kept_real = kept_ids[kept_ids >= 0].long()
+    seen = torch.zeros(n52, dtype=torch.bool, device=dev)
+    seen[kept_real] = True
+    sm52 = sp.csr_matrix(sp.diags(mask52.cpu().numpy().astype(np.float64)) @ s52)
+    out["ell_spmv"]["masked"] = {k: v for k, v in measure(
+        "ell_masked", f"ell_spmv masked {g}^3 (every 8th row)", s52, x52,
+        lambda: ops.ell_masked_spmv_cuda(E, x52, mask52, pol),
+        lambda: ell_spmv_plain(E.indices, E.data, x52, mask52),
+        nbytes(kept_ids, x52[seen], mask52, *listed52[:2]) + kept_real.numel()
+        * E.data.element_size() + n52 * 4,
+        "ell_listed_kernel", exact=True, flops=2 * int(sm52.nnz),
+        library=csr_library(sm52, x52), kept_rows=int(mask52.sum()),
+        equals_where_of_unmasked=True).items() if k in (
+        "kept_rows", "ms", "kernel_ms", "plain_ms", "library_ms", "library_kernel_ms",
+        "bound_ms", "bound_by", "bytes")}
+    del E, kept_ids, kept_real, seen, sm52
 
     E = to_ell(s, device=dev)
     check(ops.cuda_strategy(E, ExecutionPolicy()) == "tiled", "ell 104^3 is not tiled")
@@ -520,14 +537,15 @@ def phase_kernels(results: dict, block) -> tuple:
     # COO: full window on 13^3, sliced on the finest level
     Co = to_coo(s13, device=dev)
     check(ops.cuda_strategy(Co, ExecutionPolicy()) == "resident", "coo 13^3 is not resident")
-    starts = segment_starts(Co.row, n13)
+    coo_spmv_from_container(Co, x13)  # checks Co and keeps its segment starts
+    starts = Co.cache["rows"].row_start
     out["coo_spmv"] = measure(
         "coo_spmv", f"coo_spmv {g}^3", s13, x13,
-        lambda: coo_spmv(Co.row, Co.col, Co.val, x13, nrows=n13, row_start=starts),
+        lambda: coo_spmv_from_container(Co, x13),
         lambda: coo_spmv_plain(Co.row, Co.col, Co.val, x13, nrows=n13),
         nbytes(starts, Co.col, Co.val, x13) + n13 * 4, "coo_rows_kernel", exact=True,
         grid=g, strategy="resident")
-    del Co
+    del Co, starts
 
     Co = to_coo(s, device=dev)
     check(ops.cuda_strategy(Co, ExecutionPolicy()) == "tiled", "coo 104^3 is not tiled")

@@ -1,7 +1,8 @@
 """What the wrapper A/B scripts share: the host time of one kernel's
 wrappers in two trees of the port, on the card, one process per tree.
 
-Used by ``examples/scs_wrapper_ab.py`` and ``examples/dia_wrapper_ab.py``.
+Used by ``examples/scs_wrapper_ab.py``, ``examples/dia_wrapper_ab.py`` and
+``examples/coo_wrapper_ab.py``.
 Each tree is the root of a checkout of this repo, for example an older
 commit unpacked with ``git archive`` under the gitignored ``build/``. Each
 tree runs in a process of its own, which imports that tree's
@@ -20,9 +21,10 @@ and reports:
   - ``kernel_ms``: the kernel's device time alone, from ``torch.profiler``.
 
 The kernels are the trees' own, so ``ms`` minus ``kernel_ms`` is the host
-share each tree's wrapper adds to ``ms``. Prints every round and then the
-median of each number per tree. Compare trees only within one run. Needs a
-CUDA card and nvcc.
+share each tree's wrapper adds to ``ms``. Prints every round and then, per
+tree, the median of each number with its lower and upper quartile over the
+rounds: a change shows where its quartiles and the other tree's do not
+overlap. Compare trees only within one run. Needs a CUDA card and nvcc.
 """
 import json
 import os
@@ -30,19 +32,22 @@ import subprocess
 import sys
 import time
 
-ROUNDS, CALLS, REPS = 10, 200, 50
+ROUNDS, CALLS, REPS = 20, 200, 50
 
 
 def serve(tree, make_calls, kernel):
     """Serve rounds for one tree: a line ``go`` on stdin runs one round and
     prints its times as one JSON line; end of input ends the process.
     ``make_calls(device)`` returns ``{label: fn}`` built with the tree's
-    ``repro_torch``; ``kernel`` is a part of the kernel's name."""
+    ``repro_torch``; ``kernel`` is a part of the kernel's name, or a tuple
+    of parts of the names of the kernels to count (a yardstick call's
+    too)."""
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    parts = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     calls = make_calls(torch.device("cuda"))
     for fn in calls.values():
         for _ in range(3):
@@ -71,7 +76,8 @@ def serve(tree, make_calls, kernel):
                     fn()
                 torch.cuda.synchronize()
             dev_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                         if e.device_type != DeviceType.CPU and kernel in e.key)
+                         if e.device_type != DeviceType.CPU
+                         and any(k in e.key for k in parts))
             out[label] = dict(call_us=call_us, ms=sorted(ms)[REPS // 2],
                               kernel_ms=dev_us / 20 / 1e3)
         print(json.dumps(out), flush=True)
@@ -111,10 +117,12 @@ def compare(script, old, new):
             p.stdin.close()
             p.wait(timeout=60)
     for tree, recs in runs.items():
+        n = len(recs)
         for label in recs[0]:
-            med = {k: sorted(r[label][k] for r in recs)[len(recs) // 2] for k in recs[0][label]}
-            print(f"{label} {tree}: median of {len(recs)} rounds: "
-                  + " ".join(f"{k}={v}" for k, v in med.items()))
+            q = {k: sorted(r[label][k] for r in recs) for k in recs[0][label]}
+            print(f"{label} {tree}: median [quartiles] of {n} rounds: "
+                  + " ".join(f"{k}={v[n // 2]} [{v[n // 4]}, {v[3 * n // 4]}]"
+                             for k, v in q.items()))
 
 
 def run(script, make_calls, kernel, doc):

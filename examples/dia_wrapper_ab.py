@@ -1,12 +1,14 @@
-"""Host time of the resident DIA wrapper (dia/cuda, masked too) in two
-trees of the port, on the card.
+"""Host time of the DIA wrappers (dia/cuda, masked too) in two trees of
+the port, on the card.
 
   python examples/dia_wrapper_ab.py OLD_TREE NEW_TREE
 
 Calls the dispatch entries ``ops.dia_spmv_cuda`` and
 ``ops.dia_masked_spmv_cuda`` (the mask of the first SymGS color, as
 ``SymGS.build`` makes it) on the dia containers of HPCG's 13^3 and 104^3
-levels, one process per tree, in alternating rounds;
+levels (the resident kernel) and on the 104^3 level under
+``max_resident_cols=1<<18`` (``104^3 tiled``: the tiled kernel on the
+``"dia-cols"`` plan), one process per tree, in alternating rounds;
 ``examples/_wrapper_ab.py`` says what each round reports. Needs a CUDA card
 and nvcc.
 """
@@ -34,8 +36,14 @@ def calls(dev):
         mask = torch.from_numpy(greedy_coloring(s) == 0).to(dev)
         out[f"{g}^3"] = lambda D=D, x=x: ops.dia_spmv_cuda(D, x, pol)
         out[f"{g}^3 masked"] = lambda D=D, x=x, m=mask: ops.dia_masked_spmv_cuda(D, x, m, pol)
+    tpol = ExecutionPolicy(backends=("cuda",), allow_fallback=False,
+                           max_resident_cols=1 << 18)
+    DT = to_dia(s, col_tile=tpol.col_tile(n), device=dev)
+    assert ops.cuda_strategy(DT, tpol) == "tiled"
+    out["104^3 tiled"] = lambda: ops.dia_spmv_cuda(DT, x, tpol)
+    out["104^3 tiled masked"] = lambda: ops.dia_masked_spmv_cuda(DT, x, mask, tpol)
     return out
 
 
 if __name__ == "__main__":
-    run(__file__, calls, "dia_resident", __doc__)
+    run(__file__, calls, "dia_", __doc__)

@@ -109,9 +109,9 @@ class KernelPlan:
     ``"ell-cols"``, ``"dia-cols"``, ``"coo-cols"``, ``"scs"``.
     ``meta[0]`` is always the column-tile width ``ct``.
 
-    ``cache`` holds tensors a kernel derives from the plan once (the SCS
-    window run boundaries, the DIA plan's offset range, the ELL plan's tile
-    index); it is not part of the plan's value.
+    ``cache`` holds what a kernel derives from the plan once (the SCS
+    window run boundaries, the DIA plan's checked arrays and offset range,
+    the ELL plan's tile index); it is not part of the plan's value.
     """
 
     kind: str
@@ -188,7 +188,8 @@ class COO(_Container):
     (row=nrows, col=0, val=0).
 
     ``cache`` holds what the full-window kernel derives from the container
-    once (the row segment starts), as ``KernelPlan.cache`` does for a plan;
+    once (its checked arrays and row segment starts), as
+    ``KernelPlan.cache`` does for a plan;
     it is not part of the value, and ``to`` starts a new one.
     """
 

@@ -13,12 +13,35 @@
 // entries in 59,044 blocks of 512, int16 ids, f32 values) is about 312 MB
 // with sid, ctile, x and y: 93 us.
 //
-// Design (full window). The TPU kernel contracts each tile of entries with
-// a one-hot matrix over every row of y, which lives in VMEM. Here the rows
-// are sorted, so each row's entries are one segment; the wrapper finds the
-// segment starts once per container (a device searchsorted, cached) and
-// one thread per row sums its segment in entry order. No float atomics, and
-// the order is that of the plain PyTorch version, so f32 results are equal.
+// Design (full window, coo_rows_kernel). The TPU kernel contracts each tile
+// of entries with a one-hot matrix over every row of y, which lives in
+// VMEM. Here the rows are sorted, so each row's entries are one segment;
+// the wrapper finds the segment starts once per container (a device
+// searchsorted, cached with the container's checks) and one thread per row
+// sums its segment in entry order. No float atomics, and the order is that
+// of the plain PyTorch version, so f32 results are equal.
+//  - A CTA's rows own one contiguous entry range, [row_start[r0],
+//    row_start[r0 + T]). The CTA stages it through shared memory in passes
+//    of kStage (2,048) entries: each thread takes 4 consecutive entries at
+//    a time (16-byte loads of the columns, and of the values by their
+//    width, where the arrays are aligned), kGroups (8) such groups a step,
+//    every load of a step issued before its x gathers and every gather
+//    before the products; it stores the products (__fmul_rn) in the stage.
+//    A CTA has at most kStage / (kPerLane * kGroups) = 64 threads, so that
+//    a step stages at most one pass and HPCG's 13^3 level (23 entries a
+//    row) stages a CTA's range in one step. A column outside x stores +0,
+//    which adds nothing: a sum that starts at +0 is never -0.
+//  - After a barrier each thread adds its own segment's products from the
+//    stage in entry order (__fadd_rn); a row longer than a pass goes on
+//    in the next one.
+//  - Small grids take small CTAs, as the resident DIA kernel does: HPCG's
+//    13^3 level runs 69 CTAs of one warp, and so does every grid of up to
+//    8,447 rows (the default max_onehot_rows is 8,192).
+//  - Measured on HPCG's 13^3 level (examples/coo_kernel_ab.py, device
+//    time, H100 80GB HBM3 at 700 W; PERF.md): one thread per row summing
+//    its segment from device memory, 0.00455 ms; this design 0.00366 with
+//    4 groups a step in every CTA (a one-warp CTA's range then takes two
+//    steps), 0.00341-0.00343 with 8.
 // Sentinel entries (row == nrows) lie past the last segment and are never
 // read.
 //
@@ -66,7 +89,6 @@
 
 namespace repro {
 
-constexpr int kCooThreads = 256;
 constexpr int kMaxSliceWarps = 8;      // warps (shares) per slice at most
 constexpr int kPerLane = 4;            // consecutive entries of one lane
 constexpr int kStep = 32 * kPerLane;   // entries of one warp step
@@ -78,22 +100,6 @@ constexpr unsigned kFull = 0xffffffffu;
 inline int slice_warps(int slice_rows) {
   const int fit = kWindowBytes / (slice_rows * static_cast<int>(sizeof(float)));
   return fit < kMaxSliceWarps ? fit : kMaxSliceWarps;
-}
-
-template <typename T>
-__global__ void coo_rows_kernel(const int32_t* __restrict__ row_start,
-                                const int32_t* __restrict__ col,
-                                const T* __restrict__ val,
-                                const float* __restrict__ x, T* __restrict__ y,
-                                int64_t nrows, int64_t ncols) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= nrows) return;
-  float acc = 0.f;
-  for (int64_t e = row_start[i]; e < row_start[i + 1]; ++e) {
-    const int32_t c = col[e];
-    if (c >= 0 && c < ncols) acc = mul_add_rn(acc, to_f32(val[e]), x[c]);
-  }
-  y[i] = from_f32<T>(acc);
 }
 
 // The runs that end at one entry slot of a warp step whose rows may recur (a
@@ -122,6 +128,81 @@ __device__ __forceinline__ void load_vec(const E* __restrict__ p, E (&out)[kPerL
   using R = typename RawVec<kPerLane * sizeof(E)>::type;
   const R raw = __ldg(reinterpret_cast<const R*>(p));
   memcpy(out, &raw, sizeof(R));
+}
+
+constexpr int kStage = 2048;  // products a CTA stages in one pass (8 KB)
+constexpr int kGroups = 8;    // groups of kPerLane entries a thread takes a step
+constexpr int kMaxRowsCta = kStage / (kPerLane * kGroups);  // threads a CTA at most
+
+template <typename T>
+__global__ void coo_rows_kernel(const int32_t* __restrict__ row_start,
+                                const int32_t* __restrict__ col,
+                                const T* __restrict__ val,
+                                const float* __restrict__ x, T* __restrict__ y,
+                                int64_t nrows, int64_t ncols, bool vec) {
+  __shared__ __align__(16) float s_prod[kStage];
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+  const int64_t i = first + threadIdx.x;
+  const int64_t c0 = row_start[first];
+  const int64_t end = first + blockDim.x < nrows ? first + blockDim.x : nrows;
+  const int64_t c1 = row_start[end];
+  int64_t s = 0, e = 0;
+  if (i < nrows) {
+    s = row_start[i];
+    e = row_start[i + 1];
+  }
+  float acc = 0.f;
+  // passes start on a multiple of kPerLane; the up to 3 entries before c0
+  // that the first one stages belong to earlier rows and are not added
+  const int64_t base = c0 & ~static_cast<int64_t>(kPerLane - 1);
+  for (int64_t cb = base; cb < c1; cb += kStage) {
+    const int64_t ce = cb + kStage < c1 ? cb + kStage : c1;
+    if (cb != base) __syncthreads();
+    const int64_t step = static_cast<int64_t>(kPerLane) * kGroups * blockDim.x;
+    for (int64_t g0 = cb + kPerLane * threadIdx.x; g0 < ce; g0 += step) {
+      int32_t c[kGroups][kPerLane];
+      T v[kGroups][kPerLane];
+      float xv[kGroups][kPerLane];
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) {
+        const int64_t g = g0 + static_cast<int64_t>(q) * kPerLane * blockDim.x;
+        if (vec && g + kPerLane <= ce) {
+          load_vec(col + g, c[q]);
+          load_vec(val + g, v[q]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < kPerLane; ++u) {
+            c[q][u] = -1;
+            if (g + u < ce) {
+              c[q][u] = col[g + u];
+              v[q][u] = val[g + u];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q)
+#pragma unroll
+        for (int u = 0; u < kPerLane; ++u)
+          xv[q][u] = c[q][u] >= 0 && c[q][u] < ncols ? __ldg(x + c[q][u]) : 0.f;
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) {
+        const int64_t g = g0 + static_cast<int64_t>(q) * kPerLane * blockDim.x;
+        if (g >= ce) break;
+        float pr[kPerLane];
+#pragma unroll
+        for (int u = 0; u < kPerLane; ++u)
+          pr[u] = c[q][u] >= 0 && c[q][u] < ncols ? __fmul_rn(to_f32(v[q][u]), xv[q][u])
+                                                  : 0.f;
+        *reinterpret_cast<float4*>(s_prod + (g - cb)) =
+            make_float4(pr[0], pr[1], pr[2], pr[3]);
+      }
+    }
+    __syncthreads();
+    const int64_t k1 = e < ce ? e : ce;
+    for (int64_t k = s > cb ? s : cb; k < k1; ++k) acc = __fadd_rn(acc, s_prod[k - cb]);
+  }
+  if (i < nrows) y[i] = from_f32<T>(acc);
 }
 
 // The block of the entry at offset o of a slice's run (32-bit division
@@ -289,20 +370,23 @@ scoo_tiled_kernel(const int32_t* __restrict__ row, const I* __restrict__ col,
   }
 }
 
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 template <typename T>
 cudaError_t launch_coo(const void* row_start, const void* col, const void* val,
                        const void* x, void* y, int64_t nrows, int64_t ncols,
                        cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((nrows + kCooThreads - 1) / kCooThreads);
-  coo_rows_kernel<T><<<blocks, kCooThreads, 0, stream>>>(
+  const int spread = spread_threads(nrows);
+  const int threads = spread < kMaxRowsCta ? spread : kMaxRowsCta;
+  const unsigned blocks = static_cast<unsigned>((nrows + threads - 1) / threads);
+  const bool vec = aligned(col, kPerLane * sizeof(int32_t)) && aligned(val, kPerLane * sizeof(T));
+  coo_rows_kernel<T><<<blocks, threads, 0, stream>>>(
       static_cast<const int32_t*>(row_start), static_cast<const int32_t*>(col),
       static_cast<const T*>(val), static_cast<const float*>(x), static_cast<T*>(y),
-      nrows, ncols);
+      nrows, ncols, vec);
   return cudaGetLastError();
-}
-
-inline bool aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename T, typename I>

@@ -41,16 +41,47 @@
 //    65,536 rows (PERF.md, PR 16: 15-20% faster at 52^3 and 104^3, 1-4%
 //    slower at 26^3 and 13^3).
 //
-// Design (tiled): the TPU grid visits every (row block, column tile) pair and
-// carries partial y across the sequential tile axis. Here each thread owns
-// one row and loops, in ascending tile order, over only the tiles its band
-// can reach, [(i + min_off) / ct, (i + max_off) / ct]; within a tile it sums
-// the tile's diagonal slots into acc_t and then adds acc_t to y — the
-// reference's association. x is read directly; no haloed copies are built.
+// Design (tiled, dia_tiled_kernel). The TPU grid visits every (row block,
+// column tile) pair and carries partial y across the sequential tile axis.
+// Here one thread owns one row and walks, in ascending tile order, the
+// tiles its warp's active rows can reach, [(i + min_off) / ct, (i +
+// max_off) / ct]; in each it sums the tile's slots into acc_t in slot order
+// and then adds acc_t to y (__fadd_rn): the reference's association. x is
+// read directly; no haloed copies are built. A slot is added for row i
+// when its window position p = i + off - t * ct lies in [0, min(ct, ncols
+// - t * ct)); a slot out of range is skipped, not added as 0.
+//  - A row needs only 27 of the ~63 slots of the 2-3 tiles it reaches
+//    (HPCG 104^3 under 1 << 18 columns: ct = 16,384, 69 tiles, max_d 27, a
+//    band of +-10,921; a tile holds 9 or 18 of a row's diagonals). So per
+//    tile the warp first votes which slots any of its rows needs (lane l
+//    tests slot l against the warp's row range), and each lane then loads
+//    the needed slots in batches of 9, every in-range load of a batch
+//    before its first add: three batches a row.
+//  - A warp whose rows the mask all drops does nothing but write 0.
+//  - The offsets of the tiles a CTA reaches go into shared memory once (at
+//    most 3 tiles for 256 rows at 104^3); where they exceed 48 KB the CTA
+//    takes its tiles in groups that fit.
+//  - Windows that exceed half of L2 are read with __ldcs, as the resident
+//    kernel's values, and small grids take small CTAs.
+//  - What registers allow sets the pace (examples/dia_kernel_ab.py at
+//    104^3, device time, H100 80GB HBM3 at 700 W; PERF.md): a batch of all
+//    27 slots a tile, fully unrolled, each behind its own predicate, took
+//    139 registers (one CTA of 256 an SM) and 0.330 ms, 3.3x the loop it
+//    replaced (0.099); with the next tile's loads issued before the current
+//    tile's adds 0.197, with a warp skipping slots none of its lanes needs
+//    0.193. With the vote: batches of 8 (46 registers) 0.063, 9 (48)
+//    0.0599, 12 (54) 0.0645, 16 (64) 0.0664, 32 (96) 0.102; asking L2 for
+//    every tile's values first, 0.090; one walk of batches across tiles,
+//    0.097-0.17; batches of 9 under 40 registers, 0.0571.
+// The bound is the resident kernel's: the plan's windows hold each stored
+// value once (plus the slots that pad a tile to max_d), read once.
 //
 // Both kernels accumulate in f32 with separately rounded multiply and add
 // (common.cuh: mul_add_rn), in the order of the plain PyTorch versions in
 // kernels/dia_spmv.py, and write y in the storage type.
+
+#include <algorithm>
+#include <cstdlib>
 
 #include "common.cuh"
 
@@ -127,66 +158,116 @@ __device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-template <typename T>
-__global__ void dia_tiled_kernel(const int32_t* __restrict__ offs_t,
+// floor(a / ct), the tile of column a, clamped to the tiles [0, ntiles).
+__device__ __forceinline__ int tile_of(int64_t a, int ct, int ntiles) {
+  const int64_t t = floor_div(a, ct);
+  return t < 0 ? 0 : (t >= ntiles ? ntiles - 1 : static_cast<int>(t));
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// The slots [c0, c0 + 32) of a tile that any of the warp's rows [r_lo,
+// r_hi] needs, one bit each: lane l tests slot c0 + l. so: the tile's
+// offsets; t_ct = t * ct; lim = min(ct, ncols - t * ct). Slot d is in
+// range for row r when r + off_d - t_ct lies in [0, lim).
+__device__ __forceinline__ unsigned needed_slots(const int32_t* so, int c0, int max_d,
+                                                 int lane, int t_ct, int lim, int r_lo,
+                                                 int r_hi) {
+  bool need = false;
+  if (c0 + lane < max_d) {
+    const int q = so[c0 + lane] - t_ct;
+    need = r_hi + q >= 0 && r_lo + q < lim;
+  }
+  return __ballot_sync(kFull, need);
+}
+
+// One row's products of tile t added to acc in ascending slot order: the
+// lane takes the slots the warp needs in batches of B, every in-range load
+// of a batch before its first add.
+template <typename T, int B, bool kStream>
+__device__ __forceinline__ float tile_sum(const int32_t* so, const T* __restrict__ dat_w,
+                                          const float* __restrict__ x, int64_t base,
+                                          int max_d, int ct, int i, int p0, int lim,
+                                          int r_lo, int r_hi, int t_ct, bool active,
+                                          int lane) {
+  float acc = 0.f;
+  for (int c0 = 0; c0 < max_d; c0 += 32) {
+    unsigned bits = needed_slots(so, c0, max_d, lane, t_ct, lim, r_lo, r_hi);
+    while (bits != 0) {
+      float v[B], xv[B];
+      unsigned in = 0;
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        v[u] = xv[u] = 0.f;
+        if (bits != 0) {
+          const int d = c0 + __ffs(bits) - 1;
+          bits &= bits - 1;
+          const int off = so[d];
+          const int p = p0 + off;
+          if (active && static_cast<unsigned>(p) < static_cast<unsigned>(lim)) {
+            in |= 1u << u;
+            const T* q = dat_w + base + (d * ct + p);
+            v[u] = to_f32(kStream ? __ldcs(q) : *q);
+            xv[u] = __ldg(x + (i + off));
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < B; ++u)
+        if (in & (1u << u)) acc = mul_add_rn(acc, v[u], xv[u]);
+    }
+  }
+  return acc;
+}
+
+// At most 40 registers a thread, six CTAs of 256 an SM: 4% faster at 104^3
+// than the 48 it takes uncapped (16 bytes spill; at 32, 7% slower).
+template <typename T, int B, bool kStream>
+__global__ void __launch_bounds__(256, 6) dia_tiled_kernel(const int32_t* __restrict__ offs_t,
                                  const T* __restrict__ dat_w,
                                  const float* __restrict__ x,
                                  const uint8_t* __restrict__ mask,
-                                 T* __restrict__ y, int ntiles, int max_d,
-                                 int64_t ct, int64_t nrows, int64_t ncols,
-                                 int64_t min_off, int64_t max_off) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= nrows) return;
+                                 T* __restrict__ y, int ntiles, int max_d, int group,
+                                 int ct, int nrows, int ncols, int min_off, int max_off) {
+  extern __shared__ int32_t s_off[];
+  const int first = blockIdx.x * blockDim.x;
+  const int i = first + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool active = i < nrows && (mask == nullptr || mask[i]);
+  // the warp's first and last active rows, and the tiles they reach
+  const unsigned act = __ballot_sync(kFull, active);
+  const int w0 = i - lane;
+  const int r_lo = w0 + __ffs(act) - 1, r_hi = w0 + 31 - __clz(act);
+  const int w_lo = tile_of(int64_t{r_lo} + min_off, ct, ntiles);
+  const int w_hi = act == 0 ? -1 : tile_of(int64_t{r_hi} + max_off, ct, ntiles);
+  // the tiles the CTA's rows reach
+  const int last = min(first + static_cast<int>(blockDim.x), nrows) - 1;
+  const int c_lo = tile_of(int64_t{first} + min_off, ct, ntiles);
+  const int c_hi = tile_of(int64_t{last} + max_off, ct, ntiles);
   float y_acc = 0.f;
-  if (mask == nullptr || mask[i]) {
-    int64_t t_lo = floor_div(i + min_off, ct);
-    int64_t t_hi = floor_div(i + max_off, ct);
-    if (t_lo < 0) t_lo = 0;
-    if (t_hi > ntiles - 1) t_hi = ntiles - 1;
-    for (int64_t t = t_lo; t <= t_hi; ++t) {
-      float acc = 0.f;
-      const int32_t* offs = offs_t + t * max_d;
-      const T* win = dat_w + t * max_d * ct;
-      for (int d = 0; d < max_d; ++d) {
-        const int64_t col = i + offs[d];
-        const int64_t p = col - t * ct;  // position in the tile's window
-        if (p >= 0 && p < ct && col < ncols)
-          acc = mul_add_rn(acc, to_f32(win[static_cast<int64_t>(d) * ct + p]), x[col]);
-      }
+  for (int g0 = c_lo; g0 <= c_hi; g0 += group) {  // tiles whose offsets fit at once
+    const int g1 = min(g0 + group, c_hi + 1);
+    if (g0 != c_lo) __syncthreads();
+    const int n = (g1 - g0) * max_d;
+    const int32_t* src = offs_t + static_cast<int64_t>(g0) * max_d;
+    for (int k = threadIdx.x; k < n; k += blockDim.x) s_off[k] = src[k];
+    __syncthreads();
+    const int t0 = max(w_lo, g0), t1 = min(w_hi, g1 - 1);
+    for (int t = t0; t <= t1; ++t) {
+      const int t_ct = t * ct;
+      const float acc = tile_sum<T, B, kStream>(
+          s_off + (t - g0) * max_d, dat_w, x, static_cast<int64_t>(t) * max_d * ct, max_d, ct,
+          i, i - t_ct, max(0, min(ct, ncols - t_ct)), r_lo, r_hi, t_ct, active, lane);
       y_acc = __fadd_rn(y_acc, acc);
     }
   }
-  y[i] = from_f32<T>(y_acc);
+  if (i < nrows) y[i] = from_f32<T>(y_acc);
 }
 
-constexpr int kThreads = 256;
 constexpr int kStencilDiags = 27;  // one fully unrolled batch
 constexpr int kBatch = 8;          // the batch of every other count
-
-// The card's SMs and L2 bytes, read once.
-struct Card {
-  int sms = 132;
-  int64_t l2 = 50 << 20;
-  Card() {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess && n > 0)
-      sms = n;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrL2CacheSize, dev) == cudaSuccess && n > 0) l2 = n;
-  }
-};
-inline const Card& card() {
-  static const Card c;
-  return c;
-}
-
-// Threads per CTA of the resident kernel: 256 when the grid then has at
-// least two CTAs per SM, else halved down to one warp.
-inline int resident_threads(int64_t nrows) {
-  int threads = kThreads;
-  while (threads > 32 && (nrows + threads - 1) / threads < 2 * card().sms) threads /= 2;
-  return threads;
-}
+constexpr int kOffsetInts = 12288;  // 48 KB of tile offsets a CTA holds at once
+constexpr int kTiledBatch = 9;      // needed slots of a tile a lane loads at once
 
 template <typename T, bool kStream>
 auto resident_kernel(int ndiags) {
@@ -198,7 +279,7 @@ template <typename T>
 cudaError_t launch_resident(const void* offsets, const void* data, const void* x,
                             const void* mask, const void* rows, int64_t nlist, void* y,
                             int ndiags, int64_t nrows, int64_t ncols, cudaStream_t stream) {
-  const int threads = resident_threads(nrows);
+  const int threads = spread_threads(nrows);
   const unsigned blocks = static_cast<unsigned>((nrows + threads - 1) / threads);
   const size_t smem = static_cast<size_t>(ndiags) * sizeof(int32_t);
   // values that cannot stay in L2 between calls (HPCG 104^3: 121 MB) are
@@ -218,11 +299,25 @@ cudaError_t launch_tiled(const void* offs_t, const void* dat_w, const void* x,
                          const void* mask, void* y, int ntiles, int max_d,
                          int64_t ct, int64_t nrows, int64_t ncols, int64_t min_off,
                          int64_t max_off, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((nrows + kThreads - 1) / kThreads);
-  dia_tiled_kernel<T><<<blocks, kThreads, 0, stream>>>(
+  // rows, columns, the band and positions in 32 bits
+  const int64_t band = std::max(std::abs(min_off), std::abs(max_off));
+  if (max_d <= 0 || max_d > kOffsetInts || ntiles <= 0 || ct <= 0 || min_off > max_off ||
+      std::max({nrows, ncols, ct * ntiles, ct * max_d}) + band + ct >= INT32_MAX)
+    return cudaErrorInvalidValue;
+  const int threads = spread_threads(nrows);
+  const unsigned blocks = static_cast<unsigned>((nrows + threads - 1) / threads);
+  const int64_t reach = (threads - 1 + max_off - min_off) / ct + 2;  // tiles a CTA reaches
+  const int group = static_cast<int>(std::min<int64_t>(reach, kOffsetInts / max_d));
+  const size_t smem = static_cast<size_t>(group) * max_d * sizeof(int32_t);
+  // windows that cannot stay in L2 between calls are streamed past it
+  const int64_t bytes = static_cast<int64_t>(ntiles) * max_d * ct * sizeof(T);
+  auto kernel = bytes > card().l2 / 2 ? dia_tiled_kernel<T, kTiledBatch, true>
+                                      : dia_tiled_kernel<T, kTiledBatch, false>;
+  kernel<<<blocks, threads, smem, stream>>>(
       static_cast<const int32_t*>(offs_t), static_cast<const T*>(dat_w),
-      static_cast<const float*>(x), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(y), ntiles, max_d, ct, nrows, ncols, min_off, max_off);
+      static_cast<const float*>(x), static_cast<const uint8_t*>(mask), static_cast<T*>(y),
+      ntiles, max_d, group, static_cast<int>(ct), static_cast<int>(nrows),
+      static_cast<int>(ncols), static_cast<int>(min_off), static_cast<int>(max_off));
   return cudaGetLastError();
 }
 

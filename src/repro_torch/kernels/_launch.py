@@ -20,6 +20,17 @@ def check_cuda_operands(name: str, *tensors) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
+def checked_x(name: str, x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` in f32, once it has been checked to be a contiguous vector on
+    ``device``, the device of the operands a cached record checked."""
+    if x.dtype is not torch.float32:
+        x = x.float()
+    if x.device != device or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"{name}: operands must lie on one CUDA device, and x must be "
+                         f"a contiguous vector on {device}, got {x.device}")
+    return x
+
+
 def value_code(name: str, dtype: torch.dtype) -> int:
     code = VALUE_CODES.get(str(dtype).replace("torch.", ""))
     if code is None:

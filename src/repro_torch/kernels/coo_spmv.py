@@ -19,15 +19,21 @@ warps of one CTA and combine same-row products with a warp scan and the
 warps' windows in warp order, so they agree with their plain versions to
 rounding. int8/int16 tile-local ids give the int32 result bit for bit.
 
+The dispatch table calls :func:`coo_spmv_from_container` for the full
+window, which checks a container's arrays once and keeps them, with their
+segment starts, in its ``cache``.
+
 ``launches`` on each wrapper counts the kernel launches of this process.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import numpy as np
 import torch
 
-from ._launch import (check_cuda_operands, current_stream, index_code, segment_starts,
-                      value_code)
+from ._launch import (check_cuda_operands, checked_x, current_stream, index_code,
+                      segment_starts, value_code)
 
 #: Slice rows the sliced kernel holds in shared memory: one window of f32
 #: per warp of the slice's CTA, eight warps up to 1536 rows and four at
@@ -51,32 +57,77 @@ def coo_spmv_plain(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     return acc.to(val.dtype)
 
 
-def coo_spmv(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor, x: torch.Tensor,
-             nrows: int, row_start=None) -> torch.Tensor:
-    """y = A @ x for row-sorted COO arrays (``row``/``col`` int32, tail
-    sentinels ``row == nrows`` dropped). ``row_start`` is the cached
-    :func:`segment_starts` of ``row`` (computed here when omitted)."""
-    if val.device.type == "cpu":
-        return coo_spmv_plain(row, col, val, x, nrows)
+class _Rows(NamedTuple):
+    """What the first full-window launch on a set of COO arrays checked and
+    keeps: the arrays and their segment starts, their addresses, the row
+    count, the value code and the library's entry."""
+
+    row_start: torch.Tensor
+    col: torch.Tensor
+    val: torch.Tensor
+    ptrs: Tuple[int, int, int]
+    nrows: int
+    code: int
+    device: torch.device
+    lib: object
+    entry: object
+
+
+def _rows(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor, nrows: int) -> _Rows:
+    """Check row-sorted COO arrays on the card in full (raise on what the
+    kernel does not take), find their segment starts and keep what the
+    launches need."""
     for name, t in (("row", row), ("col", col)):
         if t.dtype is not torch.int32 or t.shape != val.shape:
             raise ValueError(f"coo_spmv: {name} must be int32 of shape {tuple(val.shape)}")
-    if row_start is None:
-        row_start = segment_starts(row, nrows)
-    x = x.to(torch.float32)
-    check_cuda_operands("coo_spmv", row_start, col, val, x)
+    check_cuda_operands("coo_spmv", row, col, val)
+    row_start = segment_starts(row, nrows)
     code = value_code("coo_spmv", val.dtype)
-    y = torch.empty(nrows, dtype=val.dtype, device=val.device)
     from ._build import library
 
-    library().call("repro_coo_spmv", row_start.data_ptr(), col.data_ptr(), val.data_ptr(),
-                   x.data_ptr(), y.data_ptr(), nrows, x.shape[0], code,
-                   current_stream(val.device))
+    lib = library()
+    return _Rows(row_start, col, val, (row_start.data_ptr(), col.data_ptr(), val.data_ptr()),
+                 nrows, code, val.device, lib, lib.lib.repro_coo_spmv)
+
+
+def _launch_rows(r: _Rows, x: torch.Tensor) -> torch.Tensor:
+    """The full-window launch on the checked record ``r``; ``x`` is checked
+    here."""
+    x = checked_x("coo_spmv", x, r.device)
+    dev = r.device
+    y = torch.empty(r.nrows, dtype=r.val.dtype, device=dev)
+    code = r.entry(r.ptrs[0], r.ptrs[1], r.ptrs[2], x.data_ptr(), y.data_ptr(), r.nrows,
+                   x.shape[0], r.code, current_stream(dev))
+    r.lib.check("repro_coo_spmv", code)
     coo_spmv.launches += 1
     return y
 
 
+def coo_spmv(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor, x: torch.Tensor,
+             nrows: int) -> torch.Tensor:
+    """y = A @ x for row-sorted COO arrays (``row``/``col`` int32, tail
+    sentinels ``row == nrows`` dropped). Checks the arrays and finds their
+    segment starts on every call; :func:`coo_spmv_from_container` does so
+    once."""
+    if val.device.type == "cpu":
+        return coo_spmv_plain(row, col, val, x, nrows)
+    return _launch_rows(_rows(row, col, val, nrows), x)
+
+
 coo_spmv.launches = 0
+
+
+def coo_spmv_from_container(A, x: torch.Tensor) -> torch.Tensor:
+    """Dispatch-table adapter: :func:`coo_spmv` on a COO container. The
+    first call on the card checks ``A``'s arrays in full, finds their
+    segment starts and keeps both in ``A.cache``; later calls check only
+    ``x``."""
+    r = A.cache.get("rows")
+    if r is None:
+        if A.val.device.type == "cpu":
+            return coo_spmv_plain(A.row, A.col, A.val, x, A.shape[0])
+        r = A.cache["rows"] = _rows(A.row, A.col, A.val, A.shape[0])
+    return _launch_rows(r, x)
 
 
 def scoo_spmv_tiled_plain(row, col, val, sid, ctile, x, *, nrows: int, col_tile: int,

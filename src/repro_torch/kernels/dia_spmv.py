@@ -9,7 +9,9 @@ and the byte bound.
 The dispatch table calls :func:`dia_spmv_from_container`, which checks a
 container's arrays once and keeps the result in its ``cache``, and gives a
 masked call on many rows the list of the mask's rows (:func:`dia_row_list`,
-cached too), so that the kernel's warps run only rows the mask keeps.
+cached too), so that the kernel's warps run only rows the mask keeps; and,
+on the ``"dia-cols"`` plan, :func:`dia_spmv_tiled_from_plan`, which checks
+the plan once and keeps it, with its offset range, in ``plan.cache``.
 
 Each wrapper runs its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (or raises): there is no fallback from
@@ -28,7 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ._launch import check_cuda_operands, current_stream, value_code
+from ._launch import check_cuda_operands, checked_x, current_stream, value_code
 
 #: Shared memory holds the offsets: 48 KB of int32 without opting in to more.
 MAX_RESIDENT_DIAGS = 12288
@@ -142,14 +144,11 @@ def _resident(offsets: torch.Tensor, data: torch.Tensor) -> _Resident:
                      lib.lib.repro_dia_spmv_listed)
 
 
-def _checked_x(r: _Resident, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _checked_x(r: _Resident | _Tiled, x: torch.Tensor,
+               mask: Optional[torch.Tensor]) -> torch.Tensor:
     """``x`` in f32, once it and ``mask`` have been checked against ``r``."""
-    if x.dtype is not torch.float32:
-        x = x.float()
+    x = checked_x("dia_spmv", x, r.device)
     dev = r.device
-    if x.device != dev or x.dim() != 1 or not x.is_contiguous():
-        raise ValueError(f"dia_spmv: operands must lie on one CUDA device, and x must be "
-                         f"a contiguous vector on {dev}, got {x.device}")
     if mask is not None and (mask.dtype is not torch.bool or mask.shape != (r.nrows,)
                              or mask.device != dev or not mask.is_contiguous()):
         raise ValueError(f"dia_spmv: mask must be a contiguous bool tensor of shape "
@@ -218,10 +217,6 @@ def dia_spmv_from_container(A, x: torch.Tensor,
     return _launch(r, x, mask, rows)
 
 
-def _offset_range(offs_t: torch.Tensor) -> Tuple[int, int]:
-    return int(offs_t.min()), int(offs_t.max())
-
-
 def dia_spmv_tiled_plain(offs_t: torch.Tensor, dat_w: torch.Tensor, x: torch.Tensor,
                          nrows: int, col_tile: int,
                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -255,34 +250,88 @@ def dia_spmv_tiled_plain(offs_t: torch.Tensor, dat_w: torch.Tensor, x: torch.Ten
     return y.to(dat_w.dtype)
 
 
-def dia_spmv_tiled(offs_t: torch.Tensor, dat_w: torch.Tensor, x: torch.Tensor,
-                   nrows: int, col_tile: int, mask: Optional[torch.Tensor] = None,
-                   offset_range: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """y = A @ x over the ``"dia-cols"`` plan: ``offs_t (ntiles, max_d)``
-    int32 offsets and ``dat_w (ntiles, max_d, ct)`` diagonal windows.
-    ``offset_range`` is ``(min, max)`` of ``offs_t`` when the caller has it
-    cached (else it is read from the device)."""
-    if dat_w.device.type == "cpu":
-        return dia_spmv_tiled_plain(offs_t, dat_w, x, nrows, col_tile, mask)
+class _Tiled(NamedTuple):
+    """What the first launch on a ``"dia-cols"`` plan checked and keeps: the
+    arrays, their addresses, the plan's geometry and offset range, the
+    value code and the library's entry."""
+
+    offs_t: torch.Tensor
+    dat_w: torch.Tensor
+    ptrs: Tuple[int, int]
+    ntiles: int
+    max_d: int
+    ct: int
+    nrows: int
+    lo: int
+    hi: int
+    code: int
+    device: torch.device
+    lib: object
+    entry: object
+
+
+def _tiled(offs_t: torch.Tensor, dat_w: torch.Tensor, nrows: int, col_tile: int) -> _Tiled:
+    """Check a ``"dia-cols"`` plan on the card in full (raise on what the
+    kernel does not take), read its offset range (one wait for the device)
+    and keep what the launches need."""
     ntiles, max_d, ct = dat_w.shape
     if ct != col_tile or offs_t.dtype is not torch.int32 or offs_t.shape != (ntiles, max_d):
         raise ValueError(f"dia_spmv_tiled: offs_t must be int32 ({ntiles}, {max_d}) "
                          f"and dat_w's last dim the column tile {col_tile}")
-    if mask is not None and (mask.dtype is not torch.bool or mask.shape != (nrows,)):
-        raise ValueError("dia_spmv_tiled: mask must be a bool tensor of shape (nrows,)")
-    x = x.to(torch.float32)
-    check_cuda_operands("dia_spmv_tiled", offs_t, dat_w, x, mask)
+    if max_d > MAX_RESIDENT_DIAGS:
+        raise ValueError(f"dia_spmv_tiled: {max_d} slots a tile exceed the kernel's "
+                         f"{MAX_RESIDENT_DIAGS}")
+    check_cuda_operands("dia_spmv_tiled", offs_t, dat_w)
     code = value_code("dia_spmv_tiled", dat_w.dtype)
-    lo, hi = offset_range if offset_range is not None else _offset_range(offs_t)
-    y = torch.empty(nrows, dtype=dat_w.dtype, device=dat_w.device)
+    lo, hi = int(offs_t.min()), int(offs_t.max())
     from ._build import library
 
-    library().call("repro_dia_spmv_tiled", offs_t.data_ptr(), dat_w.data_ptr(),
-                   x.data_ptr(), None if mask is None else mask.data_ptr(),
-                   y.data_ptr(), ntiles, max_d, ct, nrows, x.shape[0], lo, hi,
-                   code, current_stream(dat_w.device))
+    lib = library()
+    return _Tiled(offs_t, dat_w, (offs_t.data_ptr(), dat_w.data_ptr()), ntiles, max_d, ct,
+                  nrows, lo, hi, code, dat_w.device, lib, lib.lib.repro_dia_spmv_tiled)
+
+
+def _launch_tiled(r: _Tiled, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The tiled kernel's launch on checked operands."""
+    dev = r.device
+    y = torch.empty(r.nrows, dtype=r.dat_w.dtype, device=dev)
+    code = r.entry(r.ptrs[0], r.ptrs[1], x.data_ptr(), None if mask is None else mask.data_ptr(),
+                   y.data_ptr(), r.ntiles, r.max_d, r.ct, r.nrows, x.shape[0], r.lo, r.hi,
+                   r.code, current_stream(dev))
+    r.lib.check("repro_dia_spmv_tiled", code)
     dia_spmv_tiled.launches += 1
     return y
 
 
+def dia_spmv_tiled(offs_t: torch.Tensor, dat_w: torch.Tensor, x: torch.Tensor,
+                   nrows: int, col_tile: int,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = A @ x over the ``"dia-cols"`` plan: ``offs_t (ntiles, max_d)``
+    int32 offsets and ``dat_w (ntiles, max_d, ct)`` diagonal windows.
+    Checks the plan on every call; :func:`dia_spmv_tiled_from_plan` checks
+    it once."""
+    if dat_w.device.type == "cpu":
+        return dia_spmv_tiled_plain(offs_t, dat_w, x, nrows, col_tile, mask)
+    r = _tiled(offs_t, dat_w, nrows, col_tile)
+    return _launch_tiled(r, _checked_x(r, x, mask), mask)
+
+
 dia_spmv_tiled.launches = 0
+
+
+def dia_spmv_tiled_from_plan(plan, x: torch.Tensor, nrows: int,
+                             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dispatch-table adapter: :func:`dia_spmv_tiled` on a ``"dia-cols"``
+    plan of ``nrows`` rows. The first call on the card checks the plan in
+    full, reads its offset range and keeps both in ``plan.cache``; later
+    calls check only ``x`` and ``mask``."""
+    offs_t, dat_w = plan.arrays
+    r = plan.cache.get("tiled")
+    if r is None:
+        if dat_w.device.type == "cpu":
+            return dia_spmv_tiled_plain(offs_t, dat_w, x, nrows, plan.ct, mask)
+        r = plan.cache["tiled"] = _tiled(offs_t, dat_w, nrows, plan.ct)
+    elif r.nrows != nrows:
+        raise ValueError(f"dia_spmv_tiled: the plan was checked for {r.nrows} rows, "
+                         f"called with {nrows}")
+    return _launch_tiled(r, _checked_x(r, x, mask), mask)

@@ -27,8 +27,8 @@ from repro_torch.core.spmv import register_masked_spmv, register_spmm, register_
 
 from ._launch import segment_starts
 from .bsr_spmm import BLOCK_SIZES, bsr_spmm
-from .coo_spmv import coo_spmv, scoo_spmv_tiled
-from .dia_spmv import dia_spmv_from_container, dia_spmv_tiled
+from .coo_spmv import coo_spmv_from_container, scoo_spmv_tiled
+from .dia_spmv import dia_spmv_from_container, dia_spmv_tiled_from_plan
 from .ell_spmv import ell_spmv, ell_spmv_tiled, ell_tile_index
 from .sell_spmv import scs_spmv_from_plan
 
@@ -133,30 +133,19 @@ def cuda_strategy(A, policy) -> str | None:
 
 def _cached(cache: dict, key: str, make):
     """``cache[key]``, made once: what a kernel derives from a container or
-    its plan (segment starts, offset range, tile index) is computed at its first call
-    and kept in the container's or the plan's ``cache``."""
+    its plan (segment starts, tile index) is computed at its first call and
+    kept in the container's or the plan's ``cache``."""
     value = cache.get(key)
     if value is None:
         value = cache[key] = make()
     return value
 
 
-def _dia_tiled(A: DIA, x, mask=None):
-    plan = A.plan
-    offs_t, dat_w = plan.arrays
-    rng = None
-    if dat_w.device.type != "cpu":
-        rng = _cached(plan.cache, "offset_range",
-                      lambda: (int(offs_t.min()), int(offs_t.max())))
-    return dia_spmv_tiled(offs_t, dat_w, x, nrows=A.shape[0], col_tile=plan.ct,
-                          mask=mask, offset_range=rng)
-
-
 @register_spmv("dia", "cuda", supports=_dia_ok, needs_policy=True)
 def dia_spmv_cuda(A: DIA, x, policy):
     if cuda_strategy(A, policy) == "resident":
         return dia_spmv_from_container(A, x)
-    return _dia_tiled(A, x)
+    return dia_spmv_tiled_from_plan(A.plan, x, A.shape[0])
 
 
 @register_spmv("ell", "cuda", supports=_ell_ok, needs_policy=True)
@@ -177,16 +166,13 @@ def ell_spmv_cuda(A: ELL, x, policy, mask=None):
 
 @register_spmv("coo", "cuda", supports=_coo_ok, needs_policy=True)
 def coo_spmv_cuda(A: COO, x, policy):
-    """Full window for the matrices the reference keeps whole (row segment
-    starts cached on the container), else the sliced kernel over the
-    ``"coo-cols"`` plan (slice block runs cached on the plan)."""
-    on_card = A.val.device.type != "cpu"
+    """Full window for the matrices the reference keeps whole (the
+    container checked once, its row segment starts cached on it), else the
+    sliced kernel over the ``"coo-cols"`` plan (slice block runs cached on
+    the plan)."""
     if cuda_strategy(A, policy) == "resident":
-        starts = None
-        if on_card:
-            starts = _cached(A.cache, "row_start",
-                             lambda: segment_starts(A.row, A.shape[0]))
-        return coo_spmv(A.row, A.col, A.val, x, nrows=A.shape[0], row_start=starts)
+        return coo_spmv_from_container(A, x)
+    on_card = A.val.device.type != "cpu"
     plan = A.plan
     row, col, val, sid, ctile = plan.arrays
     ct, _, slice_rows, tile = (int(v) for v in plan.meta)
@@ -218,7 +204,7 @@ def dia_masked_spmv_cuda(A: DIA, x, row_mask, policy):
     ``where(row_mask, A @ x, 0)``."""
     if cuda_strategy(A, policy) == "resident":
         return dia_spmv_from_container(A, x, row_mask)
-    return _dia_tiled(A, x, mask=row_mask)
+    return dia_spmv_tiled_from_plan(A.plan, x, A.shape[0], row_mask)
 
 
 @register_masked_spmv("ell", "cuda", supports=_ell_ok, needs_policy=True)

@@ -704,6 +704,86 @@ def test_dia_adapter_runs_plain_on_the_host_and_caches_nothing():
     assert D.cache == {} and "cache" not in repr(D)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_tiled_adapter_matches_pallas_interpret(jax_ref, masked, dtype):
+    """dia/cuda under a ``max_resident_cols`` small enough to tile (rows
+    reach one to three column tiles) runs ``dia_spmv_tiled_from_plan``; on
+    the host it equals the reference's tiled Pallas kernel in interpret
+    mode (masked: ``where(mask, ., 0)`` of it) and ``to_dense() @ x``,
+    within the stated tolerance, and its masked call is ``where(mask, A @
+    x, 0)`` exactly."""
+    from repro_torch.core import ExecutionPolicy
+
+    n = m = 300
+    s = _mat(n, m, 42, "banded")
+    x = _x(m)
+    pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False, max_resident_cols=16)
+    ct = pol.col_tile(m)
+    D = tconv.from_dense(s, "dia", dtype=dtype, col_tile=ct, device="cpu")
+    assert ops.cuda_strategy(D, pol) == "tiled" and D.plan.ct == ct
+    jnp = jax_ref["jnp"]
+    J = jax_ref["convert"].from_dense(s, "dia", dtype=_jax_dtype(jnp, dtype), col_tile=ct)
+    _assert_same_plan(D.plan.arrays, J.plan.arrays)
+    want = np.asarray(jax_ref["dia"].dia_spmv_tiled(*J.plan.arrays, jnp.asarray(x), nrows=n,
+                                                    col_tile=ct, interpret=True), np.float32)
+    dense = D.to_dense().float().numpy() @ x
+    xt = torch.from_numpy(x)
+    mask = torch.from_numpy(np.random.default_rng(43).random(n) < 0.4) if masked else None
+    if masked:
+        got = ops.dia_masked_spmv_cuda(D, xt, mask, pol)
+        assert torch.equal(got, torch.where(mask, ops.dia_spmv_cuda(D, xt, pol),
+                                            torch.zeros((), dtype=got.dtype)))
+        want, dense = np.where(mask.numpy(), want, 0), np.where(mask.numpy(), dense, 0)
+    else:
+        got = ops.dia_spmv_cuda(D, xt, pol)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got.float().numpy(), want, _tol(dtype, s))
+    _close(got.float().numpy(), dense, _tol(dtype, s))
+    assert D.plan.cache == {}  # on the host nothing is checked or kept
+
+
+def test_tiled_and_coo_records_refuse_what_the_kernels_do_not_take():
+    """The records the tiled DIA and full-window COO adapters keep are
+    built by full checks: a plan or arrays of the wrong type or shape, or
+    on the host, raise ``ValueError`` before any launch."""
+    from repro_torch.kernels.coo_spmv import _rows
+    from repro_torch.kernels.dia_spmv import _tiled
+
+    D = tconv.from_dense(_mat(100, 100, 44, "banded"), "dia", col_tile=16, device="cpu")
+    offs_t, dat_w = D.plan.arrays
+    for bad in ((offs_t.long(), dat_w, 100, 16), (offs_t[:-1], dat_w, 100, 16),
+                (offs_t, dat_w, 100, 32), (offs_t, dat_w, 100, 16)):
+        with pytest.raises(ValueError):
+            _tiled(*bad)
+    C = tconv.from_dense(_mat(100, 100, 45), "coo", device="cpu")
+    for bad in ((C.row.long(), C.col, C.val, 100), (C.row, C.col[:-1], C.val, 100),
+                (C.row, C.col, C.val, 100)):
+        with pytest.raises(ValueError):
+            _rows(*bad)
+
+
+def test_tiled_and_coo_adapters_run_plain_on_the_host_and_cache_nothing():
+    """On host tensors the tiled DIA and the full-window COO adapters are
+    the plain versions (masked too) and keep nothing: only a launch on the
+    card keeps its checked arrays in ``plan.cache`` or ``A.cache``."""
+    from repro_torch.kernels.coo_spmv import coo_spmv_from_container
+    from repro_torch.kernels.dia_spmv import dia_spmv_tiled_from_plan
+
+    s = _mat(300, 280, 46, "banded")
+    D = tconv.from_dense(s, "dia", col_tile=32, device="cpu")
+    x = torch.from_numpy(_x(280))
+    mask = torch.from_numpy(np.random.default_rng(47).random(300) < 0.5)
+    for m in (None, mask):
+        assert torch.equal(dia_spmv_tiled_from_plan(D.plan, x, 300, m),
+                           dia_spmv_tiled_plain(*D.plan.arrays, x, 300, 32, m))
+    assert D.plan.cache == {}
+    C = tconv.from_dense(_mat(300, 280, 48), "coo", pad_to=64, device="cpu")
+    assert torch.equal(coo_spmv_from_container(C, x),
+                       coo_spmv_plain(C.row, C.col, C.val, x, 300))
+    assert C.cache == {}
+
+
 # --------------------------------------------------- coo_spmv, scoo_spmv_tiled ----
 
 
@@ -724,6 +804,36 @@ def test_coo_plain_matches_pallas_interpret(jax_ref, shape, dtype):
     got = coo_spmv(T.row, T.col, T.val, torch.from_numpy(x), nrows=n)
     assert got.dtype == getattr(torch, dtype)
     _close(got.float().numpy(), np.asarray(want, np.float32), _tol(dtype, s))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_coo_adapter_matches_pallas_interpret(jax_ref, shape, dtype):
+    """coo/cuda on a matrix the reference keeps whole runs the full window
+    through ``coo_spmv_from_container``; on the host it equals the
+    reference's full-window Pallas kernel in interpret mode, with tail
+    sentinels in the arrays and some rows empty, within the stated
+    tolerance."""
+    import scipy.sparse as sp
+
+    from repro_torch.core import ExecutionPolicy
+
+    n, m = shape
+    keep = (np.arange(n) % 5 != 2).astype(np.float64)  # every fifth row empty
+    s = sp.csr_matrix(sp.diags(keep) @ _mat(n, m, 49))
+    s.eliminate_zeros()
+    x = _x(m)
+    pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False)
+    T = tconv.from_dense(s, "coo", dtype=dtype, pad_to=64, device="cpu")
+    assert ops.cuda_strategy(T, pol) == "resident"
+    jnp = jax_ref["jnp"]
+    J = jax_ref["convert"].from_dense(s, "coo", dtype=_jax_dtype(jnp, dtype), pad_to=64)
+    want = jax_ref["coo"].coo_spmv(J.row, J.col, J.val, jnp.asarray(x), nrows=n,
+                                   interpret=True)
+    got = ops.coo_spmv_cuda(T, torch.from_numpy(x), pol)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got.float().numpy(), np.asarray(want, np.float32), _tol(dtype, s))
+    assert T.cache == {}
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -1209,6 +1319,129 @@ def test_dia_adapter_checks_x_and_mask_on_every_call_on_card(cuda):
     assert torch.equal(y, dia_spmv_from_container(D, x))
 
 
+def _tiles_reached(s, ct):
+    """The distinct counts of column tiles that the rows' entries reach."""
+    s = s.tocsr()
+    return {len(np.unique(s.indices[s.indptr[i]:s.indptr[i + 1]] // ct))
+            for i in range(s.shape[0])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,ct", [(16, 384), (41, 2048)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_tiled_kernel_on_the_stencil_on_card(cuda, g, ct, dtype):
+    """The tiled kernel on the 27-point stencil (27 slots a tile, of which a
+    row needs its diagonals' share: one batch or two), at a column tile
+    where rows reach 1, 2 and 3 tiles, in one-warp CTAs (16^3) and CTAs of
+    256 (41^3), through the dispatch entries: equal to the plain version
+    bit for bit in every dtype, twice; each SymGS color equal to
+    ``where(mask, A @ x, 0)`` and to the masked plain version; the plan
+    checked once and kept in ``plan.cache``."""
+    from repro_torch.core import ExecutionPolicy, as_operator
+    from repro_torch.core import matrices as TM
+    from repro_torch.solvers.symgs import SymGS
+
+    s = TM.fdm27(g, g, g)
+    n = s.shape[0]
+    assert {1, 2, 3} <= _tiles_reached(s, ct)
+    D = tconv.from_dense(s, "dia", dtype=dtype, col_tile=ct, device=cuda)
+    pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False, max_resident_cols=ct)
+    assert ops.cuda_strategy(D, pol) == "tiled" and D.plan.arrays[0].shape[1] == 27
+    x = torch.from_numpy(_x(n)).to(cuda)
+    before = dia_spmv_tiled.launches
+    y = ops.dia_spmv_cuda(D, x, pol)
+    assert dia_spmv_tiled.launches == before + 1 and "tiled" in D.plan.cache
+    assert torch.equal(y, dia_spmv_tiled_plain(*D.plan.arrays, x, n, ct))
+    assert torch.equal(y, ops.dia_spmv_cuda(D, x, pol))
+    zero = torch.zeros((), dtype=y.dtype, device=cuda)
+    for mask in SymGS.build(s, operator=as_operator(D)).masks:
+        ym = ops.dia_masked_spmv_cuda(D, x, mask, pol)
+        assert torch.equal(ym, torch.where(mask, y, zero))
+        assert torch.equal(ym, dia_spmv_tiled_plain(*D.plan.arrays, x, n, ct, mask))
+        assert torch.equal(ym, ops.dia_masked_spmv_cuda(D, x, mask, pol))
+
+
+def _dia_plan(n, m, offsets, dtype, ct, seed, device):
+    """A ``"dia-cols"`` plan of random values on ``offsets``."""
+    data = np.random.default_rng(seed).standard_normal((len(offsets), n)).astype(np.float32)
+    plan = ttiling.build_dia_col_plan(np.asarray(offsets), data, (n, m), ct)
+    return ttiling.plan_to_tensors(plan, getattr(torch, dtype), device)
+
+
+def _cta_threads(nrows, sms):
+    """Threads per CTA that ``spread_threads`` (``csrc/common.cuh``) gives
+    a row-per-thread kernel of ``nrows`` rows on ``sms`` SMs."""
+    threads = 256
+    while threads > 32 and -(-nrows // threads) < 2 * sms:
+        threads //= 2
+    return threads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["7_diagonals", "33_diagonals", "125_diagonals", "wide_band",
+                                  "128_thread_ctas"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_tiled_kernel_batches_on_card(cuda, case, dtype):
+    """The tiled kernel at other slot counts than 27 (batches of 8 with a
+    short last one), with offsets past both ends of the matrix, x shorter
+    or longer than the rows, and a band so wide against the tile
+    (``wide_band``: 125 diagonals in +-2000, tiles of 16, 105 slots a
+    tile) that a CTA's offsets exceed its 48 KB and it takes its tiles in
+    groups; ``128_thread_ctas`` (27 diagonals, 40,001 rows) runs CTAs of
+    128 threads on a card of 132 SMs: equal to the plain
+    version bit for bit in every dtype, twice, and masked equal to ``where(
+    mask, A @ x, 0)`` and to the masked plain version."""
+    from repro_torch.kernels.dia_spmv import dia_spmv_tiled_from_plan
+
+    rng = np.random.default_rng(50)
+    if case == "wide_band":
+        n, m, ct = 3001, 3001, 16
+        offsets = np.sort(rng.choice(np.arange(-2000, 2001), 125, replace=False))
+    else:
+        nd = 27 if case == "128_thread_ctas" else int(case.split("_")[0])
+        n, ct = (40001 if nd == 27 else 20001), 64
+        m = n + 37 if nd == 7 else n - 50
+        near = rng.choice(np.arange(-300, 301), nd - 2, replace=False)
+        offsets = np.sort(np.concatenate([near, [-(n + 2), m + 2]]))
+    plan = _dia_plan(n, m, offsets, dtype, ct, 51, cuda)
+    if case == "wide_band":  # the tiles 256 rows reach, times max_d, pass 48 KB of int32
+        assert ((255 + 4000) // ct + 2) * plan.arrays[0].shape[1] > 12288
+    if case == "128_thread_ctas":
+        assert _cta_threads(n, 132) == 128
+    x = torch.from_numpy(_x(m)).to(cuda)
+    mask = torch.from_numpy(rng.random(n) < 0.3).to(cuda)
+    before = dia_spmv_tiled.launches
+    y = dia_spmv_tiled_from_plan(plan, x, n)
+    assert dia_spmv_tiled.launches == before + 1
+    assert torch.equal(y, dia_spmv_tiled_plain(*plan.arrays, x, n, ct))
+    assert torch.equal(y, dia_spmv_tiled_from_plan(plan, x, n))
+    ym = dia_spmv_tiled_from_plan(plan, x, n, mask)
+    assert torch.equal(ym, torch.where(mask, y, torch.zeros((), dtype=y.dtype, device=cuda)))
+    assert torch.equal(ym, dia_spmv_tiled_plain(*plan.arrays, x, n, ct, mask))
+    # the wrapper that checks on every call launches the same kernel
+    assert torch.equal(y, dia_spmv_tiled(*plan.arrays, x, nrows=n, col_tile=ct))
+
+
+@pytest.mark.cuda
+def test_dia_tiled_adapter_checks_x_and_mask_on_every_call_on_card(cuda):
+    """After the first call has checked and kept the plan, a mask of the
+    wrong shape or dtype, an x on the host, or another row count still
+    raises ``ValueError`` before any launch."""
+    from repro_torch.kernels.dia_spmv import dia_spmv_tiled_from_plan
+
+    D = tconv.from_dense(_mat(500, 500, 52, "banded"), "dia", col_tile=32, device=cuda)
+    x = torch.from_numpy(_x(500)).to(cuda)
+    y = dia_spmv_tiled_from_plan(D.plan, x, 500)
+    before = dia_spmv_tiled.launches
+    for bad_x, bad_mask, rows in ((x, torch.ones(499, dtype=torch.bool, device=cuda), 500),
+                                  (x, torch.ones(500, dtype=torch.uint8, device=cuda), 500),
+                                  (x.cpu(), None, 500), (x, None, 499)):
+        with pytest.raises(ValueError):
+            dia_spmv_tiled_from_plan(D.plan, bad_x, rows, bad_mask)
+    assert dia_spmv_tiled.launches == before
+    assert torch.equal(y, dia_spmv_tiled_from_plan(D.plan, x, 500))
+
+
 def _ell_arrays(n, m, width, dtype, seed):
     """Raw resident ELL arrays: each slot an id in [0, m) or a -1 pad
     anywhere in the row (not packed left), values everywhere, pads
@@ -1404,6 +1637,85 @@ def test_coo_kernels_match_plain_on_card(cuda, shape, dtype, index_dtype):
         assert torch.equal(yt, scoo_spmv_tiled(r32, c32, v32, sid32, ct32, x, nrows=n,
                                                col_tile=ct, slice_rows=slice_rows,
                                                tile=tile))
+
+
+def _coo_case(case):
+    """A scipy matrix for the full-window kernel: ``stencil`` (13^3, CTAs of
+    one warp), ``empty_rows`` (every fifth row empty), ``long_rows`` (a row
+    of 5,000 entries and a CTA of 32 rows holding 2,800: ranges longer than
+    the 2,048-entry stage) and ``widest_ctas`` (70,001 rows: CTAs of 64,
+    the kernel's widest)."""
+    import scipy.sparse as sp
+
+    from repro_torch.core import matrices as TM
+
+    if case == "stencil":
+        return TM.fdm27(13, 13, 13)
+    rng = np.random.default_rng(53)
+    if case == "empty_rows":
+        s = _mat(3000, 2000, 54)
+        s = sp.csr_matrix(sp.diags((np.arange(3000) % 5 != 1).astype(np.float64)) @ s)
+        s.eliminate_zeros()
+        return s
+    if case == "long_rows":
+        n, m = 600, 8000
+        rows, cols = [np.full(5000, 5)], [rng.choice(m, 5000, replace=False)]
+        for r in range(100, 128):
+            rows.append(np.full(100, r))
+            cols.append(rng.choice(m, 100, replace=False))
+        rows.append(rng.integers(0, n, 2000))
+        cols.append(rng.integers(0, m, 2000))
+        r, c = np.concatenate(rows), np.concatenate(cols)
+        s = sp.csr_matrix((rng.standard_normal(r.size), (r, c)), shape=(n, m))
+        s.sum_duplicates()
+        return s
+    return _mat(70001, 5000, 55, density=0.002)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stencil", "empty_rows", "long_rows", "widest_ctas"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_coo_full_window_kernel_on_card(cuda, case, dtype):
+    """The full-window kernel, through the dispatch entry and on arrays off
+    a 16-byte boundary (its scalar loads), with tail sentinels: equal to
+    its plain version bit for bit in every dtype, twice; the container
+    checked once and kept in ``A.cache``; each launch counted."""
+    from repro_torch.core import ExecutionPolicy
+
+    s = _coo_case(case)
+    n, m = s.shape
+    pol = ExecutionPolicy(backends=("cuda",), allow_fallback=False, max_onehot_rows=1 << 17)
+    C = tconv.from_dense(s, "coo", dtype=dtype, pad_to=64, device=cuda)
+    assert ops.cuda_strategy(C, pol) == "resident" and C.nnz % 64 == 0
+    x = torch.from_numpy(_x(m)).to(cuda)
+    before = coo_spmv.launches
+    y = ops.coo_spmv_cuda(C, x, pol)
+    assert coo_spmv.launches == before + 1 and "rows" in C.cache
+    want = coo_spmv_plain(C.row, C.col, C.val, x, nrows=n)
+    assert torch.equal(y, want)
+    assert torch.equal(y, ops.coo_spmv_cuda(C, x, pol))
+    # the same entries one element off the arrays' start: scalar loads
+    row, col, val = (torch.cat([t[:1], t]).clone()[1:] for t in (C.row, C.col, C.val))
+    assert col.data_ptr() % 16 != 0
+    assert torch.equal(coo_spmv(row, col, val, x, nrows=n), want)
+
+
+@pytest.mark.cuda
+def test_coo_adapter_checks_x_on_every_call_on_card(cuda):
+    """After the first call has checked and kept the container, an x on
+    the host or not a contiguous vector still raises ``ValueError`` before
+    any launch."""
+    from repro_torch.kernels.coo_spmv import coo_spmv_from_container
+
+    C = tconv.from_dense(_mat(500, 400, 56), "coo", device=cuda)
+    x = torch.from_numpy(_x(400)).to(cuda)
+    y = coo_spmv_from_container(C, x)
+    before = coo_spmv.launches
+    for bad in (x.cpu(), torch.stack([x, x], 1)[:, 0], x[None]):
+        with pytest.raises(ValueError):
+            coo_spmv_from_container(C, bad)
+    assert coo_spmv.launches == before
+    assert torch.equal(y, coo_spmv_from_container(C, x))
 
 
 @pytest.mark.cuda
