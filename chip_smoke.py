@@ -45,7 +45,10 @@ Phases, one or more lines each, each ending with its seconds:
      Each line gives the
      median kernel time (CUDA events around one call, which also catch the
      wrapper's host time), the kernel's device time alone
-     (``torch.profiler``), the plain version's time, one PyTorch library
+     (``torch.profiler``, from traces whose two timed ranges of 20 calls
+     each hold 20 times the records one call makes, as a range of three
+     calls counts them; a reading under the bound fails the run), the
+     plain version's time, one PyTorch library
      call on the same matrix as a yardstick (never called by the port: a
      cuSPARSE CSR SpMV, or for ``bsr_spmm`` ``torch.sparse_bsr_tensor @ X``)
      by events (``library_ms``) and by its device time in every kernel it
@@ -85,7 +88,33 @@ Phases, one or more lines each, each ending with its seconds:
      ``tune(mode="predict")`` on the same matrix, which launches no kernel;
   9. ``run_hpcg(104, 104, 104, iters=50, depth=4, tune_mode="predict")``:
      phase 3 ranked by the zero-run selector's ``"cuda"`` table, no race;
-     ``valid`` and ``bitwise``, its level picks and t_opt.
+     ``valid`` and ``bitwise``, its level picks and t_opt;
+ 10. the serving path (``repro_torch.serve``) at tenants of 2^20 rows, four
+     runs each counted on its own: **hot** (one banded tenant, 512 requests
+     flushed every 64 through ``ServeEngine(capacity=8, max_batch=32,
+     tune_mode="predict")``: one admission, 16 coalesced tiles of 32),
+     **churn** (16 tenants of the four archetypes against 8 slots, 72
+     requests, cut from 128: a window of 64 admits each tenant once and one
+     of 8 brings evicted tenants back, re-tuned; then one admission of a
+     tenant of each predicted key timed by stage), **dynamic** (``mutable``
+     on the hot tenant, 1% of its rows
+     gain an entry off its band, ``ov @ x`` against the merged matrix in f64,
+     ``refresh`` must re-tune, then 64 requests under the new fingerprint;
+     and the same lane on an 8,192-row tenant, whose delta ``coo_spmv``
+     takes) and **chaos** (``FaultSpec("kernel", key=(the hot tenant's
+     format, "cuda"), times=3)`` on the hot engine: the breaker quarantines
+     the key, every ticket resolves, and each request served off ``cuda``
+     equals the plain lane bit for bit). Each line gives the summary
+     (latency p50/p99, throughput, hit rate, hits/misses/evictions, tunes,
+     fallbacks, batch sizes, coalesced fraction), each tenant's key, the
+     launches per kernel, the health snapshot, the seconds and the bytes the
+     warm pool holds (``pool_bytes``; ``memory_allocated`` after the last
+     flush). Every served ``y`` must agree with its tenant's csr/plain at
+     rtol 2e-4, every coalesced row equal ``op @ x`` bit for bit, the
+     healthy runs show no retry, degraded request, fallback or failed key,
+     churn's misses exceed its tenants and each miss tunes, and hot and
+     churn's admissions, batches, hits, misses and evictions equal a replay
+     of the same traffic on the host at 4,096 rows, untuned.
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
@@ -148,12 +177,14 @@ FORMAT_KERNELS = {"csr": ("scs_spmv",), "sell": ("scs_spmv",),
 CANDIDATES = [(fmt, impl) for fmt in ("coo", "csr", "dia", "ell", "sell", "bsr")
               for impl in ("plain", "cuda")]
 
-#: The path on which each kernel must launch: the HPCG run (phase 4), the
-#: column-limited CG (phase 5), the one ``scoo_spmv`` call of phase 2 or the
-#: block path (phase 8).
-REQUIRED_ON = {"scs_spmv": "hpcg", "dia_spmv": "hpcg", "dia_spmv_tiled": "tiled_cg",
-               "ell_spmv": "hpcg", "ell_spmv_tiled": "hpcg", "coo_spmv": "hpcg",
-               "scoo_spmv_tiled": "hpcg", "scoo_spmv": "scoo", "bsr_spmm": "block"}
+#: The paths on which each kernel must launch (the JSON line's ``launches``
+#: is the first one's count): the HPCG run (phase 4), the column-limited CG
+#: (phase 5), the one ``scoo_spmv`` call of phase 2, the block path (phase
+#: 8) or the serving path (phase 10).
+REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve"),
+               "dia_spmv_tiled": ("tiled_cg",), "ell_spmv": ("hpcg",),
+               "ell_spmv_tiled": ("hpcg",), "coo_spmv": ("hpcg", "serve"),
+               "scoo_spmv_tiled": ("hpcg",), "scoo_spmv": ("scoo",), "bsr_spmm": ("block",)}
 
 #: What a kernel's entry in the JSON line carries beyond the contract's keys:
 #: its other shapes (``bsr_spmm``'s SpMM and masked forms, ``scs_spmv`` off
@@ -170,6 +201,31 @@ BLOCK_NF = 128
 
 #: The unstructured matrices of the tuner phase (10^6 rows: x fits whole,
 #: so every format takes its resident strategy).
+#: The serving phases: tenants of 2^20 rows (the size of the tuner phase's
+#: matrices), the reference's engine knobs at its serving benchmark's
+#: ``bench`` scale (``benchmarks/serve_bench.py``: capacity 8, max_batch 32,
+#: flush every 64, 16 churn tenants), the requests of each mix, the rows of
+#: the host replay that checks the warm pool's counters, and the rows of the
+#: tenant whose delta the full-window ``coo_spmv`` takes (``max_onehot_rows``).
+SERVE_N = 1 << 20
+SERVE_CAPACITY, SERVE_MAX_BATCH, SERVE_FLUSH_EVERY = 8, 32, 64
+SERVE_CHURN_TENANTS = 16
+SERVE_REQUESTS = {"hot": 512, "churn": 72}
+#: Why churn sends 72 requests, not 128: a window of 64 admits each of the
+#: 16 tenants once, and a second window of 8 brings 5 evicted tenants back
+#: (24 admissions: 21 misses, 3 hits); 128 requests make 32 admissions and
+#: took 261.8 s (NVIDIA H100 80GB HBM3, 700.00 W).
+SERVE_CHURN_CUT = ("churn requests cut 128 -> 72 (a window of 64 and one of 8: "
+                   "24 admissions with 5 readmissions, not 32)")
+SERVE_REPLAY_N = 4096
+SMALL_TENANT = 8192
+#: The summary fields a serving phase prints (``launch/serve.py``'s, and the
+#: degraded-serving counters).
+SERVE_SUMMARY_KEYS = ("requests", "batches", "admissions", "latency_p50_s", "latency_p99_s",
+                      "throughput_rps", "hit_rate", "tunes", "dispatch_fallbacks",
+                      "batch_size_mean", "batch_size_max", "coalesced_fraction", "retries",
+                      "degraded_requests", "batch_splits", "errors")
+
 TUNER_MATRICES = (("banded(10**6, 4)", "banded", (10 ** 6, 4)),
                   ("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),
                   ("powerlaw(10**6, 8)", "powerlaw", (10 ** 6, 8)))
@@ -204,27 +260,64 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+#: The profiler ranges ``kernel_ms`` marks: three calls that give one
+#: call's record count, then two runs of the timed calls.
+KERNEL_MS_MARKS = ("kernel_ms_per_call", "kernel_ms_a", "kernel_ms_b")
+#: Calls in the range that counts one call's records.
+KERNEL_MS_COUNT_CALLS = 3
+
+
 def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     """Device time of one ``fn()`` in ms spent in kernels whose name holds
-    ``kernel``, from ``torch.profiler`` over ``reps`` calls: the kernel
-    alone, without the wrapper's host time that CUDA events around a small
-    call also catch. ``None`` when three traces in a row hold no record of
-    it."""
+    ``kernel``, from ``torch.profiler``: the kernel alone, without the
+    wrapper's host time that CUDA events around a small call also catch.
+    Each trace runs three calls first and three last (a trace may lose the
+    records of its first and last kernels) around three ranges, each ending
+    in a synchronize: ``KERNEL_MS_COUNT_CALLS`` calls whose records give one
+    call's count, then two ranges of ``reps`` timed calls. It counts the
+    device records that start inside each range and takes the trace only
+    when one call's count is whole and positive and each timed range holds
+    exactly ``reps`` times it: a trace that lost records, or holds one of an
+    earlier trace, is dropped. ``None`` when eight traces in a row fall
+    short."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def trace():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            for mark, calls in zip(KERNEL_MS_MARKS, (KERNEL_MS_COUNT_CALLS, reps, reps)):
+                with record_function(mark):
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        spans = {e.name: e.time_range for e in events
+                 if e.device_type == DeviceType.CPU and e.name in KERNEL_MS_MARKS}
+        records = [e for e in events if e.device_type != DeviceType.CPU
+                   and e.name not in KERNEL_MS_MARKS and kernel in e.name]
+        # a record belongs to the range its kernel starts in: each range
+        # ends in a synchronize, so no kernel starts in one and ends later
+        return [[e for e in records if spans[m].start <= e.time_range.start <= spans[m].end]
+                for m in KERNEL_MS_MARKS]
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without the kernel's records
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                 if e.device_type != DeviceType.CPU and kernel in e.key)
-        if us > 0:
-            return us / reps / 1e3
+    counts = []
+    for _ in range(8):  # a trace now and then comes back without some records
+        one, a, b = trace()
+        per_call, rest = divmod(len(one), KERNEL_MS_COUNT_CALLS)
+        if per_call > 0 and rest == 0 and len(a) == len(b) == reps * per_call:
+            return sum(e.time_range.elapsed_us() for e in a + b) / (2 * reps) / 1e3
+        counts.append((len(one), len(a), len(b)))
+    print(f"[kernel_ms] {kernel!r} not measured: records per trace in {KERNEL_MS_COUNT_CALLS} "
+          f"calls and in two ranges of {reps} calls {counts}", flush=True)
     return None  # not measured
 
 
@@ -327,8 +420,11 @@ def phase_kernels(results: dict, block) -> tuple:
         check(bool(torch.equal(y, fn())), f"{label}: two launches differ")
         b_ms, b_by = bound(moved, 2 * s.nnz if flops is None else flops, flops_per_s)
         lib = csr_library(s, x) if library is None else library
+        k_ms = kernel_ms(fn, kernel)
+        check(k_ms is None or k_ms >= b_ms,
+              f"{label}: kernel_ms {k_ms} under its bound {b_ms}: an impossible reading")
         rec = dict(extra, exact=same, repeat_equal=True, max_abs_err=err,
-                   ms=cuda_ms(fn, 50), kernel_ms=kernel_ms(fn, kernel),
+                   ms=cuda_ms(fn, 50), kernel_ms=k_ms,
                    plain_ms=cuda_ms(plain, plain_reps),
                    library_ms=cuda_ms(lib, reps=20) if lib else None,
                    library_kernel_ms=kernel_ms(lib, "") if lib else None,
@@ -912,6 +1008,335 @@ def phase_block(results: dict, block):
     del A, tuned, B, P, ref
 
 
+def own_latency(tickets) -> dict:
+    """p50/p99 latency of a phase's own tickets, where the engine's summary
+    covers the earlier phases too."""
+    from repro_torch.serve.stats import _percentile
+
+    lats = sorted(t.record.latency_s for t in tickets)
+    return {"phase_requests": len(lats), "phase_latency_p50_s": _percentile(lats, 50),
+            "phase_latency_p99_s": _percentile(lats, 99)}
+
+
+def serve_line(label: str, eng, out: dict, keys: dict, launches: dict, seconds: float,
+               **extra) -> dict:
+    """One serving phase's line: the summary fields ``launch/serve.py``
+    prints (the engine's, over every phase it served), each tenant's key,
+    launches per kernel, the health snapshot, the phase's seconds and the
+    device memory the warm pool holds."""
+    import torch
+
+    torch.cuda.synchronize()
+    return phase(
+        f"serve {label}", **{k: out[k] for k in SERVE_SUMMARY_KEYS},
+        hits=out["workspace"]["hits"], misses=out["workspace"]["misses"],
+        evictions=out["workspace"]["evictions"], keys=json.dumps(keys),
+        launches=json.dumps({k: v for k, v in launches.items() if k != "dia_spmv_split"}),
+        health=json.dumps(out["health"]), seconds=round(seconds, 1),
+        pool_bytes=sum(op.nbytes for op in eng.workspace._ops.values()),
+        memory_allocated=torch.cuda.memory_allocated(), **extra)
+
+
+def recording_pool():
+    """The serving phases' warm pool: an ``SpmvWorkspace`` of
+    ``SERVE_CAPACITY`` that also keeps every operator it admitted, by
+    fingerprint, so that a tenant evicted within its flush is still held to
+    the operator that served it."""
+    from repro_torch.core.registry import SpmvWorkspace
+
+    class RecordingPool(SpmvWorkspace):
+        def __init__(self):
+            super().__init__(max_entries=SERVE_CAPACITY)
+            self.admitted = {}
+
+        def admit(self, fingerprint, build):
+            op, hit = super().admit(fingerprint, build)
+            self.admitted[fingerprint] = op
+            return op, hit
+
+    return RecordingPool()
+
+
+def serve_traffic(eng, spec, num: int):
+    """``run_traffic`` over ``spec``, flushing every ``SERVE_FLUSH_EVERY``;
+    returns (summary, [(tenant, rhs, ticket)], {tenant: its key})."""
+    from repro_torch.serve import run_traffic
+
+    served = []
+    summ = run_traffic(eng, spec, num, flush_every=SERVE_FLUSH_EVERY, on_flush=served.extend)
+    keys = {}
+    for name, _, t in served:
+        op = eng.workspace.admitted[t.record.fingerprint]
+        keys[name] = f"{op.format}/{op.policy.backends[0]}"
+    return summ, served, keys
+
+
+def check_served(label: str, served, eng) -> float:
+    """Every ticket served; each ``y`` within rtol 2e-4 of its tenant's
+    csr/plain on the card; each coalesced row equal to ``op @ x`` of the
+    operator the warm pool admitted for it, bit for bit. Returns the max
+    abs error."""
+    import torch
+
+    from repro_torch.core import as_operator
+    from repro_torch.core.convert import to_csr
+
+    plain = {}
+    err = 0.0
+    for name, rhs, t in served:
+        check(t.ok, f"serve {label}: request {t.rid} on {name} failed: {t.error}")
+        fp = t.record.fingerprint
+        if fp not in plain:
+            plain[fp] = as_operator(to_csr(eng._matrices[fp], plan=False,
+                                           device="cuda")).using("plain")
+        x = torch.from_numpy(rhs).cuda()
+        y = t.result()
+        err = max(err, within(f"serve {label}: {name} request {t.rid} against csr/plain",
+                              y, plain[fp] @ x))
+        if t.record.coalesced:
+            check(bool(torch.equal(y, eng.workspace.admitted[fp] @ x)),
+                  f"serve {label}: coalesced row of request {t.rid} != op @ x")
+    return err
+
+
+def admission_stages(name: str, mat) -> dict:
+    """One 2^20-row admission's host seconds by stage, each ended by a
+    synchronize: the fingerprint, the CSR build with its ``"scs"`` plan on
+    the host and then to the card (the copy is the difference), the
+    features and the prediction, and the conversion to the predicted format
+    (``tune(mode="predict")`` less the prediction)."""
+    import torch
+
+    from repro_torch.core import as_operator, select
+    from repro_torch.core.registry import SpmvWorkspace
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, fp_s = timed(lambda: SpmvWorkspace.fingerprint(mat))
+    _, host_s = timed(lambda: as_operator(mat, "csr", device="cpu"))
+    op, card_s = timed(lambda: as_operator(mat, "csr", device="cuda"))
+    pred, predict_s = timed(lambda: select.predict(op.container, platform="cuda"))
+    tuned, tune_s = timed(lambda: op.tune(mode="predict"))
+    return phase(f"serve admission {name}", fingerprint_s=round(fp_s, 3),
+                 csr_host_s=round(host_s, 3), csr_to_card_s=round(card_s - host_s, 3),
+                 features_predict_s=round(predict_s, 3),
+                 convert_s=round(tune_s - predict_s, 3),
+                 total_s=round(fp_s + card_s + tune_s, 3),
+                 key=f"{tuned.format}/{tuned.policy.backends[0]}")
+
+
+def check_healthy(label: str, out: dict) -> None:
+    check(out["errors"] == 0 and out["retries"] == 0 and out["degraded_requests"] == 0
+          and out["dispatch_fallbacks"] == 0 and out["batch_splits"] == 0,
+          f"serve {label}: a healthy phase fell off its lane: " + json.dumps(
+              {k: out[k] for k in ("errors", "retries", "degraded_requests",
+                                   "dispatch_fallbacks", "batch_splits")}))
+    faults = {k: v for k, v in out["health"]["keys"].items() if v["failures"] or v["nonfinite"]}
+    check(not faults, f"serve {label}: keys failed: {faults}")
+
+
+def replay_on_host(label: str, spec, num: int, out: dict) -> dict:
+    """The same tenant sequence on ``device="cpu"`` at n = 4096, untuned:
+    the warm pool's counters depend on the sequence alone."""
+    import dataclasses
+
+    from repro_torch.serve import ServeEngine, run_traffic
+
+    eng = ServeEngine(capacity=SERVE_CAPACITY, max_batch=SERVE_MAX_BATCH, tune_mode=None,
+                      device="cpu")
+    host = run_traffic(eng, dataclasses.replace(spec, n=SERVE_REPLAY_N), num,
+                       flush_every=SERVE_FLUSH_EVERY)
+    got = {k: out[k] for k in ("admissions", "batches")}
+    got.update({k: out["workspace"][k] for k in ("hits", "misses", "evictions")})
+    want = {k: host[k] for k in ("admissions", "batches")}
+    want.update({k: host["workspace"][k] for k in ("hits", "misses", "evictions")})
+    check(got == want, f"serve {label}: counters {got} != the host replay's {want}")
+    return want
+
+
+def phase_serve(results: dict) -> dict:
+    """Phase 10: the serving path at 2^20-row tenants — hot, churn, a
+    dynamic tenant and an armed kernel fault, each counted on its own.
+    Returns the launches of the four runs summed (the ``serve`` path)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DEFAULT_DRIFT_THRESHOLD, as_operator, matrices as M
+    from repro_torch.core.convert import to_csr
+    from repro_torch.core.health import HealthRegistry
+    from repro_torch.core.spmv import DispatchKey, select_spmv
+    from repro_torch.resilience import FaultPlan, FaultSpec
+    from repro_torch.serve import ServeEngine, TrafficSpec
+
+    n = SERVE_N
+    out = {}
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            if k != "dia_spmv_split":
+                total[k] = total.get(k, 0) + v
+
+    # hot: one tenant, every tile coalesced. Its breaker holds a quarantine
+    # for the whole chaos phase (the default cooldown is 50 ms)
+    hot = ServeEngine(workspace=recording_pool(), max_batch=SERVE_MAX_BATCH,
+                      tune_mode="predict", health=HealthRegistry(cooldown_s=3600.0))
+    spec = TrafficSpec(mix="hot", n=n, seed=0)
+    t0 = time.perf_counter()
+    (summ, served, keys), launches, _ = counted("serve hot", lambda: serve_traffic(
+        hot, spec, SERVE_REQUESTS["hot"]))
+    t_hot = time.perf_counter() - t0
+    add(launches)
+    check_healthy("hot", summ)
+    check(summ["coalesced_fraction"] == 1.0 and summ["batch_size_max"] == SERVE_MAX_BATCH,
+          f"serve hot: tiles did not coalesce to {SERVE_MAX_BATCH}")
+    replay = replay_on_host("hot", spec, SERVE_REQUESTS["hot"], summ)
+    err = check_served("hot", served, hot)
+    out["hot"] = serve_line("hot", hot, summ, keys, launches, t_hot, requests_sent=len(served),
+                            max_abs_err=err, host_replay=json.dumps(replay))
+    hot_name, hot_fp = served[0][0], served[0][2].record.fingerprint
+    hot_matrix = hot._matrices[hot_fp]
+    del served
+    torch.cuda.empty_cache()
+
+    # churn: 16 tenants against 8 slots; a 64-request window admits each
+    # once, and the second window's 8 requests bring evicted tenants back
+    print(f"[serve cut] {SERVE_CHURN_CUT}", flush=True)
+    churn = ServeEngine(workspace=recording_pool(), max_batch=SERVE_MAX_BATCH,
+                        tune_mode="predict")
+    spec = TrafficSpec(mix="churn", n=n, n_matrices=SERVE_CHURN_TENANTS, seed=0)
+    t0 = time.perf_counter()
+    (summ, served, keys), launches, _ = counted("serve churn", lambda: serve_traffic(
+        churn, spec, SERVE_REQUESTS["churn"]))
+    t_churn = time.perf_counter() - t0
+    add(launches)
+    check_healthy("churn", summ)
+    check(summ["workspace"]["misses"] > SERVE_CHURN_TENANTS
+          and summ["tunes"] == summ["workspace"]["misses"],
+          f"serve churn: no evicted tenant was re-tuned on readmission: {summ['workspace']}")
+    replay = replay_on_host("churn", spec, SERVE_REQUESTS["churn"], summ)
+    err = check_served("churn", served, churn)
+    out["churn"] = serve_line("churn", churn, summ, keys, launches, t_churn,
+                              requests_sent=len(served), max_abs_err=err,
+                              host_replay=json.dumps(replay))
+    # one admission by stage, for a tenant of each predicted key
+    stage_of = {}
+    for name, _, t in served:
+        stage_of.setdefault(keys[name], (name, churn._matrices[t.record.fingerprint]))
+    out["admission_stages"] = {name: admission_stages(name, mat)
+                               for name, mat in stage_of.values()}
+    del churn, served, stage_of
+    torch.cuda.empty_cache()
+
+    # dynamic: 1% of the hot tenant's rows gain an entry a quarter of the
+    # matrix off its band (one new diagonal), then a refresh and 64 requests
+    def dynamic():
+        rng = np.random.default_rng(5)
+        ov = hot.mutable(hot_matrix)
+        rows = np.sort(rng.choice(n - n // 4, n // 100, replace=False))
+        ov.set_many(rows, rows + n // 4, rng.standard_normal(rows.size))
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+        merged = ov.to_scipy()
+        d = ov.delta_operator()
+        delta_key = select_spmv(d.container, d._effective_policy()).key
+        y = ov @ x
+        err_ov = within("dynamic: ov @ x against the merged matrix in f64", y,
+                        torch.from_numpy(merged @ x.double().cpu().numpy()))
+        drift = ov.drift()
+        res = hot.refresh(ov)
+        check(res.retuned and drift.score > DEFAULT_DRIFT_THRESHOLD,
+              f"dynamic: refresh did not re-tune (drift {drift})")
+        plain = as_operator(to_csr(merged, plan=False, device="cuda")).using("plain")
+        tickets = []
+        for _ in range(64):
+            xr = rng.standard_normal(n).astype(np.float32)
+            tickets.append((xr, hot.submit(res.fingerprint_after, xr)))
+        hot.flush()
+        err_served = 0.0
+        for xr, t in tickets:
+            check(t.ok, f"dynamic: request {t.rid} failed: {t.error}")
+            err_served = max(err_served, within(
+                "dynamic: a request under fingerprint_after against csr/plain",
+                t.result(), plain @ torch.from_numpy(xr).cuda()))
+        # the same lane on the tenant whose delta the full-window coo_spmv takes
+        small = M.banded(SMALL_TENANT, 3, seed=10)
+        sov = as_operator(small, device="cuda").tune(mode="predict").mutable()
+        srows = np.sort(rng.choice(SMALL_TENANT - SMALL_TENANT // 4, SMALL_TENANT // 100,
+                                   replace=False))
+        sov.set_many(srows, srows + SMALL_TENANT // 4, rng.standard_normal(srows.size))
+        sd = sov.delta_operator()
+        small_key = select_spmv(sd.container, sd._effective_policy()).key
+        xs = torch.from_numpy(rng.standard_normal(SMALL_TENANT).astype(np.float32)).cuda()
+        err_small = within("dynamic: the 8192-row overlay against f64", sov @ xs,
+                           torch.from_numpy(sov.to_scipy() @ xs.double().cpu().numpy()))
+        return dict(**own_latency([t for _, t in tickets]), mutations=int(rows.size),
+                    delta_key=f"{delta_key.format}/{delta_key.backend}",
+                    drift=repr(drift), key_before="/".join(res.key_before),
+                    key_after="/".join(res.key_after), reselected=res.reselected,
+                    max_abs_err_overlay=err_ov, max_abs_err_served=err_served,
+                    small_delta_key=f"{small_key.format}/{small_key.backend}",
+                    small_max_abs_err=err_small)
+
+    t0 = time.perf_counter()
+    dyn, launches, _ = counted("serve dynamic", dynamic)
+    t_dyn = time.perf_counter() - t0
+    add(launches)
+    summ = hot.summary()
+    check_healthy("dynamic", summ)
+    check(launches["coo_spmv"] > 0, "dynamic: coo_spmv did not take the 8192-row delta")
+    out["dynamic"] = serve_line("dynamic", hot, summ, {hot_name: dyn["key_after"]}, launches,
+                                t_dyn, **dyn)
+
+    # chaos: the hot tenant's cuda kernel fails three times in a flush of 64
+    def chaos():
+        hot_op = as_operator(hot_matrix, device="cuda").tune(mode="predict")
+        fmt = hot_op.format
+        check(hot_op.policy.backends[0] == "cuda", f"chaos: hot tenant predicted {fmt} plain")
+        plain = hot_op.with_policy(hot_op.policy.preferring("plain"))
+        rng = np.random.default_rng(6)
+        before = hot.summary()
+        plan = FaultPlan([FaultSpec("kernel", key=(fmt, "cuda"), times=3)])
+        with plan:
+            sent = []
+            for _ in range(64):
+                xr = rng.standard_normal(n).astype(np.float32)
+                sent.append((xr, hot.submit(hot_matrix, xr)))
+            hot.flush()
+        after = hot.summary()
+        check(hot.health.quarantined(DispatchKey(fmt, "cuda")),
+              f"chaos: {fmt}/cuda was not quarantined")
+        degraded = 0
+        for xr, t in sent:
+            check(t.ok, f"chaos: request {t.rid} did not resolve: {t.error}")
+            y = t.result()
+            if t.record.degraded or t.record.retries or not t.record.coalesced:
+                degraded += 1
+                check(bool(torch.equal(y, plain @ torch.from_numpy(xr).cuda())),
+                      f"chaos: degraded request {t.rid} != the plain lane bit for bit")
+        return dict(**own_latency([t for _, t in sent]), key=f"{fmt}/cuda",
+                    fired=plan.fired("kernel"), served_off_cuda=degraded,
+                    **{f"{k}_in_phase": after[k] - before[k] for k in (
+                        "retries", "degraded_requests", "batch_splits", "errors")})
+
+    t0 = time.perf_counter()
+    cha, launches, _ = counted("serve chaos", chaos)
+    t_cha = time.perf_counter() - t0
+    add(launches)
+    check(cha["errors_in_phase"] == 0 and cha["served_off_cuda"] == 64
+          and cha["retries_in_phase"] >= 1 and cha["degraded_requests_in_phase"] > 0,
+          f"chaos: {cha}")
+    out["chaos"] = serve_line("chaos", hot, hot.summary(), {hot_name: cha["key"]}, launches,
+                              t_cha, **cha)
+    del hot
+    torch.cuda.empty_cache()
+    results["serve"] = out
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1038,18 +1463,24 @@ def main() -> int:
         launches=json.dumps(launches_pred))
     lap("9 hpcg104 predict")
 
+    # --------------------------------------------------------------- 10
+    launches_serve = phase_serve(results)
+    lap("10 serve")
+
     by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled,
                "tuner": launches_tuner, "corpus": launches_corpus, "scoo": launches_scoo,
-               "block": launches_block, "hpcg_predict": launches_pred}
-    for name, path in REQUIRED_ON.items():
-        check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
+               "block": launches_block, "hpcg_predict": launches_pred,
+               "serve": launches_serve}
+    for name, paths in REQUIRED_ON.items():
+        for path in paths:
+            check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
 
     line = {"kernels": []}
     for name, (src, replaces) in KERNEL_SOURCES.items():
         k = kern[name]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": by_path[REQUIRED_ON[name]][name],
+            "launches": by_path[REQUIRED_ON[name][0]][name],
             **{f"launches_{p}": counts[name] for p, counts in by_path.items()},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

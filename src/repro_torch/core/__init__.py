@@ -12,8 +12,10 @@ Public API (the ported part of ``repro.core``):
     select:    zero-run (format, backend) ranking from features
                (rank_formats / predict_format / prune_candidates)
     health:    per-DispatchKey failure counters under dispatch
+    registry:  SpmvWorkspace LRU warm pool keyed by structural fingerprint
+    dynamic:   DeltaOverlay mutation lane (COO delta over any base container)
 
-Not ported yet (ROADMAP queue 1): registry, dynamic, distributed.
+Not ported yet (ROADMAP queue 1): distributed.
 """
 from .errors import (
     AdmissionError,
@@ -63,6 +65,8 @@ from .select import (
     Prediction, bytes_per_nnz, plan_index_dtype, predict_format,
     prune_candidates, rank_formats, selection_drifted, storage_bytes,
 )
+from .registry import SpmvWorkspace, spmv_cached, workspace
+from .dynamic import DEFAULT_DRIFT_THRESHOLD, DeltaOverlay, DriftReport, RefreshResult
 
 __all__ = [
     "BSR", "COO", "CSR", "DIA", "ELL", "SELL", "Dense", "KernelPlan",
@@ -82,4 +86,6 @@ __all__ = [
     "ResilienceError", "SolverDivergenceError", "SparseInputError",
     "validate_container", "validate_rhs",
     "HealthRegistry", "KeyHealth", "health_registry", "use_health",
+    "SpmvWorkspace", "spmv_cached", "workspace",
+    "DEFAULT_DRIFT_THRESHOLD", "DeltaOverlay", "DriftReport", "RefreshResult",
 ]

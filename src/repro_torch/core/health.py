@@ -24,8 +24,8 @@ and the chaos bench drive quarantine/recovery on a fake clock.
 The module also owns the **fault-plan slot**: an active fault plan (an
 object with ``fire(site, key)`` and ``corrupt(kind, key, y)``, as the
 reference's resilience lane defines it) is stored here so dispatch pays
-exactly one module-attribute read when none is armed. No fault injector is
-ported yet; tests arm a plan by hand.
+exactly one module-attribute read when none is armed;
+``repro_torch.resilience.FaultPlan`` arms it.
 """
 from __future__ import annotations
 

@@ -123,6 +123,47 @@ def diag_plus_noise(n: int, noise_nnz: int = 64, seed: int = 0,
     return m.tocsr().astype(dtype, copy=False)
 
 
+def perturb_fdm27(overlay, step: int, nx: int, ny: int, nz: int,
+                  amp: float = 0.5, frac: float = 0.02, couple: int = 8,
+                  seed: int = 0) -> int:
+    """One time step of a moving-coefficient FDM assembly, applied through a
+    :class:`~repro_torch.core.dynamic.DeltaOverlay` over an :func:`fdm27` matrix.
+
+    Two kinds of mutation per step, mirroring how time-dependent assembly
+    actually drifts:
+
+      - **coefficient jitter** (value-only, no structural drift): a seeded
+        ``frac`` of the diagonal gets ``amp``-scaled bumps — the part a
+        format decision must *not* react to.
+      - **widening couplings** (structural drift): ``couple`` long-range
+        connections at an offset past the stencil's band extent
+        (``nx*ny + nx + 1``), widening with ``step`` (plus the transpose
+        mirror) — each step adds diagonals *outside* the 27-point band, so
+        ``ndiags`` / ``band_extent`` drift grows monotonically with ``step``
+        and eventually crosses the refresh threshold.
+
+    Returns the number of mutations applied. Deterministic in
+    ``(step, seed)``.
+    """
+    n = nx * ny * nz
+    rng = np.random.default_rng(seed + 7919 * step)
+    k = max(1, int(frac * n))
+    diag = rng.choice(n, size=k, replace=False)
+    for r in diag.tolist():
+        overlay.add(int(r), int(r), amp * float(rng.standard_normal()))
+    band = nx * ny + nx + 1                    # the 27-point stencil's extent
+    off = min(n - 1, band + 1 + step * max(1, nx // 2))
+    rows = rng.choice(max(1, n - off), size=min(couple, max(1, n - off)),
+                      replace=False)
+    applied = k
+    for r in rows.tolist():
+        r = int(r)
+        overlay.set(r, r + off, -amp)
+        overlay.set(r + off, r, -amp)
+        applied += 2
+    return applied
+
+
 #: The suite's generator order — an explicit, documented contract (not an
 #: accident of source layout): ``suite()`` iterates these per (size, seed)
 #: cell, in this exact sequence, then the fdm27 grids. Corpus/selector

@@ -293,19 +293,50 @@ class SparseOperator:
         return _dispatch_masked_spmv(self.container, self._operand(x), mask,
                                      self._effective_policy())
 
-    # -- later slices -------------------------------------------------------
+    # -- dynamic matrices ---------------------------------------------------
 
     def mutable(self, drift_threshold: Optional[float] = None,
                 fingerprint: Optional[str] = None):
-        raise NotImplementedError(
-            "the dynamic-matrix lane is not ported yet (ROADMAP queue 1, "
-            "item 5: core/dynamic.py)")
+        """Open a mutation lane over this operator: a
+        :class:`~repro_torch.core.dynamic.DeltaOverlay` buffering inserts,
+        updates and deletes as a COO delta while ``A @ x`` stays exact
+        (``base @ x + delta @ x``). :meth:`refresh` (or the overlay's own
+        ``refresh()``) compacts and, only when structural drift crosses the
+        threshold, re-runs zero-run selection.
+
+        Args:
+            drift_threshold: refresh trigger (default
+                ``dynamic.DEFAULT_DRIFT_THRESHOLD``).
+            fingerprint: warm-pool fingerprint to associate with this base
+                (the serving layer passes its admission key so overlay and
+                pool agree on identity).
+
+        Example:
+            >>> import numpy as np, scipy.sparse as sp
+            >>> ov = as_operator(sp.eye(4, format="csr") * 2.0, device="cpu").mutable()
+            >>> ov.set(0, 3, 1.0)
+            >>> [float(v) for v in ov @ np.ones(4, np.float32)]
+            [3.0, 2.0, 2.0, 2.0]
+        """
+        from .dynamic import DEFAULT_DRIFT_THRESHOLD, DeltaOverlay
+
+        thr = (DEFAULT_DRIFT_THRESHOLD if drift_threshold is None
+               else drift_threshold)
+        return DeltaOverlay(self, drift_threshold=thr, fingerprint=fingerprint)
 
     def refresh(self, overlay, threshold: Optional[float] = None,
                 mode: str = "predict", **kw) -> "SparseOperator":
-        raise NotImplementedError(
-            "the dynamic-matrix lane is not ported yet (ROADMAP queue 1, "
-            "item 5: core/dynamic.py)")
+        """Compact ``overlay`` (opened on this operator via :meth:`mutable`)
+        and re-select the (format, backend) only when drift crossed the
+        threshold. Returns the up-to-date operator; the full decision record
+        is ``overlay.refresh(...)`` directly (a
+        :class:`~repro_torch.core.dynamic.RefreshResult`).
+        """
+        if overlay.base.container is not self.container:
+            raise ValueError("refresh: overlay was not opened on this "
+                             "operator (its base has moved on — refresh via "
+                             "the overlay itself, or re-open with .mutable())")
+        return overlay.refresh(threshold=threshold, mode=mode, **kw).operator
 
     # -- auto-tuning --------------------------------------------------------
 

@@ -122,8 +122,9 @@ def _ensure_cuda():
     from repro_torch.kernels import ops  # noqa: F401  registers (fmt, "cuda")
 
 
-def _on_card(x: torch.Tensor) -> bool:
-    """Operands on a CUDA device: there a ``cuda`` kernel runs or raises."""
+def _on_card(x) -> bool:
+    """Operands (or a container) on a CUDA device: there a ``cuda`` kernel
+    runs or raises."""
     return x.device.type == "cuda"
 
 
@@ -169,8 +170,10 @@ def _spmv_chain(A, policy: ExecutionPolicy, on_card: bool = False) -> List[Kerne
 
 
 def select_spmv(A, policy: ExecutionPolicy) -> KernelEntry:
-    """The entry dispatch would run first for ``A`` under ``policy``."""
-    return _spmv_chain(A, policy)[0]
+    """The entry dispatch would run first for ``A`` under ``policy``: on a
+    container on the card, as ``_dispatch_spmv`` orders it there, a chain
+    that holds ``cuda`` keeps its order however the keys' health stands."""
+    return _spmv_chain(A, policy, _on_card(A))[0]
 
 
 def _run_chain(steps: List[Tuple[DispatchKey, Callable]],

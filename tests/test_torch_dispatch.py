@@ -366,8 +366,10 @@ def test_operator_api_mirrors_reference():
     assert (P.format, P.policy.backends[0]) == (
         J_P.format, J_P.policy.backends[0].replace("pallas", "cuda"))
     _close((P @ torch.from_numpy(_X)).numpy(), _S @ _X)
-    with pytest.raises(NotImplementedError, match="dynamic"):
-        A.mutable()
+    ov = A.mutable()  # the dynamic-matrix lane (core/dynamic.py)
+    assert ov.base is A and ov.ndelta == 0
+    ov.set(0, _N - 1, 1.0)
+    assert A.refresh(ov, threshold=1e9) is ov.base and ov.ndelta == 0
     tuned = A.tune(candidates=[("csr", "plain"), ("dia", "cuda")], iters=1, warmup=0,
                    device="cpu")
     _close((tuned @ torch.from_numpy(_X)).numpy(), _S @ _X)
@@ -375,7 +377,7 @@ def test_operator_api_mirrors_reference():
 
 @pytest.mark.parametrize("modname", ["repro_torch.core.operator", "repro_torch.core.health",
                                      "repro_torch.core.autotune", "repro_torch.core.features",
-                                     "repro_torch.core.select",
+                                     "repro_torch.core.select", "repro_torch.core.dynamic",
                                      "repro_torch.solvers.cg", "repro_torch.solvers.mg",
                                      "repro_torch.io.matrix_market", "repro_torch.io.corpus"])
 def test_port_doctests(modname):
