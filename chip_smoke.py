@@ -114,13 +114,36 @@ Phases, one or more lines each, each ending with its seconds:
      healthy runs show no retry, degraded request, fallback or failed key,
      churn's misses exceed its tenants and each miss tunes, and hot and
      churn's admissions, batches, hits, misses and evictions equal a replay
-     of the same traffic on the host at 4,096 rows, untuned.
+     of the same traffic on the host at 4,096 rows, untuned;
+ 11. the distributed path (``repro_torch.distributed_op``), HPCG 104^3 over
+     ``PartMesh.on("cuda", parts=4)``, two runs each counted on its own:
+     **dist** (a) ``run_hpcg_distributed`` with depth clamped to 3 by
+     ``distributable_depth``, 50 iterations, tol 1e-6, every part and every
+     level tuned over csr/dia/ell/coo x plain/cuda, its timed phase cut to
+     one repetition (printed as ``[dist cut]``); it requires ``valid``,
+     ``bitwise`` and ``rel_res <= 1e-6`` and prints pcg_iters, t_ref, t_opt,
+     each tuned operator's per-part choices and race tables, and for every
+     part the key the race picked beside the key dispatch runs
+     (``DistributedOperator.dispatched``); after that run, every tuned
+     operator (the main one and each level's) is held against serial
+     csr/plain at rtol 2e-4, and one SymGS color's ``masked_matvec`` exactly
+     against ``where(mask, A @ x, 0)``; **dist_pairs** (b) the paper's pairs
+     dia+coo and ell+coo, and ell+dia (DIA on the rectangular remote
+     windows, where the race puts it), on their cuda keys at 104^3, 52^3
+     and 26^3 (each level's split timed, with its halo and each part's local
+     and remote entries): the same two checks, each block running its
+     fixed key (remote coo printed as running plain above 8,192 rows a
+     part), and each kernel launched once a part for every block that runs
+     it, masked and not, at every level (``coo_spmv`` at 26^3);
+     (c) rowblock csr/plain at 104^3 bit for bit against serial csr/plain;
+     (d) ``FaultSpec(site="halo", times=1)`` makes one matvec differ and
+     leaves the next one equal.
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
 ``launches_<path>`` gives every path's count, and ``dia_spmv``'s
-``launches_split`` its launches on the two HPCG paths by level, masked or
-not); the last line is
+``launches_split`` its launches on the HPCG paths by level, masked or not,
+``g^3/4`` for a part of a level on the distributed paths); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero. It needs ``torch.cuda.is_available()`` and the repository's
 ``src/`` and ``tests/fixtures/corpus`` beside it. Full numbers also go to
@@ -180,10 +203,10 @@ CANDIDATES = [(fmt, impl) for fmt in ("coo", "csr", "dia", "ell", "sell", "bsr")
 #: The paths on which each kernel must launch (the JSON line's ``launches``
 #: is the first one's count): the HPCG run (phase 4), the column-limited CG
 #: (phase 5), the one ``scoo_spmv`` call of phase 2, the block path (phase
-#: 8) or the serving path (phase 10).
-REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve"),
-               "dia_spmv_tiled": ("tiled_cg",), "ell_spmv": ("hpcg",),
-               "ell_spmv_tiled": ("hpcg",), "coo_spmv": ("hpcg", "serve"),
+#: 8), the serving path (phase 10) or the distributed fixed pairs (phase 11).
+REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve", "dist_pairs"),
+               "dia_spmv_tiled": ("tiled_cg",), "ell_spmv": ("hpcg", "dist_pairs"),
+               "ell_spmv_tiled": ("hpcg",), "coo_spmv": ("hpcg", "serve", "dist_pairs"),
                "scoo_spmv_tiled": ("hpcg",), "scoo_spmv": ("scoo",), "bsr_spmm": ("block",)}
 
 #: What a kernel's entry in the JSON line carries beyond the contract's keys:
@@ -225,6 +248,21 @@ SERVE_SUMMARY_KEYS = ("requests", "batches", "admissions", "latency_p50_s", "lat
                       "throughput_rps", "hit_rate", "tunes", "dispatch_fallbacks",
                       "batch_size_mean", "batch_size_max", "coalesced_fraction", "retries",
                       "degraded_requests", "batch_splits", "errors")
+
+#: The distributed path: HPCG 104^3 over four parts on one card, the
+#: per-part race's keys (the stackable formats on both backends), the timed
+#: phase's repetitions (cut from 3 to keep the smoke inside its limit), and
+#: pairs fixed on every distributed level (``distributable_depth(104, 104,
+#: 104, 4)`` is 3: 13^3 does not split evenly in four): the paper's two,
+#: and DIA on the rectangular remote windows, where the race puts it.
+DIST_PARTS = 4
+DIST_CANDIDATES = [(fmt, impl) for fmt in ("csr", "dia", "ell", "coo")
+                   for impl in ("plain", "cuda")]
+DIST_REPS = 1
+DIST_LEVELS = (GRID, GRID // 2, GRID // 4)
+DIST_PAIRS = {"dia+coo": (("dia", "cuda"), ("coo", "cuda")),
+              "ell+coo": (("ell", "cuda"), ("coo", "cuda")),
+              "ell+dia": (("ell", "cuda"), ("dia", "cuda"))}
 
 TUNER_MATRICES = (("banded(10**6, 4)", "banded", (10 ** 6, 4)),
                   ("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),
@@ -806,12 +844,14 @@ def launch_counts() -> dict:
 
 def dia_split(by_shape) -> dict:
     """``dia_spmv``'s launches by level (``g^3`` for a cube of g^3 rows,
-    else the row count) and by masked or not."""
+    ``g^3/4`` for a part of one, else the row count) and by masked or not."""
     out = {}
     for (rows, masked), count in sorted(by_shape.items(), reverse=True):
         g = round(rows ** (1 / 3))
-        out.setdefault(f"{g}^3" if g ** 3 == rows else str(rows), {})[
-            "masked" if masked else "unmasked"] = count
+        gp = round((rows * DIST_PARTS) ** (1 / 3))
+        label = (f"{g}^3" if g ** 3 == rows else f"{gp}^3/{DIST_PARTS}"
+                 if gp ** 3 == rows * DIST_PARTS else str(rows))
+        out.setdefault(label, {})["masked" if masked else "unmasked"] = count
     return out
 
 
@@ -821,6 +861,7 @@ def recorded_races(log: list):
     level's, each ``tune()``) with the matrix shape it raced on."""
     import repro_torch.apps.hpcg as hpcg_mod
     import repro_torch.core.autotune as tune_mod
+    import repro_torch.distributed_op.tune as dtune_mod
     import repro_torch.solvers.mg as mg_mod
 
     orig = tune_mod.autotune_spmv
@@ -830,7 +871,7 @@ def recorded_races(log: list):
         log.append(res)
         return res
 
-    mods = (tune_mod, mg_mod, hpcg_mod)
+    mods = (tune_mod, mg_mod, hpcg_mod, dtune_mod)
     for m in mods:
         m.autotune_spmv = recording
     try:
@@ -1337,6 +1378,240 @@ def phase_serve(results: dict) -> dict:
     return total
 
 
+@contextlib.contextmanager
+def recorded_tunes(log: list):
+    """Record every ``tune_partitions`` result (the main operator's and
+    each multigrid level's) of the distributed path."""
+    import repro_torch.distributed_op as dop
+    import repro_torch.distributed_op.tune as dtune
+
+    orig = dtune.tune_partitions
+
+    def recording(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        log.append(out)
+        return out
+
+    dop.tune_partitions = dtune.tune_partitions = recording
+    try:
+        yield log
+    finally:
+        dop.tune_partitions = dtune.tune_partitions = orig
+
+
+def dist_keys(label: str, op) -> list:
+    """Each part's key as raced (or fixed) beside the key dispatch runs on
+    its part (``DistributedOperator.dispatched``), printed on one line."""
+    rows = []
+    for p, (picked, runs) in enumerate(zip(op.choices, op.dispatched())):
+        for block, k, r in (("local", picked[0], runs[0]), ("remote", picked[1], runs[1])):
+            if r is not None:
+                rows.append({"part": p, "block": block, "picked": f"{k.format}/{k.backend}",
+                             "runs": f"{r.format}/{r.backend}"})
+    phase(f"{label} keys", picked_runs=json.dumps(
+        [f"p{r['part']} {r['block']} {r['picked']}->{r['runs']}" for r in rows]))
+    return rows
+
+
+def dist_input(s, colors: dict):
+    """For ``s`` = fdm27(g, g, g): x made from the seed g, serial csr/plain
+    on the card, its ``A @ x``, and the first SymGS color's row mask (the
+    greedy coloring the distributed sweep runs, computed once per grid)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import as_operator
+    from repro_torch.solvers.symgs import greedy_coloring
+
+    n = s.shape[0]
+    g = round(n ** (1 / 3))
+    x = torch.from_numpy(np.random.default_rng(g).standard_normal(n).astype(np.float32)).cuda()
+    serial = as_operator(s, "csr", device="cuda").using("plain")
+    if g not in colors:
+        colors[g] = greedy_coloring(s) == 0
+    return x, serial @ x, torch.from_numpy(colors[g]).cuda()
+
+
+def check_dist_op(label: str, op, x, want, mask) -> tuple:
+    """``op @ x`` against serial csr/plain at rtol 2e-4, and one color's
+    masked matvec exactly against ``where(mask, op @ x, 0)``. Returns the
+    max abs error and ``op @ x``."""
+    full = op @ x
+    err = within(f"{label}: A @ x against serial csr/plain", full, want)
+    check_masked(label, op.masked_matvec(x, mask), full, mask)
+    return err, full
+
+
+def check_masked(label: str, y, full, mask) -> None:
+    import torch
+
+    check(torch.equal(y, torch.where(mask, full, torch.zeros((), device=full.device))),
+          f"{label}: masked matvec differs from where(mask, A @ x, 0)")
+
+
+def tune_label(i: int, op) -> str:
+    return f"dist tune {round(op.shape[0] ** (1 / 3))}^3" + (" (main)" if i == 0 else " (level)")
+
+
+def phase_dist_hpcg(results: dict):
+    """Phase 11a: distributed HPCG 104^3 over four parts on the card, tuned
+    per part and per level. Returns the result and every tuned operator."""
+    from repro_torch.apps.hpcg import run_hpcg_distributed
+    from repro_torch.core import PartMesh
+
+    g = GRID
+    print(f"[dist cut] timed reps 3 -> {DIST_REPS} (each rep two 50-iteration distributed "
+          f"solves)", flush=True)
+    tunes = []
+    with recorded_tunes(tunes):
+        res = run_hpcg_distributed(PartMesh.on("cuda", parts=DIST_PARTS), g, g, g, iters=50,
+                                   reps=DIST_REPS, candidates=DIST_CANDIDATES, tol=1e-6,
+                                   tune_levels=True, device="cuda")
+    check(res.bitwise, f"dist HPCG {g}^3: rowblock csr/plain differs from serial csr/plain")
+    check(res.rel_res <= 1e-6, f"dist HPCG {g}^3: rel_res {res.rel_res} > 1e-6 after "
+          f"{res.pcg_iters} iterations")
+    check(res.valid, f"dist HPCG {g}^3: valid=False (rel_err {res.rel_err})")
+    tuned = {}
+    for i, (op, table) in enumerate(tunes):
+        label = tune_label(i, op)
+        table_us = {f"p{p}/{b}": {f"{f}/{k}": round(t, 1) for (f, k), t in
+                                  sorted(tbl.items(), key=lambda kv: kv[1])}
+                    for (p, b), tbl in table.items()}
+        phase(label, per_part=repr(op.describe()), halo=op.halo, nbytes=op.nbytes,
+              table_us=json.dumps(table_us))
+        tuned[label] = {"per_part": op.describe(), "halo": op.halo, "table_us": table_us,
+                        "keys": dist_keys(label, op)}
+    results["dist_hpcg"] = phase(
+        f"dist hpcg {g}^3", parts=DIST_PARTS, valid=res.valid, bitwise=res.bitwise,
+        rel_err=res.rel_err, pcg_iters=res.pcg_iters, rel_res=res.rel_res,
+        t_ref_s=res.ref_time_s, t_opt_s=res.opt_time_s, reps=DIST_REPS,
+        chosen=repr(res.chosen), levels=repr(res.mg_levels))
+    results["dist_hpcg"]["tunes"] = tuned
+    return res, [op for op, _ in tunes]
+
+
+def check_dist_tuned(results: dict, ops: list, colors: dict) -> None:
+    """Phase 11a's check, made after its counted run: every tuned operator
+    (the main one and each level's) on the card against serial csr/plain,
+    so each per-part kernel the races chose (DIA on the rectangular remote
+    windows too) is held to plain at the shapes the path gives it, masked
+    and not."""
+    for i, op in enumerate(ops):
+        label = tune_label(i, op)
+        x, want, mask = dist_input(op.source, colors)
+        results["dist_hpcg"]["tunes"][label]["max_abs_err"] = phase(
+            f"{label} check", runs=repr(op.describe(dispatched=True)),
+            max_abs_err=check_dist_op(label, op, x, want, mask)[0],
+            masked_equal=True)["max_abs_err"]
+
+
+def phase_dist_pairs(results: dict, colors: dict):
+    """Phase 11b-d: the fixed pairs on every distributed level, rowblock at
+    104^3 bit for bit, and the halo fault."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import PartMesh, split_local_remote
+    from repro_torch.core import matrices as M
+    from repro_torch.distributed_op import DistributedOperator
+    from repro_torch.resilience import FaultPlan, FaultSpec
+
+    kernels = {k: counters()[k] for k in ("dia_spmv", "ell_spmv", "coo_spmv")}
+    dia_spmv = kernels["dia_spmv"]
+    mesh = PartMesh.on("cuda", parts=DIST_PARTS)
+    out = {}
+    fault_op = None
+    for g in DIST_LEVELS:
+        s = M.fdm27(g, g, g)
+        mr = s.shape[0] // DIST_PARTS
+        x, want, mask = dist_input(s, colors)
+        t0 = time.perf_counter()
+        locals_, remotes, halo = split_local_remote(s, DIST_PARTS)
+        out[f"split {g}^3"] = phase(
+            f"dist {g}^3 split", split_s=round(time.perf_counter() - t0, 3), halo=halo,
+            rows_a_part=mr, local_nnz=[m.nnz for m in locals_],
+            remote_nnz=[m.nnz for m in remotes], remote_cols=remotes[0].shape[1])
+        del locals_, remotes
+        for name, (local, remote) in DIST_PAIRS.items():
+            op = DistributedOperator.build(s, mesh, local=local, remote=remote)
+            label = f"dist {g}^3 {name}"
+            keys = dist_keys(label, op)
+            for r in keys:  # a part carries no plan: coo/cuda past 8,192 rows runs plain
+                runs = ("coo/plain" if r["picked"] == "coo/cuda" and mr > 8192
+                        else r["picked"])
+                check(r["runs"] == runs, f"{label}: p{r['part']} {r['block']} "
+                      f"{r['picked']} runs {r['runs']}, not {runs}")
+            # each kernel once a part for every block that runs it
+            expect = {k: sum(r["runs"] == f"{k.split('_')[0]}/cuda" for r in keys)
+                      for k in kernels}
+            err, full = check_dist_op(label, op, x, want, mask)
+            counts = {"max_abs_err": err}
+            for masked in (False, True):
+                before = {k: fn.launches for k, fn in kernels.items()}
+                dia_before = dia_spmv.by_shape[(mr, masked)]
+                y = op.masked_matvec(x, mask) if masked else op @ x
+                torch.cuda.synchronize()
+                ran = {k: fn.launches - before[k] for k, fn in kernels.items()}
+                if masked:
+                    check_masked(label, y, full, mask)
+                else:
+                    check(torch.equal(y, full), f"{label}: two launches gave different bits")
+                check(ran == expect, f"{label}: launched {ran} "
+                      f"{'masked' if masked else 'unmasked'}, not {expect}")
+                check(dia_spmv.by_shape[(mr, masked)] - dia_before == expect["dia_spmv"],
+                      f"{label}: dia_spmv not launched at {mr} rows a part")
+                counts["masked" if masked else "unmasked"] = ran
+            remote_runs = sorted({r["runs"] for r in keys if r["block"] == "remote"})
+            if remote_runs == ["coo/plain"]:
+                print(f"[dist] {g}^3 {name}: remote coo/cuda runs coo/plain on parts of {mr} "
+                      f"rows (no plan; above max_onehot_rows 8192)", flush=True)
+            out[label] = phase(label, halo=op.halo, local_runs=sorted(
+                {r["runs"] for r in keys if r["block"] == "local"}), remote_runs=remote_runs,
+                launches=json.dumps(counts))
+            del full, y
+            if g == DIST_LEVELS[-1] and name == "dia+coo":
+                fault_op = op
+            else:
+                del op
+        if g == DIST_LEVELS[0]:
+            # (c) rowblock csr/plain at 104^3, bit for bit against serial csr/plain
+            chk = DistributedOperator.build(s, mesh, local="csr", mode="rowblock")
+            same = bool(torch.equal(chk @ x, want))
+            check(same, f"dist {g}^3 rowblock csr/plain differs from serial csr/plain")
+            out["rowblock"] = phase(f"dist {g}^3 rowblock", bitwise=same, format=chk.format)
+            del chk
+        del s, x, want, mask
+        torch.cuda.empty_cache()
+
+    # (d) the halo fault: one dropped exchange is loud, and it passes
+    g = DIST_LEVELS[-1]
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(g ** 3)
+                         .astype(np.float32)).cuda()
+    y_ok = fault_op @ x
+    with FaultPlan([FaultSpec(site="halo", times=1)]) as plan:
+        y_bad = fault_op @ x
+    fired = plan.fired("halo")
+    check(fired == 1, f"halo fault fired {fired} times, not once")
+    check(not torch.allclose(y_bad, y_ok), "a dropped halo left the matvec unchanged")
+    check(torch.equal(fault_op @ x, y_ok), "the matvec after a dropped halo is not the same")
+    out["halo_fault"] = phase(f"dist {g}^3 halo fault", fired=fired,
+                              max_abs_change=float((y_bad - y_ok).abs().max()), after_equal=True)
+    results["dist_pairs"] = out
+
+
+def phase_dist(results: dict) -> tuple:
+    """Phase 11, each path counted on its own: (a) the tuned distributed
+    HPCG, then its operators' check; (b-d) the fixed pairs, rowblock, the
+    halo fault. Returns the launches of (a) and of (b-d)."""
+    (_, ops), launches_dist, _ = counted(f"dist hpcg {GRID}^3",
+                                         lambda: phase_dist_hpcg(results))
+    colors = {}
+    check_dist_tuned(results, ops, colors)
+    del ops
+    _, launches_pairs, _ = counted("dist pairs", lambda: phase_dist_pairs(results, colors))
+    return launches_dist, launches_pairs
+
+
 def main() -> int:
     import torch
 
@@ -1467,10 +1742,14 @@ def main() -> int:
     launches_serve = phase_serve(results)
     lap("10 serve")
 
+    # --------------------------------------------------------------- 11
+    launches_dist, launches_pairs = phase_dist(results)
+    lap("11 dist")
+
     by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled,
                "tuner": launches_tuner, "corpus": launches_corpus, "scoo": launches_scoo,
                "block": launches_block, "hpcg_predict": launches_pred,
-               "serve": launches_serve}
+               "serve": launches_serve, "dist": launches_dist, "dist_pairs": launches_pairs}
     for name, paths in REQUIRED_ON.items():
         for path in paths:
             check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
@@ -1488,7 +1767,8 @@ def main() -> int:
             **{key: k[key] for key in EXTRA_KEYS if key in k}})
         if name == "dia_spmv":  # by level, masked or not, on the two HPCG paths
             line["kernels"][-1]["launches_split"] = {
-                p: by_path[p]["dia_spmv_split"] for p in ("hpcg", "hpcg_predict")}
+                p: by_path[p]["dia_spmv_split"]
+                for p in ("hpcg", "hpcg_predict", "dist", "dist_pairs")}
     results["seconds"] = seconds
     results["total_s"] = round(time.perf_counter() - t_start, 1)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -14,8 +14,10 @@ Public API (the ported part of ``repro.core``):
     health:    per-DispatchKey failure counters under dispatch
     registry:  SpmvWorkspace LRU warm pool keyed by structural fingerprint
     dynamic:   DeltaOverlay mutation lane (COO delta over any base container)
-
-Not ported yet (ROADMAP queue 1): distributed.
+    distributed: the PartMesh of parts, row partition + local/remote
+               halo-split helpers and the legacy DistributedSpMV; the full
+               row-partitioned operator (per-part formats, rowblock exact
+               mode, masked matvec) lives in ``repro_torch.distributed_op``
 """
 from .errors import (
     AdmissionError,
@@ -67,6 +69,7 @@ from .select import (
 )
 from .registry import SpmvWorkspace, spmv_cached, workspace
 from .dynamic import DEFAULT_DRIFT_THRESHOLD, DeltaOverlay, DriftReport, RefreshResult
+from .distributed import DistributedSpMV, PartMesh, autotune_distributed, split_local_remote
 
 __all__ = [
     "BSR", "COO", "CSR", "DIA", "ELL", "SELL", "Dense", "KernelPlan",
@@ -88,4 +91,5 @@ __all__ = [
     "HealthRegistry", "KeyHealth", "health_registry", "use_health",
     "SpmvWorkspace", "spmv_cached", "workspace",
     "DEFAULT_DRIFT_THRESHOLD", "DeltaOverlay", "DriftReport", "RefreshResult",
+    "DistributedSpMV", "PartMesh", "autotune_distributed", "split_local_remote",
 ]

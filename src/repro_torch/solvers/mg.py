@@ -6,7 +6,8 @@ recurse, prolong the coarse correction back, post-smooth. Coarse operators
 are re-discretised 27-point stencils. Every linear piece is a
 ``SparseOperator``: the level matrices (tunable per level) and the
 restriction/prolongation maps (COO operators on the default plain policy).
-The distributed variant waits for ROADMAP queue 1, item 8.
+:func:`distribute_vcycle` partitions every level's linear algebra over a
+mesh of parts (``repro_torch.distributed_op``).
 """
 from __future__ import annotations
 
@@ -116,6 +117,94 @@ def coarsenable(grid: Sequence[int], min_dim: int = 4) -> bool:
         (True, False, False)
     """
     return all(d % 2 == 0 and d // 2 >= min_dim // 2 and d > 2 for d in grid)
+
+
+def distributable_depth(nx: int, ny: int, nz: int, nparts: int,
+                        depth: int = 4) -> int:
+    """Deepest hierarchy where ``nparts`` divides every level's row count.
+
+    Distributed levels partition rows evenly over the mesh of parts, so a
+    level with ``n % nparts != 0`` cannot be built; the hierarchy is
+    truncated above it.
+
+    Example:
+        >>> distributable_depth(16, 16, 16, 4)   # 4096, 512, 64, 8 all divide 4
+        4
+        >>> distributable_depth(4, 4, 8, 4)      # 128, 16; next level is 2
+        2
+    """
+    d, grid = 0, (nx, ny, nz)
+    while d < depth:
+        if (grid[0] * grid[1] * grid[2]) % nparts:
+            break
+        d += 1
+        if not coarsenable(grid):
+            break
+        grid = tuple(g // 2 for g in grid)
+    if d == 0:
+        raise ValueError(f"finest grid {nx}x{ny}x{nz} is not divisible by "
+                         f"{nparts} parts")
+    return d
+
+
+def distribute_vcycle(vc: VCycle, mesh, axis: str = "data", *,
+                      tune: bool = False, candidates=None,
+                      dtype=torch.float32) -> VCycle:
+    """The V-cycle with every level's linear algebra partitioned over ``mesh``.
+
+    Per level:
+
+      - ``A``  -> a ``DistributedOperator`` (local/remote split, the halo
+        exchange picked per level — fine levels get the neighbour window,
+        coarse levels whose stencil reach exceeds a part read the whole x);
+      - the SymGS smoother -> ``smoother.distribute(A)`` (multicolor masked
+        sweeps through the distributed dispatch, schedule unchanged);
+      - ``R``/``P`` -> distributed operators too. With the stencil's
+        z-major numbering the injection transfers are part-aligned, so
+        their remote blocks are empty and they run without an exchange.
+
+    Args:
+        vc: a hierarchy from :func:`build_mg`. Every level's row count must
+            be divisible by the mesh's part count (see
+            :func:`distributable_depth`).
+        mesh / axis: the 1-D ``PartMesh`` to partition over.
+        tune: per-partition run-first tune of each level's operator
+            (Table III per-process choices), otherwise csr/plain.
+        candidates: candidate ``DispatchKey``s when tuning.
+        dtype: container value dtype.
+
+    Returns:
+        A ``VCycle`` whose ``__call__`` maps global residuals on the mesh's
+        home device to corrections there — it drops into ``pcg_solve``/``cg``
+        unchanged.
+    """
+    from repro_torch.core.convert import _as_scipy
+    from repro_torch.core.distributed import mesh_parts
+    from repro_torch.distributed_op import DistributedOperator
+
+    nparts = mesh_parts(mesh, axis)
+    levels = []
+    for l in vc.levels:
+        s = _as_scipy(l.A)
+        if s.shape[0] % nparts:
+            raise ValueError(
+                f"level {l.grid} has {s.shape[0]} rows, not divisible by "
+                f"{nparts} parts — clamp depth with distributable_depth()")
+        A_d = DistributedOperator.build(s, mesh, axis, local="csr",
+                                        remote="csr", mode="auto", dtype=dtype)
+        if tune:
+            A_d = A_d.tune(candidates)
+        R_d = P_d = None
+        if l.R is not None:
+            R_d = DistributedOperator.build(_as_scipy(l.R), mesh, axis,
+                                            local="csr", remote="csr",
+                                            mode="auto", dtype=dtype)
+            P_d = DistributedOperator.build(_as_scipy(l.P), mesh, axis,
+                                            local="csr", remote="csr",
+                                            mode="auto", dtype=dtype)
+        levels.append(MGLevel(l.grid, A_d, l.smoother.distribute(A_d),
+                              R_d, P_d))
+    return VCycle(tuple(levels), vc.pre, vc.post, vc.coarse_sweeps)
 
 
 def build_mg(nx: int, ny: int, nz: int, *, depth: int = 4, pre: int = 1,

@@ -109,8 +109,30 @@ class SymGS:
         return 0 if self.masks is None else int(self.masks.shape[0])
 
     def with_operator(self, op: SparseOperator) -> "SymGS":
-        """Same schedule, retargeted SpMV operator (per-level tuning hook)."""
+        """Same schedule, retargeted SpMV operator (per-level tuning hook).
+
+        ``op`` may be any object with the ``masked_matvec(x, mask)``
+        protocol — a ``SparseOperator`` or a ``DistributedOperator``."""
         return replace(self, A=op)
+
+    def distribute(self, op) -> "SymGS":
+        """This smoother retargeted onto a ``DistributedOperator``.
+
+        Only the ``multicolor`` schedule distributes: each color update is
+        one row-masked SpMV (``op.masked_matvec``), which the distributed
+        operator runs as local+remote masked SpMV with a fresh halo
+        exchange per color — HPCG's multicolored distributed SymGS. The
+        schedule (coloring, diagonal) is global data and moves to the
+        mesh's home device, where the operator takes and returns vectors;
+        the color order is unchanged, so the sweep is the single-device
+        multicolor sweep.
+        """
+        if self.method != "multicolor":
+            raise ValueError(
+                "only the multicolor schedule distributes (the reference "
+                "triangular sweep is a sequential scan over global rows)")
+        home = op.mesh.home
+        return replace(self, A=op, diag=self.diag.to(home), masks=self.masks.to(home))
 
     # -- sweeps ---------------------------------------------------------------
 

@@ -2,9 +2,9 @@
 degraded serving) against the reference's on the CPU.
 
 Mirrors the tests of ``tests/test_chaos.py`` and ``tests/test_resilience.py``
-that need neither ``train/`` nor ``distributed_op/`` (the halo site and the
-training supervisors wait for those packages). Everything runs on fake
-clocks. Beyond the mirrored checks, the port is held to the reference:
+that do not need ``train/`` (the training supervisors wait for it), the
+halo site on ``repro_torch.distributed_op`` included. Everything runs on
+fake clocks. Beyond the mirrored checks, the port is held to the reference:
 
   - a fault plan fires the same event sequence for a seed;
   - the acceptance run, and the other fault scenarios, resolve the same
@@ -537,7 +537,23 @@ def test_injected_fault_outside_resilience_taxonomy():
     assert not issubclass(InjectedFault, ResilienceError)
 
 
-# ------------------------------------------------------------------ solver ----
+# ------------------------------------------------------------- halo + solver ----
+
+
+def test_halo_drop_detectably_corrupts_distributed_matvec():
+    from repro_torch.core import PartMesh
+    from repro_torch.distributed_op import DistributedOperator
+
+    mesh = PartMesh.on("cpu", parts=1)
+    s = M.banded(8, 1, seed=0)
+    op = DistributedOperator.build(s, mesh, "data", local="csr", mode="rowblock")
+    x = op.device_put(np.arange(1, 9, dtype=np.float32))
+    y_ok = op @ x
+    with FaultPlan([FaultSpec(site="halo", times=1)]) as plan:
+        y_bad = op @ x
+    assert plan.fired("halo") == 1
+    assert not torch.allclose(y_bad, y_ok)  # a dropped exchange is loud
+    torch.testing.assert_close(op @ x, y_ok)  # and transient
 
 
 def test_cg_exits_on_nonfinite_residual():

@@ -191,6 +191,10 @@ def test_package_imports_neither_jax_nor_repro():
         "import repro_torch.kernels._build, repro_torch.kernels.ref\n"
         "import repro_torch.solvers, repro_torch.apps.hpcg, repro_torch.io\n"
         "import repro_torch.kernels.ell_spmv, repro_torch.kernels.coo_spmv\n"
+        "import repro_torch.core.distributed, repro_torch.distributed_op\n"
+        "import repro_torch.distributed_op.tune\n"
+        "from repro_torch.apps.hpcg import run_hpcg_distributed\n"
+        "from repro_torch.solvers import distribute_vcycle\n"
         "from repro_torch.core.spmv import available_impls\n"
         "assert all('cuda' in available_impls(f) for f in ('csr', 'ell', 'coo'))\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
