@@ -137,7 +137,31 @@ Phases, one or more lines each, each ending with its seconds:
      it, masked and not, at every level (``coo_spmv`` at 26^3);
      (c) rowblock csr/plain at 104^3 bit for bit against serial csr/plain;
      (d) ``FaultSpec(site="halo", times=1)`` makes one matvec differ and
-     leaves the next one equal.
+     leaves the next one equal;
+ 12. the model path (``repro_torch.models``, ``launch/serve.py``'s LM loop):
+     ``qwen3-moe-235b-a22b`` at its published widths cut to 4 of its 94
+     layers, built on the card from a seeded generator (weights but the
+     router in bf16), counted as one path: (a) ``serve_lm`` serves batch 4,
+     prompt 32, gen 32 on the bsr dispatch lane under
+     ``use_backend("cuda")`` (prompt ms, tok/s, ms/token p50/p99,
+     ``bsr_spmm`` launches, peak memory), then one decode step runs under
+     ``torch.cuda.set_sync_debug_mode("error")``; (b) the served tokens
+     fed through the same model under ``use_backend("plain")``: each
+     step's logits within 8 eps(bf16) max|logit| of the served run's on
+     every batch row routed alike so far (at least 3/4 of the row-steps),
+     and equal greedy tokens wherever plain's top-2 margin exceeds that;
+     (c) one ``moe_ffn`` a lane (sort, coo and bsr on ``cuda``, onehot) on
+     the first layer's weights, 128 tokens of f32: each within rtol 1e-4,
+     atol 1e-5 of sort (aux rtol 1e-5), the bsr and coo dispatch matrices
+     giving ``x[t_s]`` bit for bit; then, outside the count, (d)
+     ``bsr_spmm`` at the decode step's dispatch (exact) and combine shapes
+     and ``coo_spmv`` on the 128-token combine's unsorted entries (exact),
+     each with the line phase 2 prints, the cost of a step's two BSR
+     containers and of a COO container's first call, and (e) one expert's
+     ``w_down`` pruned to BSR (density 0.25, blocks of 32) through
+     ``bsr_linear`` at 4 and 128 tokens against plain and the masked dense
+     product, and ``block_sparse_attention`` at 64 heads of 128, batch 4,
+     1,024 positions, banded blocks of 64, against a dense masked oracle.
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
@@ -203,18 +227,23 @@ CANDIDATES = [(fmt, impl) for fmt in ("coo", "csr", "dia", "ell", "sell", "bsr")
 #: The paths on which each kernel must launch (the JSON line's ``launches``
 #: is the first one's count): the HPCG run (phase 4), the column-limited CG
 #: (phase 5), the one ``scoo_spmv`` call of phase 2, the block path (phase
-#: 8), the serving path (phase 10) or the distributed fixed pairs (phase 11).
+#: 8), the serving path (phase 10), the distributed fixed pairs (phase 11)
+#: or the model path (phase 12).
 REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve", "dist_pairs"),
                "dia_spmv_tiled": ("tiled_cg",), "ell_spmv": ("hpcg", "dist_pairs"),
-               "ell_spmv_tiled": ("hpcg",), "coo_spmv": ("hpcg", "serve", "dist_pairs"),
-               "scoo_spmv_tiled": ("hpcg",), "scoo_spmv": ("scoo",), "bsr_spmm": ("block",)}
+               "ell_spmv_tiled": ("hpcg",),
+               "coo_spmv": ("hpcg", "serve", "dist_pairs", "model"),
+               "scoo_spmv_tiled": ("hpcg",), "scoo_spmv": ("scoo",),
+               "bsr_spmm": ("block", "model")}
 
 #: What a kernel's entry in the JSON line carries beyond the contract's keys:
 #: its other shapes (``bsr_spmm``'s SpMM and masked forms, ``scs_spmv`` off
 #: the 104^3 plan, DIA at 52^3, 26^3 and 13^3 and masked per level, ELL at
-#: 13^3), the path ``bsr_spmm`` ran, and the staged and every-slot bounds.
+#: 13^3, ``bsr_spmm`` at the MoE decode dispatch and combine and
+#: ``coo_spmv`` on the MoE combine's unsorted entries), the path
+#: ``bsr_spmm`` ran, and the staged and every-slot bounds.
 EXTRA_KEYS = ("path", "masked", "spmm", "coarse", "powerlaw", "block", "shape_52",
-              "shape_26", "shape_13",
+              "shape_26", "shape_13", "moe_dispatch", "moe_combine", "moe_combine_unsorted",
               "bound_staged_ms", "bound_every_slot_ms", "bound_every_id_slot_ms")
 
 #: The block matrix of the block path: ``block_random(n, bs, density)``.
@@ -263,6 +292,36 @@ DIST_LEVELS = (GRID, GRID // 2, GRID // 4)
 DIST_PAIRS = {"dia+coo": (("dia", "cuda"), ("coo", "cuda")),
               "ell+coo": (("ell", "cuda"), ("coo", "cuda")),
               "ell+dia": (("ell", "cuda"), ("dia", "cuda"))}
+
+#: The model path (phase 12): qwen3-moe-235b-a22b at its published widths
+#: (d_model 4096, 64 heads over 4 kv heads of 128, 128 experts top-8 of
+#: width 1536, vocab 151,936, qk-norm, bf16 activations), its 94 layers cut
+#: to 4 (one MoE layer is 2.488 G parameters: 4 layers, the embedding and
+#: the head are 11.2 G, 44.8 GB in f32, 22.4 GB in bf16), served as
+#: ``launch/serve.py``'s LM loop serves it at the reference's CLI defaults
+#: (batch 4, prompt 32, gen 32), on the bsr dispatch lane under
+#: ``use_backend("cuda")``.
+MODEL_ARCH = "qwen3-moe-235b-a22b"
+MODEL_LAYERS = 4
+MODEL_DEVICE = "cuda"
+MODEL_SERVE = {"batch": 4, "prompt_len": 32, "gen": 32}
+#: Tokens of phase 12c's single ``moe_ffn`` calls (f32 activations).
+MODEL_LANE_T = 128
+#: bf16 logits of the served and the plain teacher-forced run agree within
+#: ``MODEL_LOGIT_EPS * eps(bf16) * max|logit|`` a step, the tolerance of
+#: ``tests/test_torch_models_lm.py``; a batch row is compared up to its
+#: first step whose routing differs between the runs in any layer (a bf16
+#: rounding can move a near-tie of two experts), and at least
+#: ``MODEL_COMPARED`` of the row-steps must be compared.
+MODEL_LOGIT_EPS = 8
+MODEL_COMPARED = 0.75
+#: The MoE lanes' contract (``tests/test_moe.py``): f32 y, aux.
+MOE_RTOL, MOE_ATOL, MOE_AUX_RTOL = 1e-4, 1e-5, 1e-5
+#: Phase 12e: one expert's ``w_down`` pruned to a quarter of its 32x32
+#: blocks, applied to 4 and 128 tokens; block-sparse attention at the
+#: config's 64 heads of 128, batch 4, 1,024 positions, blocks of 64, banded.
+PRUNE_DENSITY, PRUNE_BS, PRUNE_TOKENS = 0.25, 32, (4, 128)
+ATTN_B, ATTN_S, ATTN_BLOCK = 4, 1024, 64
 
 TUNER_MATRICES = (("banded(10**6, 4)", "banded", (10 ** 6, 4)),
                   ("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),
@@ -1612,6 +1671,414 @@ def phase_dist(results: dict) -> tuple:
     return launches_dist, launches_pairs
 
 
+def close(what: str, got, want, rtol: float, atol: float) -> float:
+    """Max abs error of ``got`` against ``want``, which it must meet at
+    ``|got - want| <= atol + rtol * |want|`` (numpy's allclose rule)."""
+    import torch
+
+    got, want = got.double(), want.double()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    err = (got - want).abs()
+    check(bool((err <= atol + rtol * want.abs()).all()),
+          f"{what}: disagreement beyond rtol {rtol} atol {atol} (max err {float(err.max())})")
+    return float(err.max())
+
+
+def measure_model_kernel(label: str, fn, plain, moved: int, flops: int, kernel: str,
+                         library=None, exact=False, rtol=2e-4, **extra) -> dict:
+    """Phase 12d's line for one kernel call at the model path's shapes:
+    against its plain version (exactly when ``exact``), two launches
+    bit-equal, then ``ms`` (events), ``kernel_ms`` (device time),
+    ``plain_ms``, ``library_ms`` (one PyTorch call on the same inputs, or
+    ``None``) and the bound (``moved`` bytes against ``flops`` at the f32
+    CUDA-core rate)."""
+    import torch
+
+    y, y_plain = fn(), plain()
+    err = within(f"{label} against its plain version", y, y_plain, rtol=rtol)
+    same = bool(torch.equal(y, y_plain))
+    if exact:
+        check(same, f"{label}: kernel differs from its plain version")
+    check(bool(torch.equal(y, fn())), f"{label}: two launches differ")
+    b_ms, b_by = bound(moved, flops)
+    k_ms = kernel_ms(fn, kernel)
+    check(k_ms is None or k_ms >= b_ms,
+          f"{label}: kernel_ms {k_ms} under its bound {b_ms}: an impossible reading")
+    lib_ms = lib_kernel = None
+    if library is not None:
+        try:
+            within(f"{label}: the library call against the kernel",
+                   library().reshape(y.shape), y, rtol=rtol)
+            lib_ms, lib_kernel = cuda_ms(library, 20), kernel_ms(library, "")
+        except (RuntimeError, NotImplementedError) as e:  # no such product in this torch
+            extra["library_error"] = repr(f"{type(e).__name__}: {str(e)[:120]}")
+    return phase(f"model kernel {label}", **extra, exact=same, repeat_equal=True,
+                 max_abs_err=err, ms=cuda_ms(fn, 50), kernel_ms=k_ms,
+                 plain_ms=cuda_ms(plain, 5), library_ms=lib_ms, library_kernel_ms=lib_kernel,
+                 bytes=moved, flops=flops, bound_ms=b_ms, bound_by=b_by)
+
+
+@contextlib.contextmanager
+def recorded_routes(log: list):
+    """Record the top-k experts of every MoE routing (``moe._route``), in
+    call order, as device tensors (no copy to the host)."""
+    import repro_torch.models.moe as moe_mod
+
+    orig = moe_mod._route
+
+    def recording(p, x, mcfg):
+        out = orig(p, x, mcfg)
+        log.append(out[1])
+        return out
+
+    moe_mod._route = recording
+    try:
+        yield log
+    finally:
+        moe_mod._route = orig
+
+
+def model_serve(results: dict, smi: str, routes: list):
+    """Phase 12a: the model built on the card from a seeded generator and
+    served through ``serve_lm`` (bsr lane, ``use_backend("cuda")``); then
+    one more decode step under the sync debug mode "error", so no host
+    sync hides in the lane. Returns the served run and its step logits."""
+    import types
+
+    import torch
+
+    from repro_torch.core import use_backend
+    from repro_torch.distributed.sharding import param_paths
+    from repro_torch.launch.serve import serve_lm
+
+    args = types.SimpleNamespace(arch=MODEL_ARCH, smoke=False, seed=0, layers=MODEL_LAYERS,
+                                 dispatch_impl="bsr", device=MODEL_DEVICE,
+                                 **MODEL_SERVE)
+    logits = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = serve_lm(args, logits_out=logits)
+    wall = time.perf_counter() - t0
+    bsr_launches = counters()["bsr_spmm"].launches
+    peak = torch.cuda.max_memory_allocated()
+    n_routes = len(routes)
+    model, params, cfg = served["model"], served["params"], served["cfg"]
+    caches = model.init_caches(MODEL_SERVE["batch"], 2)
+    tok = served["generated"][:, -1:].to(torch.int32).to(MODEL_DEVICE)
+    torch.cuda.synchronize()
+    with use_backend("cuda"):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.decode_step(params, tok, caches, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    del routes[n_routes:]
+    results["model"] = phase(
+        "model serve", smi=repr(smi), arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        vocab=cfg.vocab, dispatch_impl=cfg.moe.dispatch_impl, batch=MODEL_SERVE["batch"],
+        prompt=MODEL_SERVE["prompt_len"], gen=MODEL_SERVE["gen"],
+        param_gb=sum(t.numel() * t.element_size() for _, t in param_paths(params)) / 1e9,
+        prompt_ms=served["prompt_s"] * 1e3, decode_ms=served["decode_s"] * 1e3,
+        tok_s=served["tok_s"], ms_token_p50=served["p50_s"] * 1e3,
+        ms_token_p99=served["p99_s"] * 1e3, bsr_spmm_launches=bsr_launches,
+        peak_memory_gb=peak / 1e9, wall_s=wall, decode_step_without_sync=True)
+    return served, logits
+
+
+def model_teacher_forced(results: dict, served, logits_a: list, routes: list) -> None:
+    """Phase 12b: the served tokens fed through the same model under
+    ``use_backend("plain")``; each step's logits against the served run's,
+    row by row up to a row's first routing difference, and the greedy
+    tokens wherever the plain run's top-2 margin exceeds the tolerance."""
+    import torch
+
+    from repro_torch.core import use_backend
+
+    model, params = served["model"], served["params"]
+    B, S, G = MODEL_SERVE["batch"], MODEL_SERVE["prompt_len"], MODEL_SERVE["gen"]
+    seq = torch.cat([served["prompt"], served["fed"]], 1).to(MODEL_DEVICE)
+    launches = launch_counts()
+    n_a = len(routes)
+    L = n_a // (S + G)
+    check(n_a == L * (S + G) and L == MODEL_LAYERS, f"model: {n_a} routings for {S + G} steps")
+    t0 = time.perf_counter()
+    logits_b = []
+    with use_backend("plain"):
+        caches = model.init_caches(B, S + G)
+        for t in range(S + G):
+            lg, caches = model.decode_step(params, seq[:, t:t + 1], caches, t)
+            logits_b.append(lg)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(launch_counts() == launches, "model: the plain run launched a kernel")
+    eps = torch.finfo(torch.bfloat16).eps
+    alike = torch.ones(B, dtype=torch.bool, device=MODEL_DEVICE)
+    compared = tokens_checked = 0
+    worst = worst_tol = 0.0
+    for t in range(S + G):
+        for a, b in zip(routes[L * t:L * (t + 1)], routes[n_a + L * t:n_a + L * (t + 1)]):
+            alike &= (a == b).all(dim=-1)
+        la, lb = logits_a[t].float(), logits_b[t].float()
+        tol = MODEL_LOGIT_EPS * eps * float(lb.abs().max())
+        err = (la - lb).abs().amax(dim=-1)
+        rows = alike.nonzero().flatten()
+        check(bool((err[rows] <= tol).all()), f"model step {t}: logits of rows routed alike "
+              f"differ by {err[rows].tolist()} > {tol}")
+        compared += rows.numel()
+        if rows.numel():
+            worst = max(worst, float(err[rows].max()))
+            worst_tol = max(worst_tol, tol)
+        top2 = lb.topk(2, dim=-1).values
+        clear = alike & (top2[:, 0] - top2[:, 1] > tol)
+        same = la.argmax(-1) == lb.argmax(-1)
+        check(bool(same[clear].all()), f"model step {t}: greedy tokens differ where plain's "
+              "top-2 margin exceeds the tolerance")
+        tokens_checked += int(clear.sum())
+        if t >= S:  # the served run's greedy token is its logits' argmax
+            check(bool((served["generated"][:, t - S].to(MODEL_DEVICE) == la.argmax(-1)).all()),
+                  f"model step {t}: served token is not its logits' argmax")
+    flips = B * (S + G) - compared
+    check(compared >= MODEL_COMPARED * B * (S + G),
+          f"model: only {compared} of {B * (S + G)} row-steps routed alike")
+    del routes[n_a:]
+    results["model_plain"] = phase(
+        "model teacher-forced vs plain", row_steps=B * (S + G), compared=compared,
+        not_compared_after_a_routing_difference=flips, max_abs_err=worst,
+        tolerance=worst_tol, tolerance_rule=f"{MODEL_LOGIT_EPS} eps(bf16) max|logit|",
+        tokens_checked=tokens_checked, plain_s=plain_s)
+
+
+def model_lanes(results: dict, served) -> None:
+    """Phase 12c: one ``moe_ffn`` per lane on the first layer's weights at
+    full width, f32 activations, ``MODEL_LANE_T`` tokens, under
+    ``use_backend("cuda")``: each against 'sort' at the reference's MoE
+    contract; the bsr and coo dispatch matrices give the dispatched rows
+    ``x[t_s]`` bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import SparseOperator, use_backend
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import layer
+
+    cfg = served["cfg"]
+    lp = layer(served["params"]["groups"][0], 0)["ffn"]
+    T, D = MODEL_LANE_T, cfg.d_model
+    x = torch.randn((T, D), generator=torch.Generator(device=MODEL_DEVICE).manual_seed(1),
+                    device=MODEL_DEVICE)
+    out, secs = {}, {}
+    with use_backend("cuda"):
+        for impl in ("sort", "coo", "bsr", "onehot"):
+            mcfg = dataclasses.replace(cfg.moe, dispatch_impl=impl)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[impl] = moe_mod.moe_ffn(lp, x, cfg, mcfg)
+            torch.cuda.synchronize()
+            secs[impl] = time.perf_counter() - t0
+        y0, aux0 = out["sort"]
+        errs = {}
+        for impl in ("coo", "bsr", "onehot"):
+            y, aux = out[impl]
+            errs[impl] = close(f"moe_ffn {impl} against sort", y, y0, MOE_RTOL, MOE_ATOL)
+            close(f"moe_ffn {impl} aux against sort", aux, aux0, MOE_AUX_RTOL, 0.0)
+        E, K = cfg.moe.n_experts, cfg.moe.top_k
+        C = moe_mod._capacity(T, K, E, cfg.moe.capacity_factor)
+        topw, tope, _ = moe_mod._route(lp, x, cfg.moe)
+        slot, t_s, w_s, keep = moe_mod._dispatch_indices(tope, topw, T, E, K, C)
+        xe = torch.zeros((E * C + 1, D), device=MODEL_DEVICE)
+        xe[slot] = x[t_s]
+        for make in (moe_mod.bsr_dispatch, moe_mod.coo_dispatch):
+            P = make(slot, t_s, keep, T, E, C, x.dtype)
+            check(bool(torch.equal(SparseOperator(P) @ x, xe[: E * C])),
+                  f"moe {P.format} dispatch does not give x[t_s] bit for bit")
+    results["model_lanes"] = phase(
+        "model moe_ffn lanes", tokens=T, capacity=C, slots=E * C,
+        kept=int(keep.sum()), seconds=json.dumps({k: round(v, 4) for k, v in secs.items()}),
+        max_abs_err_vs_sort=json.dumps(errs), dispatch_bit_exact=True)
+
+
+def model_kernels(results: dict, served) -> dict:
+    """Phase 12d: ``bsr_spmm`` at the decode step's dispatch (E*C x T, bf16
+    blocks against T rows of X) and combine (T x E*C+1 against ``h_pad``)
+    shapes, and ``coo_spmv`` on the unsorted combine of a 128-token
+    ``moe_ffn`` (f32), each against its plain version, with the cost of
+    building a step's two BSR containers and of a COO container's first
+    call (its order check reads one flag from the device)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_path, bsr_spmm_plain
+    from repro_torch.kernels.coo_spmv import coo_spmv, coo_spmv_from_container, coo_spmv_plain
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import layer
+
+    cfg = served["cfg"]
+    lp = layer(served["params"]["groups"][0], 0)["ffn"]
+    E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    gen = torch.Generator(device=MODEL_DEVICE).manual_seed(2)
+    out = {}
+
+    def bsr_lib(P, X):
+        """torch's BSR product on the same blocks (f32) and X, padded to
+        whole block columns beforehand (a BSR tensor's shape is whole
+        blocks)."""
+        valid = P.bcols >= 0
+        ncols = -(-P.shape[1] // P.bs) * P.bs
+        A = torch.sparse_bsr_tensor(
+            torch.cat([torch.zeros(1, dtype=torch.int64, device=MODEL_DEVICE),
+                       valid.sum(1).cumsum(0)]), P.bcols[valid].long(),
+            P.blocks[valid].float(), size=(P.bcols.shape[0] * P.bs, ncols))
+        Xp = torch.zeros((ncols, X.shape[1]), device=MODEL_DEVICE)
+        Xp[: P.shape[1]] = X[: P.shape[1]]
+        return lambda: A @ Xp
+
+    T = MODEL_SERVE["batch"]  # a decode step routes one token a sequence
+    x = torch.randn((T, D), generator=gen, device=MODEL_DEVICE).to(cfg.activation_dtype)
+    C = moe_mod._capacity(T, K, E, cfg.moe.capacity_factor)
+    topw, tope, _ = moe_mod._route(lp, x, cfg.moe)
+    slot, t_s, w_s, keep = moe_mod._dispatch_indices(tope, topw, T, E, K, C)
+    Pd = moe_mod.bsr_dispatch(slot, t_s, keep, T, E, C, x.dtype)
+    Xd = x.float()
+    real = int((Pd.bcols >= 0).sum())
+    moved = real * 64 * Pd.blocks.element_size() + nbytes(Pd.bcols, Xd) + E * C * D * 4
+    out["moe_dispatch"] = measure_model_kernel(
+        "bsr_spmm MoE decode dispatch", lambda: bsr_spmm(Pd.bcols, Pd.blocks, Xd),
+        lambda: bsr_spmm_plain(Pd.bcols, Pd.blocks, Xd), moved, 2 * real * 64 * D,
+        "bsr_spmm_", library=bsr_lib(Pd, Xd), exact=True,
+        shape=(E * C, T), nf=D, bs=Pd.bs, bwidth=Pd.bwidth, block_rows=Pd.bcols.shape[0],
+        real_blocks=real, capacity=C, path=bsr_spmm_path(Pd.bs, D))
+    h = torch.randn((E * C + 1, D), generator=gen, device=MODEL_DEVICE).to(cfg.activation_dtype)
+    h[-1] = 0
+    Pc = moe_mod.bsr_combine(slot, tope, w_s, keep, T, E, C, h.dtype)
+    Xc = h.float()
+    real = int((Pc.bcols >= 0).sum())
+    # the combine reads only the rows of h its real blocks name
+    read_rows = int(torch.unique(Pc.bcols[Pc.bcols >= 0]).numel()) * Pc.bs
+    moved = real * 64 * Pc.blocks.element_size() + nbytes(Pc.bcols) + read_rows * D * 4 + (
+        Pc.bcols.shape[0] * Pc.bs * D * 4)
+    out["moe_combine"] = measure_model_kernel(
+        "bsr_spmm MoE decode combine", lambda: bsr_spmm(Pc.bcols, Pc.blocks, Xc),
+        lambda: bsr_spmm_plain(Pc.bcols, Pc.blocks, Xc), moved, 2 * real * 64 * D,
+        "bsr_spmm_", library=bsr_lib(Pc, Xc), shape=(T, E * C + 1), nf=D, bs=Pc.bs,
+        bwidth=Pc.bwidth, block_rows=Pc.bcols.shape[0], real_blocks=real,
+        path=bsr_spmm_path(Pc.bs, D))
+
+    def build():
+        return (moe_mod.bsr_dispatch(slot, t_s, keep, T, E, C, x.dtype),
+                moe_mod.bsr_combine(slot, tope, w_s, keep, T, E, C, h.dtype))
+
+    build_ms = cuda_ms(build, 20)
+    out["moe_dispatch"]["containers_ms_per_layer"] = build_ms
+    phase("model containers", bsr_dispatch_and_combine_ms_per_layer=build_ms,
+          per_decode_step_ms=build_ms * MODEL_LAYERS)
+
+    # coo_spmv on a 128-token f32 combine: rows are tokens in expert order
+    T = MODEL_LANE_T
+    x = torch.randn((T, D), generator=gen, device=MODEL_DEVICE)
+    C = moe_mod._capacity(T, K, E, cfg.moe.capacity_factor)
+    topw, tope, _ = moe_mod._route(lp, x, cfg.moe)
+    slot, t_s, w_s, keep = moe_mod._dispatch_indices(tope, topw, T, E, K, C)
+    hc = torch.randn((E * C + 1,), generator=gen, device=MODEL_DEVICE)
+    hc[-1] = 0
+    P = moe_mod.coo_combine(slot, t_s, w_s, keep, T, E, C, torch.float32)
+    check(bool((P.row[1:] < P.row[:-1]).any()), "the MoE combine's rows came out sorted")
+    checks = coo_spmv.order_checks
+    first_ms = cuda_ms(lambda: coo_spmv_from_container(
+        moe_mod.coo_combine(slot, t_s, w_s, keep, T, E, C, torch.float32), hc), 20)
+    check(coo_spmv.order_checks > checks, "coo_spmv: no order check on a new container")
+    lib_A = torch.sparse_coo_tensor(torch.stack([P.row.long(), P.col.long()]), P.val,
+                                    P.shape)
+    moved = nbytes(P.row, P.col, P.val) + P.nnz * 4 + T * 4
+    out["moe_combine_unsorted"] = measure_model_kernel(
+        "coo_spmv MoE combine, unsorted rows", lambda: coo_spmv_from_container(P, hc),
+        lambda: coo_spmv_plain(P.row, P.col, P.val, hc, T), moved, 2 * P.nnz,
+        "coo_rows_kernel", library=lambda: torch.sparse.mm(lib_A, hc[:, None]), exact=True,
+        shape=P.shape, entries=P.nnz, sorted_by_row=False,
+        first_call_ms=first_ms)
+    results["model_kernels"] = out
+    return out
+
+
+def model_sparsify_attention(results: dict, served) -> None:
+    """Phase 12e: one full-width expert ``w_down`` pruned to BSR and applied
+    by ``bsr_linear`` on the card at 4 and 128 tokens, against plain and
+    the masked dense product; one ``block_sparse_attention`` at the
+    config's heads against a dense masked oracle."""
+    import torch
+
+    from repro_torch import sparsify
+    from repro_torch.core import use_backend
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_path
+    from repro_torch.models.attention import block_attention_bcols, block_sparse_attention
+
+    cfg = served["cfg"]
+    w = served["params"]["groups"][0]["ffn"]["experts"]["w_down"][0, 0]  # (1536, 4096)
+    A = sparsify.prune_linear_to_bsr(w, density=PRUNE_DENSITY, bs=PRUNE_BS, device=MODEL_DEVICE)
+    dense = A.to_dense()  # (4096, 1536): the kept blocks of w^T
+    gen = torch.Generator(device=MODEL_DEVICE).manual_seed(3)
+    errs = {}
+    for t in PRUNE_TOKENS:
+        xt = torch.randn((t, w.shape[0]), generator=gen, device=MODEL_DEVICE)
+        y = sparsify.bsr_linear(A, xt, impl="cuda")
+        errs[t] = within(f"bsr_linear {t} tokens against plain", y,
+                         sparsify.bsr_linear(A, xt, impl="plain"))
+        within(f"bsr_linear {t} tokens against the masked dense product", y, xt @ dense.T)
+    H, hd = cfg.n_heads, cfg.hd
+    q, k, v = (torch.randn((ATTN_B, ATTN_S, H, hd), generator=gen, device=MODEL_DEVICE)
+               for _ in range(3))
+    with use_backend("cuda"):
+        o = block_sparse_attention(q, k, v, block_size=ATTN_BLOCK, pattern="banded")
+    bc = torch.from_numpy(block_attention_bcols(ATTN_S, ATTN_BLOCK, "banded"))
+    allowed = torch.zeros((ATTN_S // ATTN_BLOCK,) * 2, dtype=torch.bool)
+    for r in range(bc.shape[0]):
+        allowed[r, bc[r][bc[r] >= 0]] = True
+    allowed = allowed.repeat_interleave(ATTN_BLOCK, 0).repeat_interleave(ATTN_BLOCK, 1).to(MODEL_DEVICE)
+    want = torch.empty_like(o)
+    for h0 in range(0, H, 16):  # the oracle a slab of heads at a time
+        sl = slice(h0, h0 + 16)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, :, sl], k[:, :, sl]) / hd ** 0.5
+        s = torch.where(allowed, s, torch.full((), float("-inf"), device=MODEL_DEVICE))
+        want[:, :, sl] = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v[:, :, sl])
+    attn_err = within("block_sparse_attention against a dense masked oracle", o, want)
+    results["model_sparsify"] = phase(
+        "model sparsify and block attention", w_down=tuple(w.shape), bs=A.bs,
+        bwidth=A.bwidth, kept_blocks=int((A.bcols >= 0).sum()),
+        bsr_linear_path=bsr_spmm_path(A.bs, PRUNE_TOKENS[-1]),
+        bsr_linear_max_abs_err=json.dumps(errs), attention_shape=(ATTN_B, ATTN_S, H, hd),
+        attention_block=ATTN_BLOCK, attention_path=bsr_spmm_path(ATTN_BLOCK, hd),
+        attention_max_abs_err=attn_err)
+
+
+def phase_model(results: dict, smi: str) -> tuple:
+    """Phase 12, the model path: (a) serve and (b) the plain teacher-forced
+    check, (c) one ``moe_ffn`` per lane, counted together as the path;
+    then (d) its kernels at its shapes and (e) sparsify and block
+    attention. Returns the path's launches and 12d's kernel lines."""
+    import torch
+
+    torch.cuda.empty_cache()
+    routes = []
+
+    def drive():
+        with recorded_routes(routes):
+            served, logits = model_serve(results, smi, routes)
+            model_teacher_forced(results, served, logits, routes)
+        del logits
+        model_lanes(results, served)
+        return served
+
+    served, launches, _ = counted("model", drive)
+    kern = model_kernels(results, served)
+    model_sparsify_attention(results, served)
+    del served
+    torch.cuda.empty_cache()
+    return launches, kern
+
+
 def main() -> int:
     import torch
 
@@ -1744,12 +2211,21 @@ def main() -> int:
 
     # --------------------------------------------------------------- 11
     launches_dist, launches_pairs = phase_dist(results)
+    torch.cuda.empty_cache()
     lap("11 dist")
+
+    # --------------------------------------------------------------- 12
+    launches_model, kern_model = phase_model(results, smi)
+    kern["bsr_spmm"].update(moe_dispatch=kern_model["moe_dispatch"],
+                            moe_combine=kern_model["moe_combine"])
+    kern["coo_spmv"]["moe_combine_unsorted"] = kern_model["moe_combine_unsorted"]
+    lap("12 model")
 
     by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled,
                "tuner": launches_tuner, "corpus": launches_corpus, "scoo": launches_scoo,
                "block": launches_block, "hpcg_predict": launches_pred,
-               "serve": launches_serve, "dist": launches_dist, "dist_pairs": launches_pairs}
+               "serve": launches_serve, "dist": launches_dist, "dist_pairs": launches_pairs,
+               "model": launches_model}
     for name, paths in REQUIRED_ON.items():
         for path in paths:
             check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")

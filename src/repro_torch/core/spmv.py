@@ -387,11 +387,17 @@ def _csr_logical_nnz(A: CSR) -> int:
 @register_spmv("coo", "plain")
 def coo_spmv_plain(A: COO, x):
     """Algorithm 1: y[ai[i]] += av[i] * x[aj[i]], as a segment sum over the
-    row-sorted entries (pad sentinels sort past the last row)."""
+    entries in row order (pad sentinels sort past the last row). Entries in
+    any order: unsorted rows are summed through their stable row sort, so
+    one row's entries still add in entry order, as the reference's
+    scatter-add does."""
+    from repro_torch.kernels.coo_spmv import row_sorted
+
     nrows = A.shape[0]
-    prod = A.val * x[A.col.long()]
-    bounds = torch.arange(nrows + 1, dtype=A.row.dtype, device=A.row.device)
-    offsets = torch.searchsorted(A.row, bounds)
+    row, col, val, _ = row_sorted(A.row, A.col, A.val)
+    prod = val * x[col.long()]
+    bounds = torch.arange(nrows + 1, dtype=row.dtype, device=row.device)
+    offsets = torch.searchsorted(row, bounds)
     return torch.segment_reduce(prod, "sum", offsets=offsets)
 
 

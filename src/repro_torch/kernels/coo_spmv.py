@@ -19,15 +19,20 @@ warps of one CTA and combine same-row products with a warp scan and the
 warps' windows in warp order, so they agree with their plain versions to
 rounding. int8/int16 tile-local ids give the int32 result bit for bit.
 
-The dispatch table calls :func:`coo_spmv_from_container` for the full
-window, which checks a container's arrays once and keeps them, with their
-segment starts, in its ``cache``.
+The full window takes entries in any order, as the reference's one-hot
+contraction does: arrays whose rows go down somewhere (the MoE ``coo``
+lane's combine matrix, whose rows are tokens in expert order) are walked
+through their stable row sort, built once on the device, so entries of one
+row still add in entry order; arrays in row order pay one check. The
+dispatch table calls :func:`coo_spmv_from_container` for the full window,
+which checks a container's arrays once and keeps them, sorted and with
+their segment starts, in its ``cache``.
 
 ``launches`` on each wrapper counts the kernel launches of this process.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,10 +46,24 @@ from ._launch import (check_cuda_operands, checked_x, current_stream, index_code
 MAX_SLICE_ROWS = 3072
 
 
+def row_sorted(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor):
+    """``(row, col, val, perm)``: the arrays as they are, ``perm`` ``None``,
+    where ``row`` is non-decreasing (every sentinel ``>= nrows`` then lies
+    at the tail); else permuted by ``perm``, the stable sort of ``row``, so
+    entries of one row keep their entry order, the order in which the
+    reference's scatter adds them. Reads one flag from the device."""
+    if row.shape[0] < 2 or bool((row[1:] >= row[:-1]).all()):
+        return row, col, val, None
+    perm = torch.argsort(row, stable=True)
+    return row[perm], col[perm], val[perm], perm
+
+
 def coo_spmv_plain(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
                    x: torch.Tensor, nrows: int) -> torch.Tensor:
     """Plain version of :func:`coo_spmv`: each row's products added to an
-    f32 sum one entry at a time, in entry order."""
+    f32 sum one entry at a time, in entry order (entries in any order:
+    unsorted rows are walked through their stable sort)."""
+    row, col, val, _ = row_sorted(row, col, val)
     starts = segment_starts(row, nrows).long()
     lens = starts[1:] - starts[:-1]
     prod = val.float() * x.float()[col.long()]
@@ -59,12 +78,14 @@ def coo_spmv_plain(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
 
 class _Rows(NamedTuple):
     """What the first full-window launch on a set of COO arrays checked and
-    keeps: the arrays and their segment starts, their addresses, the row
+    keeps: the arrays in row order and their segment starts, the row-sort
+    permutation (``None`` for arrays in order), their addresses, the row
     count, the value code and the library's entry."""
 
     row_start: torch.Tensor
     col: torch.Tensor
     val: torch.Tensor
+    perm: Optional[torch.Tensor]
     ptrs: Tuple[int, int, int]
     nrows: int
     code: int
@@ -74,19 +95,23 @@ class _Rows(NamedTuple):
 
 
 def _rows(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor, nrows: int) -> _Rows:
-    """Check row-sorted COO arrays on the card in full (raise on what the
-    kernel does not take), find their segment starts and keep what the
-    launches need."""
+    """Check COO arrays on the card in full (raise on what the kernel does
+    not take), put them in row order where they are not (one stable sort,
+    on the device), find their segment starts and keep what the launches
+    need. Counts its read of the order flag in ``coo_spmv.order_checks``."""
     for name, t in (("row", row), ("col", col)):
         if t.dtype is not torch.int32 or t.shape != val.shape:
             raise ValueError(f"coo_spmv: {name} must be int32 of shape {tuple(val.shape)}")
     check_cuda_operands("coo_spmv", row, col, val)
-    row_start = segment_starts(row, nrows)
     code = value_code("coo_spmv", val.dtype)
+    row, col, val, perm = row_sorted(row, col, val)
+    coo_spmv.order_checks += 1
+    row_start = segment_starts(row, nrows)
     from ._build import library
 
     lib = library()
-    return _Rows(row_start, col, val, (row_start.data_ptr(), col.data_ptr(), val.data_ptr()),
+    return _Rows(row_start, col, val, perm,
+                 (row_start.data_ptr(), col.data_ptr(), val.data_ptr()),
                  nrows, code, val.device, lib, lib.lib.repro_coo_spmv)
 
 
@@ -105,23 +130,24 @@ def _launch_rows(r: _Rows, x: torch.Tensor) -> torch.Tensor:
 
 def coo_spmv(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor, x: torch.Tensor,
              nrows: int) -> torch.Tensor:
-    """y = A @ x for row-sorted COO arrays (``row``/``col`` int32, tail
-    sentinels ``row == nrows`` dropped). Checks the arrays and finds their
-    segment starts on every call; :func:`coo_spmv_from_container` does so
-    once."""
+    """y = A @ x for COO arrays in any entry order (``row``/``col`` int32,
+    sentinels ``row >= nrows`` dropped). Checks the arrays, sorts them by
+    row where they are not, and finds their segment starts on every call;
+    :func:`coo_spmv_from_container` does so once."""
     if val.device.type == "cpu":
         return coo_spmv_plain(row, col, val, x, nrows)
     return _launch_rows(_rows(row, col, val, nrows), x)
 
 
 coo_spmv.launches = 0
+coo_spmv.order_checks = 0
 
 
 def coo_spmv_from_container(A, x: torch.Tensor) -> torch.Tensor:
     """Dispatch-table adapter: :func:`coo_spmv` on a COO container. The
-    first call on the card checks ``A``'s arrays in full, finds their
-    segment starts and keeps both in ``A.cache``; later calls check only
-    ``x``."""
+    first call on the card checks ``A``'s arrays in full, sorts them by
+    row where they are not, finds their segment starts and keeps all of it
+    in ``A.cache``; later calls check only ``x``."""
     r = A.cache.get("rows")
     if r is None:
         if A.val.device.type == "cpu":

@@ -1,20 +1,43 @@
-"""Serving launcher: drive the multi-tenant engine with seeded traffic and
-print the stats the serving path tracks, as ``repro.launch.serve``'s
-sparse mode:
+"""Serving launcher: the sparse request path (``ServeEngine`` traffic mixes)
+and the batched LM prefill + decode loop, as ``repro.launch.serve``.
+
+Sparse serving, selected by ``--traffic``:
 
   python -m repro_torch.launch.serve --traffic hot --n 1048576 --requests 512 \
       --capacity 8 --max-batch 32 --flush-every 64
   python -m repro_torch.launch.serve --traffic churn --n 512 --device cpu \
       --capacity 4 --max-batch 16 --flush-every 32
 
-Runs on the card unless ``--device cpu``. The reference's LM loop
-(``serve_lm``) needs the models, which are not ported.
+LM serving (the reference's flags, plus the port's):
+
+  python -m repro_torch.launch.serve --arch llama3.2-1b --smoke \
+      --batch 4 --prompt-len 32 --gen 32 --device cpu
+  python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --layers 4 \
+      --dispatch-impl bsr
+
+``--layers`` cuts the model's depth and ``--dispatch-impl`` picks the MoE
+lane; the sparse products run under ``use_backend("cuda")`` (the
+hand-written kernels on the card, their plain versions on host tensors).
+Runs on the card unless ``--device cpu``. The LM loop
+reports through ``repro_torch.serve.stats``: one request per generated
+token batch, so its p50/p99 ms/token come from the same percentiles as
+the sparse engine's latencies.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
+from typing import List, Optional
 
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.core import resolve_device, use_backend
+from repro_torch.models import build_model
 from repro_torch.serve import ServeEngine, TrafficSpec, run_traffic
+from repro_torch.serve.stats import BatchRecord, RequestRecord, ServeStats
 
 
 def serve_traffic(args) -> dict:
@@ -40,11 +63,104 @@ def serve_traffic(args) -> dict:
     return out
 
 
+def lm_config(args):
+    """The served model's config: the arch's (or its smoke config), cut to
+    ``--layers`` and given ``--dispatch-impl`` where those are set."""
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
+    if args.dispatch_impl and cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_impl=args.dispatch_impl))
+    return cfg
+
+
+def serve_lm(args, params=None, logits_out: Optional[List[torch.Tensor]] = None) -> dict:
+    """The LM loop: the prompt through the decode step, then greedy
+    generation. ``params`` are the weights to serve (default: drawn on the
+    device from a generator seeded with ``--seed``, every weight but the
+    router kept in the activation dtype, the values the reference's
+    per-use casts give). Each step's logits are appended to ``logits_out``
+    where a list is given. Returns the tokens (prompt and generated), the
+    timings, the model and its params."""
+    cfg = lm_config(args)
+    dev = resolve_device(args.device)
+    model = build_model(cfg, dev)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
+                            weight_dtype=cfg.activation_dtype)
+    rng = np.random.default_rng(args.seed)  # the reference's prompt, drawn on the host
+    B, S, G = args.batch, args.prompt_len, args.gen
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    # the vision stub's patch positions stay empty in the cache, as in the
+    # reference's loop, which feeds no patches to the decode step
+    prefix = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    smax = prefix + S + G
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    with use_backend("cuda"):
+        caches = model.init_caches(B, smax)
+        t0 = time.perf_counter()
+        logits = None
+        for t in range(S):
+            logits, caches = model.decode_step(params, tokens[:, t:t + 1], caches, prefix + t)
+            if logits_out is not None:
+                logits_out.append(logits)
+        sync()
+        t_prefill = time.perf_counter() - t0
+
+        # each generated token batch is one serving request
+        stats = ServeStats()
+        fed, out = [], []
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        t0 = time.perf_counter()
+        for g in range(G):
+            t_step = time.perf_counter()
+            fed.append(tok[:, 0])
+            logits, caches = model.decode_step(params, tok, caches, prefix + S + g)
+            if logits_out is not None:
+                logits_out.append(logits)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            out.append(tok[:, 0].cpu())  # the step ends when its token is on the host
+            dt = time.perf_counter() - t_step
+            rec = RequestRecord(rid=g, fingerprint=cfg.name, batch_size=B,
+                                cache_hit=g > 0, coalesced=B > 1,
+                                queue_wait_s=0.0, latency_s=dt)
+            stats.record_batch(BatchRecord(fingerprint=cfg.name, size=B,
+                                           coalesced=B > 1, cache_hit=g > 0,
+                                           exec_s=dt), [rec])
+        t_gen = time.perf_counter() - t0
+    generated = torch.stack(out, dim=1)  # (B, G): each step's greedy token
+
+    toks_s = B * G / t_gen
+    p50, p99 = stats.latency_percentile(50), stats.latency_percentile(99)
+    print(f"arch={cfg.name} layers={cfg.n_layers} B={B} prompt={S} gen={G} device={dev}")
+    print(f"prompt phase: {t_prefill*1e3:.0f}ms; decode: {t_gen*1e3:.0f}ms "
+          f"({toks_s:.1f} tok/s, {1e3*t_gen/G:.1f} ms/token, "
+          f"p50={p50*1e3:.1f} p99={p99*1e3:.1f} ms/step)")
+    print("sample continuation (batch 0):", [int(o) for o in generated[0, :16]])
+    return {"cfg": cfg, "model": model, "params": params, "prompt": tokens.cpu(),
+            "fed": torch.stack(fed, dim=1).cpu(), "generated": generated, "prompt_s": t_prefill,
+            "decode_s": t_gen, "tok_s": toks_s, "p50_s": p50, "p99_s": p99, "stats": stats}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--traffic", default="hot", choices=["hot", "churn", "mixed"],
-                    help="the seeded traffic mix to serve")
+    # LM mode (the reference's flags)
+    ap.add_argument("--arch", default="llama3.2-1b", choices=list_archs())
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers (0: the config's)")
+    ap.add_argument("--dispatch-impl", default=None,
+                    choices=["sort", "onehot", "coo", "bsr", "grouped"],
+                    help="the MoE dispatch lane (default: the config's)")
+    # sparse serving mode (selects it when given)
+    ap.add_argument("--traffic", default=None, choices=["hot", "churn", "mixed"],
+                    help="serve a sparse traffic mix through the ServeEngine "
+                         "instead of the LM loop")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--n", type=int, default=96, help="tenant matrix dimension")
     ap.add_argument("--tenants", type=int, default=8,
@@ -59,11 +175,14 @@ def main(argv=None):
                     choices=["predict", "run", "none"],
                     help="admission tuning for first-sight matrices")
     ap.add_argument("--device", default="cuda",
-                    help="where tenants and right-hand sides live (default cuda)")
+                    help="where the model, tenants and right-hand sides live (default cuda)")
     args = ap.parse_args(argv)
     if args.tune_mode == "none":
         args.tune_mode = None
-    serve_traffic(args)
+    if args.traffic:
+        serve_traffic(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,106 @@
+"""Primitive layers (PyTorch, params = plain dicts of tensors): the port of
+``repro.models.layers``.
+
+Conventions, as the reference's:
+  - params are created by ``init_*`` helpers drawing from an :class:`Init`
+    (an explicit ``torch.Generator`` and device)
+  - compute runs in cfg.activation_dtype (bf16) with f32 where it matters
+    (norms, softmax, losses); each weight is cast to the activation dtype
+    where it is used, which costs nothing for a weight already held in it
+  - weight names are stable: the sharding rules in
+    ``repro_torch.distributed.sharding`` match on path regexes
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+class Init:
+    """Where parameters are drawn: a ``torch.Generator`` (``None`` on the
+    ``meta`` device, which allocates nothing) and the device they live on.
+    ``weight_dtype`` (default f32, the reference's) is the dtype every
+    weight is stored in, except the router, which the reference uses in
+    f32; a weight is drawn in f32 and rounded to it once."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None, device="cpu",
+                 weight_dtype: torch.dtype = torch.float32):
+        self.generator = generator
+        self.device = torch.device(device)
+        self.weight_dtype = weight_dtype
+
+    def normal(self, shape, scale: float, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        gen = None if self.device.type == "meta" else self.generator
+        w = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+        return (w * scale).to(dtype or self.weight_dtype)
+
+    def ones(self, shape) -> torch.Tensor:
+        return torch.ones(shape, dtype=self.weight_dtype, device=self.device)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.weight_dtype, device=self.device)
+
+
+def dense_init(init: Init, in_dim: int, out_dim: int, scale: Optional[float] = None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    return init.normal((in_dim, out_dim), scale)
+
+
+def embed_init(init: Init, vocab: int, dim: int):
+    return init.normal((vocab, dim), 0.02)
+
+
+def rmsnorm(x, w, eps: float = 1e-5):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layernorm(x, w, b, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, hd), positions: broadcastable to (..., S). The
+    reference's half-split rotation: the first and second halves of each
+    head are the pair's two coordinates."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
+    ang = positions[..., None].float() * freqs                # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
+def gelu_mlp(x, w_up, b_up, w_down, b_down):
+    return F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down + b_down
+
+
+def init_mlp(init: Init, d_model: int, d_ff: int):
+    return {
+        "w_gate": dense_init(init, d_model, d_ff),
+        "w_up": dense_init(init, d_model, d_ff),
+        "w_down": dense_init(init, d_ff, d_model),
+    }
+
+
+def apply_mlp(p, x):
+    return swiglu(x, p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
+                  p["w_down"].to(x.dtype))

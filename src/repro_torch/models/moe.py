@@ -1,0 +1,357 @@
+"""Mixture-of-Experts FFN with a selectable dispatch implementation: the port
+of ``repro.models.moe``.
+
+The router's output is a sparse (slots x tokens) matrix P with T*K entries;
+dispatch is X_e = P @ X and combine is Y = P^T @ (weights * H). The lanes
+are the reference's:
+
+  'onehot'  : dense masked einsum (O(T*E*C*D); smoke scale only).
+  'sort'    : sort-by-expert + capacity gather/scatter.
+  'coo'     : dispatch/combine as COO SpMM through ``SparseOperator`` (the
+              ``coo_spmv`` kernel on ``cuda``, one SpMV per column of X).
+  'bsr'     : the same products as BSR SpMM over 8x8 blocks laid out from
+              the routing indices (the ``bsr_spmm`` kernel on ``cuda``).
+  'grouped' : per-group routing (groups = data-parallel degree), which is
+              'sort' when there is one group.
+
+Every lane shares the router, the capacity and the slot assignment, and
+builds its containers on the tokens' device from the routing tensors (no
+host round trip), so the ambient policy (``use_backend(...)``) picks the
+backend exactly as for any other product.
+
+Routing matches the reference exactly: top-k breaks ties to the lower
+expert (a stable descending sort), the slot assignment uses a stable
+argsort and a left ``searchsorted``. The reference's ``.at[].set`` and
+``.at[].add`` are ``index_put_`` and ``index_add_``; on a CUDA device
+``index_add_`` adds with atomics, so the 'sort' lane's bits may vary there
+between runs (the 'coo' and 'bsr' lanes' kernels do not).
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import logical_constraint
+
+from .layers import Init, dense_init
+
+#: Block edge of the 'bsr' lane: ``_capacity`` rounds C (hence E*C) to it.
+BSR_BLOCK = 8
+
+
+def init_moe(init: Init, cfg, mcfg):
+    D, E, Fd = cfg.d_model, mcfg.n_experts, mcfg.d_expert_ff
+    scale = 1.0 / math.sqrt(D)
+    p = {
+        "router": init.normal((D, E), scale, torch.float32),
+        "experts": {
+            "w_gate": init.normal((E, D, Fd), scale),
+            "w_up": init.normal((E, D, Fd), scale),
+            "w_down": init.normal((E, Fd, D), 1.0 / math.sqrt(Fd)),
+        },
+    }
+    if mcfg.n_shared:
+        Fs = mcfg.d_shared_ff or mcfg.n_shared * Fd
+        p["shared"] = {
+            "w_gate": dense_init(init, D, Fs),
+            "w_up": dense_init(init, D, Fs),
+            "w_down": dense_init(init, Fs, D),
+        }
+    return p
+
+
+def _capacity(T: int, K: int, E: int, factor: float) -> int:
+    c = int(math.ceil(T * K / E * factor))
+    return max(8, -(-c // 8) * 8)
+
+
+def top_k(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest along the last dim, ties to the lower index (as
+    ``jax.lax.top_k``)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _expert_counts(tope, E: int) -> torch.Tensor:
+    """Picks per expert, f32 (whole numbers, exact in any order of adds;
+    ``bincount`` would read its size back from the device)."""
+    idx = tope.reshape(-1)
+    ones = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+    return torch.zeros(E, dtype=torch.float32, device=idx.device).index_add_(0, idx, ones)
+
+
+def _route(p, x, mcfg):
+    """Common router: top-k gates renormalised, plus Switch-style aux loss."""
+    logits = x.float() @ p["router"]                         # (T, E)
+    gates = torch.softmax(logits, dim=-1)
+    topw, tope = top_k(gates, mcfg.top_k)                    # (T, K)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    E = gates.shape[-1]
+    f = _expert_counts(tope, E) / tope.numel()
+    P = gates.mean(dim=0)
+    aux = E * torch.sum(f * P)
+    return topw, tope, aux
+
+
+def _experts_ffn(p, xe):
+    """xe: (E, C, D) -> (E, C, D), matmuls in the activation dtype."""
+    w_gate = p["w_gate"].to(xe.dtype)
+    w_up = p["w_up"].to(xe.dtype)
+    w_down = p["w_down"].to(xe.dtype)
+    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+    return torch.bmm(h, w_down)
+
+
+def moe_ffn(p, x, cfg, mcfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (T, D) flat tokens -> (y, aux_loss). Dispatch per mcfg.dispatch_impl."""
+    impl = mcfg.dispatch_impl
+    if impl == "onehot":
+        y, aux = _moe_onehot(p, x, cfg, mcfg)
+    elif impl == "coo":
+        y, aux = _moe_coo(p, x, cfg, mcfg)
+    elif impl == "bsr":
+        y, aux = _moe_bsr(p, x, cfg, mcfg)
+    elif impl == "grouped":
+        y, aux = _moe_grouped(p, x, cfg, mcfg)
+    else:
+        y, aux = _moe_sort(p, x, cfg, mcfg)
+    if "shared" in p:
+        from .layers import apply_mlp
+        y = y + apply_mlp(p["shared"], x)
+    return y, aux
+
+
+# ----------------------------------------------------------- grouped path ----
+
+def _num_groups(mcfg, T):
+    """Groups = DP degree (pod x data) of the ambient mesh, else 1."""
+    if getattr(mcfg, "n_groups", 0):
+        return mcfg.n_groups
+    from repro_torch.distributed.sharding import axis_sizes, current_mesh
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    g = 1
+    for ax in ("pod", "data"):
+        if ax in sizes:
+            g *= sizes[ax]
+    return g if g > 1 and T % g == 0 else 1
+
+
+def _moe_grouped(p, x, cfg, mcfg):
+    """GShard-style per-group dispatch: routing, sort and scatter stay
+    group-local; the reference's vmap over groups is a loop here."""
+    T, D = x.shape
+    E, K = mcfg.n_experts, mcfg.top_k
+    G = _num_groups(mcfg, T)
+    if G == 1:
+        return _moe_sort(p, x, cfg, mcfg)
+    Tg = T // G
+    C = _capacity(Tg, K, E, mcfg.capacity_factor)
+    dev = x.device
+
+    x3 = logical_constraint(x.reshape(G, Tg, D), ("batch", None, None))
+    logits = x3.float() @ p["router"]                        # (G, Tg, E)
+    gates = torch.softmax(logits, dim=-1)
+    topw, tope = top_k(gates, K)                             # (G, Tg, K)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    f = _expert_counts(tope, E) / tope.numel()
+    aux = E * torch.sum(f * gates.mean(dim=(0, 1)))
+
+    ys = []
+    for g in range(G):
+        slot, t_s, w_s, keep = _dispatch_indices(tope[g], topw[g], Tg, E, K, C)
+        # slot-space inverse map: the token each (expert, cap) slot feeds
+        # and its weight (sentinel slot -> token Tg, weight 0)
+        t_slot = torch.full((E * C + 1,), Tg, dtype=torch.long, device=dev)
+        t_slot[slot] = t_s
+        w_slot = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
+        w_slot[slot] = torch.where(keep, w_s, torch.zeros((), device=dev))
+        t_slot, w_slot = t_slot[: E * C], w_slot[: E * C]
+        xpad = torch.cat([x3[g], torch.zeros((1, D), dtype=x.dtype, device=dev)])
+        xe = xpad[t_slot].reshape(1, E, C, D)
+        h = _experts_ffn_grouped(p["experts"], xe)[0]
+        contrib = h.reshape(E * C, D) * w_slot[:, None].to(h.dtype)
+        yg = torch.zeros((Tg + 1, D), dtype=h.dtype, device=dev)
+        ys.append(yg.index_add_(0, t_slot, contrib)[:Tg])
+    y3 = logical_constraint(torch.stack(ys), ("batch", None, None))
+    return y3.reshape(T, D).to(x.dtype), aux
+
+
+def _experts_ffn_grouped(p, xe):
+    """xe: (G, E, C, D) -> (G, E, C, D); contraction is local per (g, e)."""
+    w_gate = p["w_gate"].to(xe.dtype)
+    w_up = p["w_up"].to(xe.dtype)
+    w_down = p["w_down"].to(xe.dtype)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, w_gate)) * torch.einsum(
+        "gecd,edf->gecf", xe, w_up)
+    return torch.einsum("gecf,efd->gecd", h, w_down)
+
+
+# ------------------------------------------------------------- sort path ----
+
+def _dispatch_indices(tope, topw, T, E, K, C):
+    """Shared routing -> slot assignment. Returns (slot, tok, w, keep) flat."""
+    dev = tope.device
+    e_flat = tope.reshape(-1)                                # (T*K,)
+    t_flat = torch.arange(T, device=dev)[:, None].expand(T, K).reshape(-1)
+    w_flat = topw.reshape(-1)
+    order = torch.argsort(e_flat, stable=True)               # group by expert
+    e_s, t_s, w_s = e_flat[order], t_flat[order], w_flat[order]
+    # position within the expert's segment = index - first occurrence of e_s
+    pos = torch.arange(T * K, device=dev) - torch.searchsorted(e_s, e_s, side="left")
+    keep = pos < C
+    slot = torch.where(keep, e_s * C + pos, torch.full((), E * C, device=dev))
+    return slot, t_s, w_s, keep
+
+
+def _moe_sort(p, x, cfg, mcfg):
+    T, D = x.shape
+    E, K = mcfg.n_experts, mcfg.top_k
+    C = _capacity(T, K, E, mcfg.capacity_factor)
+    topw, tope, aux = _route(p, x, mcfg)
+    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C)
+
+    xe = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    xe[slot] = x[t_s]
+    xe = xe[: E * C].reshape(E, C, D)
+    xe = logical_constraint(xe, ("experts", "expert_cap", None))
+    h = _experts_ffn(p["experts"], xe)
+    h = logical_constraint(h, ("experts", "expert_cap", None))
+    h_flat = torch.cat([h.reshape(E * C, D), torch.zeros((1, D), dtype=h.dtype, device=h.device)])
+    w = torch.where(keep, w_s, torch.zeros((), device=x.device))
+    contrib = h_flat[slot] * w[:, None].to(h.dtype)
+    y = torch.zeros((T, D), dtype=h.dtype, device=x.device).index_add_(0, t_s, contrib)
+    return y.to(x.dtype), aux
+
+
+# ----------------------------------------------------------- onehot path ----
+
+def _moe_onehot(p, x, cfg, mcfg):
+    """GShard-style dense dispatch (vendor path; O(T*E*C*D))."""
+    T, D = x.shape
+    E, K = mcfg.n_experts, mcfg.top_k
+    C = _capacity(T, K, E, mcfg.capacity_factor)
+    topw, tope, aux = _route(p, x, mcfg)
+    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C)
+    dev = x.device
+    disp = torch.zeros((T, E * C + 1), dtype=x.dtype, device=dev)
+    disp[t_s, slot] = keep.to(x.dtype)
+    comb = torch.zeros((T, E * C + 1), dtype=torch.float32, device=dev)
+    comb[t_s, slot] = torch.where(keep, w_s, torch.zeros((), device=dev))
+    xe = torch.einsum("ts,td->sd", disp[:, : E * C], x).reshape(E, C, D)
+    h = _experts_ffn(p["experts"], xe).reshape(E * C, D)
+    y = torch.einsum("ts,sd->td", comb[:, : E * C].to(h.dtype), h)
+    return y.to(x.dtype), aux
+
+
+# -------------------------------------------------------------- coo path ----
+
+def coo_dispatch(slot, t_s, keep, T, E, C, dtype):
+    """P_disp (E*C, T): row ``slot`` (``E*C`` for a dropped entry, a
+    sentinel past the last row) and column ``t_s`` of every routed entry,
+    value 1 (0 when dropped). Its rows interleave the sentinels with the
+    kept slots, in the reference's entry order."""
+    from repro_torch.core.formats import COO
+
+    return COO(slot.to(torch.int32), t_s.to(torch.int32), keep.to(dtype), (E * C, T))
+
+
+def coo_combine(slot, t_s, w_s, keep, T, E, C, dtype):
+    """P_comb (T, E*C+1) = (P*w)^T: rows are tokens in expert order (not
+    sorted), columns slots; a dropped entry weighs 0 against the pad
+    column ``E*C``."""
+    from repro_torch.core.formats import COO
+
+    w = torch.where(keep, w_s, torch.zeros((), device=w_s.device)).to(dtype)
+    return COO(t_s.to(torch.int32), slot.to(torch.int32), w, (T, E * C + 1))
+
+
+def _moe_coo(p, x, cfg, mcfg):
+    """Dispatch/combine as COO SpMM through ``SparseOperator``, so the
+    ambient policy picks the kernel backend."""
+    from repro_torch.core.operator import SparseOperator
+
+    T, D = x.shape
+    E, K = mcfg.n_experts, mcfg.top_k
+    C = _capacity(T, K, E, mcfg.capacity_factor)
+    topw, tope, aux = _route(p, x, mcfg)
+    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C)
+
+    P_disp = coo_dispatch(slot, t_s, keep, T, E, C, x.dtype)
+    xe = (SparseOperator(P_disp) @ x).reshape(E, C, D)
+    h = _experts_ffn(p["experts"], xe).reshape(E * C, D)
+    P_comb = coo_combine(slot, t_s, w_s, keep, T, E, C, h.dtype)
+    h_pad = torch.cat([h, torch.zeros((1, D), dtype=h.dtype, device=h.device)])
+    y = SparseOperator(P_comb) @ h_pad
+    return y.to(x.dtype), aux
+
+
+# -------------------------------------------------------------- bsr path ----
+
+def bsr_dispatch(slot, t_s, keep, T, E, C, dtype):
+    """P_disp (E*C, T) as 8x8 blocks: slots are unique per kept entry, so
+    lane ``slot % 8`` of block row ``slot // 8`` is collision-free; dropped
+    entries land in an extra block row, cut off."""
+    from repro_torch.core.formats import BSR
+
+    bs = BSR_BLOCK
+    dev = slot.device
+    nbr = E * C // bs
+    br, lane = slot // bs, slot % bs
+    bcols = torch.full((nbr + 1, bs), -1, dtype=torch.int32, device=dev)
+    bcols[br, lane] = (t_s // bs).to(torch.int32)
+    blocks = torch.zeros((nbr + 1, bs, bs, bs), dtype=dtype, device=dev)
+    blocks[br, lane, lane, t_s % bs] = keep.to(dtype)
+    return BSR(bcols[:nbr], blocks[:nbr], (E * C, T))
+
+
+def bsr_combine(slot, tope, w_s, keep, T, E, C, dtype):
+    """P_comb (T, E*C+1) = (P*w)^T as 8x8 blocks. Slots and weights go back
+    to the flat (token, k) layout, so token t's K entries own K distinct
+    lanes of its block row; dropped entries keep weight 0 against the
+    overflow column."""
+    from repro_torch.core.formats import BSR
+
+    bs = BSR_BLOCK
+    dev = slot.device
+    K = tope.shape[-1]
+    order = torch.argsort(tope.reshape(-1), stable=True)
+    slot_o = torch.zeros((T * K,), dtype=torch.long, device=dev)
+    slot_o[order] = slot
+    w_o = torch.zeros((T * K,), dtype=torch.float32, device=dev)
+    w_o[order] = torch.where(keep, w_s, torch.zeros((), device=dev))
+    i = torch.arange(T * K, device=dev)
+    t, k = i // K, i % K
+    j = (t % bs) * K + k
+    nbr = -(-T // bs)
+    bcols = torch.full((nbr, bs * K), -1, dtype=torch.int32, device=dev)
+    bcols[t // bs, j] = (slot_o // bs).to(torch.int32)
+    blocks = torch.zeros((nbr, bs * K, bs, bs), dtype=dtype, device=dev)
+    blocks[t // bs, j, t % bs, slot_o % bs] = w_o.to(dtype)
+    return BSR(bcols, blocks, (T, E * C + 1))
+
+
+def _moe_bsr(p, x, cfg, mcfg):
+    """Dispatch/combine as BSR SpMM through ``SparseOperator``: the same
+    slot assignment as 'sort'/'coo', the containers laid out on the device
+    from the routing indices."""
+    from repro_torch.core.operator import SparseOperator
+
+    T, D = x.shape
+    E, K = mcfg.n_experts, mcfg.top_k
+    C = _capacity(T, K, E, mcfg.capacity_factor)
+    topw, tope, aux = _route(p, x, mcfg)
+    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C)
+
+    P_disp = bsr_dispatch(slot, t_s, keep, T, E, C, x.dtype)
+    xe = (SparseOperator(P_disp) @ x).reshape(E, C, D)
+    h = _experts_ffn(p["experts"], xe).reshape(E * C, D)
+    P_comb = bsr_combine(slot, tope, w_s, keep, T, E, C, h.dtype)
+    h_pad = torch.cat([h, torch.zeros((1, D), dtype=h.dtype, device=h.device)])
+    y = SparseOperator(P_comb) @ h_pad
+    return y.to(x.dtype), aux

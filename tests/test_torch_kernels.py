@@ -867,6 +867,91 @@ def test_scoo_tiled_plain_matches_pallas_interpret(jax_ref, shape, dtype, index_
     _close(got.float().numpy(), np.asarray(want, np.float32), _tol(dtype, s))
 
 
+#: COO entries whose rows are not sorted (row 0's entries
+#: apart), against x = [1, 10, 100, 1000]; the reference gives [4020, 300, 1].
+UNSORTED_COO = ([2, 0, 1, 0], [0, 1, 2, 3], [1.0, 2.0, 3.0, 4.0], (3, 4))
+
+
+def _coo_pair(jax_ref, row, col, val, shape, dtype="float32"):
+    """The same COO arrays as a reference container and a port container
+    (on the host), taken as they are: no sorting."""
+    from repro.core.formats import COO as JCOO
+    from repro_torch.core.formats import COO
+
+    jnp = jax_ref["jnp"]
+    J = JCOO(jnp.asarray(np.asarray(row, np.int32)), jnp.asarray(np.asarray(col, np.int32)),
+             jnp.asarray(np.asarray(val, np.float32)).astype(dtype), shape)
+    T = COO(torch.tensor(row, dtype=torch.int32), torch.tensor(col, dtype=torch.int32),
+            torch.tensor(val, dtype=torch.float32).to(getattr(torch, dtype)), shape)
+    return J, T
+
+
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_unsorted_coo_gives_the_reference_answer(jax_ref, backend):
+    """Entries whose rows go down: dispatch on the port's plain and cuda
+    backends (host tensors run the kernel's plain version), the kernel's
+    wrapper and its container adapter all give the reference's answer."""
+    from repro.core.operator import SparseOperator as JOp
+    from repro.core import use_backend as juse_backend
+    from repro_torch.core import SparseOperator, use_backend
+    from repro_torch.kernels.coo_spmv import coo_spmv_from_container
+
+    J, T = _coo_pair(jax_ref, *UNSORTED_COO)
+    x = np.array([1, 10, 100, 1000], np.float32)
+    with juse_backend("plain"):
+        want = np.asarray(JOp(J) @ jax_ref["jnp"].asarray(x))
+    assert want.tolist() == [4020.0, 300.0, 1.0]
+    with use_backend(backend):
+        got = SparseOperator(T) @ torch.from_numpy(x)
+    assert got.tolist() == want.tolist()
+    assert coo_spmv(T.row, T.col, T.val, torch.from_numpy(x), 3).tolist() == want.tolist()
+    assert coo_spmv_from_container(T, torch.from_numpy(x)).tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_shuffled_coo_entries_give_the_same_product(jax_ref, seed, dtype):
+    """Property: any order of a COO's entries (duplicates and sentinels
+    ``row == nrows`` interleaved) gives the reference's product on the
+    same entries, and the row-sorted entries' product; in f32 the port's
+    plain versions equal the reference's scatter bit for bit (same-row
+    entries add in entry order)."""
+    from repro.core.operator import SparseOperator as JOp
+    from repro.core import use_backend as juse_backend
+    from repro_torch.core import SparseOperator, use_backend
+
+    rng = np.random.default_rng(seed)
+    n, m = int(rng.integers(1, 90)), int(rng.integers(1, 70))
+    nnz = int(rng.integers(0, 3 * n + 1))
+    row = rng.integers(0, n, nnz)
+    col = rng.integers(0, m, nnz)
+    val = rng.standard_normal(nnz).astype(np.float32)
+    pads = int(rng.integers(0, 5))
+    row = np.concatenate([row, np.full(pads, n)])
+    col = np.concatenate([col, np.zeros(pads, np.int64)])
+    val = np.concatenate([val, np.zeros(pads, np.float32)])
+    perm = rng.permutation(row.shape[0])
+    x = _x(m, seed)
+    J, T = _coo_pair(jax_ref, row[perm], col[perm], val[perm], (n, m), dtype)
+    srt = np.argsort(row[perm], kind="stable")
+    _, Ts = _coo_pair(jax_ref, row[perm][srt], col[perm][srt], val[perm][srt], (n, m), dtype)
+    with juse_backend("plain"):
+        want = np.asarray(JOp(J) @ jax_ref["jnp"].asarray(x).astype(dtype), np.float32)
+    for backend in ("plain", "cuda"):
+        with use_backend(backend):
+            got = (SparseOperator(T) @ torch.from_numpy(x).to(T.dtype)).float().numpy()
+            got_sorted = (SparseOperator(Ts) @ torch.from_numpy(x).to(T.dtype)).float().numpy()
+        assert np.array_equal(got, got_sorted)
+        if dtype == "float32":
+            assert np.array_equal(got, want)
+        else:
+            rownnz = int(np.bincount(row, minlength=n + 1).max()) if row.size else 1
+            eps = float(torch.finfo(getattr(torch, dtype)).eps)
+            np.testing.assert_allclose(got, want, rtol=8 * eps * rownnz, atol=8 * eps * rownnz)
+    got = coo_spmv_plain(T.row, T.col, T.val, torch.from_numpy(x), n)
+    assert torch.equal(got, coo_spmv_plain(Ts.row, Ts.col, Ts.val, torch.from_numpy(x), n))
+
+
 def _scoo_arrays(s, dtype, slice_rows, tile):
     """A row-sorted COO of ``s`` (values rounded to ``dtype`` on the host)
     and its ``build_scoo`` layout."""
@@ -1971,3 +2056,54 @@ def test_raising_cuda_kernel_on_card_does_not_fall_back(cuda, monkeypatch):
     A = as_operator(_mat(64, 64, 1, "banded"), "dia", device=cuda).using("cuda")
     with pytest.raises(KernelExecutionError):
         A @ torch.ones(64, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_unsorted_coo_kernel_matches_plain_on_card(cuda, dtype):
+    """Entries in any order on the card: the kernel walks their stable row
+    sort, built once and kept in ``A.cache``, and equals the plain version
+    (bit for bit in f32) and the sorted container's launch; two launches
+    give equal bits."""
+    from repro_torch.core.formats import COO
+    from repro_torch.kernels.coo_spmv import coo_spmv_from_container
+
+    r, c, v, shape = UNSORTED_COO
+    T = COO(torch.tensor(r, dtype=torch.int32, device=cuda),
+            torch.tensor(c, dtype=torch.int32, device=cuda),
+            torch.tensor(v, device=cuda).to(getattr(torch, dtype)), shape)
+    x = torch.tensor([1.0, 10.0, 100.0, 1000.0], device=cuda)
+    want = torch.tensor([4020.0, 300.0, 1.0]).to(T.dtype)  # bf16 holds 4020 as 4016
+    assert torch.equal(coo_spmv_from_container(T, x).cpu(), want)
+    rng = np.random.default_rng(9)
+    n, m, nnz = 5000, 3000, 40000
+    row = np.concatenate([rng.integers(0, n, nnz), np.full(7, n)])
+    col = np.concatenate([rng.integers(0, m, nnz), np.zeros(7, np.int64)])
+    val = rng.standard_normal(row.shape[0]).astype(np.float32)
+    perm = rng.permutation(row.shape[0])
+    srt = np.argsort(row[perm], kind="stable")
+    mk = lambda o: COO(torch.from_numpy(row[perm][o].astype(np.int32)).to(cuda),  # noqa: E731
+                       torch.from_numpy(col[perm][o].astype(np.int32)).to(cuda),
+                       torch.from_numpy(val[perm][o]).to(cuda).to(getattr(torch, dtype)),
+                       (n, m))
+    U, S = mk(slice(None)), mk(srt)
+    xs = torch.from_numpy(_x(m)).to(cuda)
+    before = coo_spmv.launches
+    y = coo_spmv_from_container(U, xs)
+    assert coo_spmv.launches == before + 1 and U.cache["rows"].perm is not None
+    assert S.cache.get("rows") is None
+    y_sorted = coo_spmv_from_container(S, xs)
+    assert S.cache["rows"].perm is None
+    assert torch.equal(y, y_sorted) and torch.equal(y, coo_spmv_from_container(U, xs))
+    y_plain = coo_spmv_plain(U.row, U.col, U.val, xs, n)
+    if dtype == "float32":
+        assert torch.equal(y, y_plain)
+    else:
+        _rel_close(y, y_plain, dtype, _coo_csr(row, col, val, n, m))
+
+
+def _coo_csr(row, col, val, n, m):
+    import scipy.sparse as sp
+
+    keep = row < n
+    return sp.csr_matrix((val[keep], (row[keep], col[keep])), shape=(n, m))
