@@ -153,7 +153,9 @@ Phases, one or more lines each, each ending with its seconds:
      (c) one ``moe_ffn`` a lane (sort, coo and bsr on ``cuda``, onehot) on
      the first layer's weights, 128 tokens of f32: each within rtol 1e-4,
      atol 1e-5 of sort (aux rtol 1e-5), the bsr and coo dispatch matrices
-     giving ``x[t_s]`` bit for bit; then, outside the count, (d)
+     giving ``x[t_s]`` bit for bit; sort run twice and grouped (two
+     groups, at a capacity where neither lane drops a pick, held to sort
+     there) run twice, each giving equal bits; then, outside the count, (d)
      ``bsr_spmm`` at the decode step's dispatch (exact) and combine shapes
      and ``coo_spmv`` on the 128-token combine's unsorted entries (exact),
      each with the line phase 2 prints, the cost of a step's two BSR
@@ -161,7 +163,20 @@ Phases, one or more lines each, each ending with its seconds:
      ``w_down`` pruned to BSR (density 0.25, blocks of 32) through
      ``bsr_linear`` at 4 and 128 tokens against plain and the masked dense
      product, and ``block_sparse_attention`` at 64 heads of 128, batch 4,
-     1,024 positions, banded blocks of 64, against a dense masked oracle.
+     1,024 positions, banded blocks of 64, against a dense masked oracle;
+ 13. ``deepseek-v2-236b`` at its published widths (MLA, 160 experts top-6
+     plus 2 shared, a leading dense layer) cut to 4 of its 60 layers (1
+     dense, 3 MoE), served and checked as phase 12 (a)-(d), its path
+     counted on its own (the kernel line's ``launches_model`` sums phases
+     12-14); (d) is ``bsr_spmm`` at its decode dispatch (1280 x 4) and
+     combine (4 x 1281) against 5120 columns; (e) the first layer's MLA
+     fed the prompt token by token through the absorbed ``mla_decode``,
+     against the direct ``mla_train`` at the reference's bound (0.05
+     max|want|, f32);
+ 14. ``jamba-v0.1-52b`` at its published widths cut to one period of 8 of
+     its 32 layers (7 Mamba mixers, 1 attention, 4 MoE slots of 16
+     experts top-2), served and checked as phase 13 (a)-(d) (dispatch 128
+     x 4, combine 4 x 129, 4096 columns).
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
@@ -181,6 +196,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS = os.path.join(ROOT, "tests", "fixtures", "corpus")
@@ -244,6 +260,7 @@ REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve", "dis
 #: ``bsr_spmm`` ran, and the staged and every-slot bounds.
 EXTRA_KEYS = ("path", "masked", "spmm", "coarse", "powerlaw", "block", "shape_52",
               "shape_26", "shape_13", "moe_dispatch", "moe_combine", "moe_combine_unsorted",
+              "deepseek_dispatch", "deepseek_combine", "jamba_dispatch", "jamba_combine",
               "bound_staged_ms", "bound_every_slot_ms", "bound_every_id_slot_ms")
 
 #: The block matrix of the block path: ``block_random(n, bs, density)``.
@@ -305,8 +322,37 @@ MODEL_ARCH = "qwen3-moe-235b-a22b"
 MODEL_LAYERS = 4
 MODEL_DEVICE = "cuda"
 MODEL_SERVE = {"batch": 4, "prompt_len": 32, "gen": 32}
-#: Tokens of phase 12c's single ``moe_ffn`` calls (f32 activations).
+#: Tokens of the lane phases' single ``moe_ffn`` calls (f32 activations).
 MODEL_LANE_T = 128
+
+
+class ModelCell(NamedTuple):
+    """One model the smoke serves: the key of its result lines (``model``
+    for phase 12), the arch, its depth after the cut and how many of those
+    layers route tokens through an MoE (one routing each a step)."""
+    key: str
+    arch: str
+    layers: int
+    routed: int
+
+
+#: Phase 12 (above); phase 13, deepseek-v2-236b at its published widths
+#: (d_model 5120, 128 heads, MLA kv_lora 512 / q_lora 1536 / rope 64 / nope
+#: 128 / v 128, 160 experts top-6 of width 1536 plus 2 shared of 3072, a
+#: leading dense layer of d_ff 12288, vocab 102,400) cut from 60 layers to
+#: 4 (the dense one and 3 MoE: 13.3 G parameters, 26.6 GB in bf16); phase
+#: 14, jamba-v0.1-52b at its published widths (d_model 4096, 32 heads over
+#: 8 kv heads of 128, Mamba d_state 16 / conv 4 / expand 2, 16 experts
+#: top-2 of width 14336 on every 2nd slot, d_ff 14336, vocab 65,536) cut
+#: from 32 layers to one period of 8 (7 Mamba mixers, 1 attention, 4 MoE
+#: slots: 13.3 G parameters, 26.6 GB in bf16), the least whole period.
+#: Each is served as phase 12 serves its model.
+MODEL_CELLS = {12: ModelCell("model", MODEL_ARCH, MODEL_LAYERS, MODEL_LAYERS),
+               13: ModelCell("deepseek", "deepseek-v2-236b", 4, 3),
+               14: ModelCell("jamba", "jamba-v0.1-52b", 8, 4)}
+#: Phase 13e: the absorbed MLA decode against the direct form at the
+#: reference's bound (``tests/test_models.py``: 0.05 max|want|, f32).
+MLA_ATOL_OF_MAX = 0.05
 #: bf16 logits of the served and the plain teacher-forced run agree within
 #: ``MODEL_LOGIT_EPS * eps(bf16) * max|logit|`` a step, the tolerance of
 #: ``tests/test_torch_models_lm.py``; a batch row is compared up to its
@@ -1738,11 +1784,34 @@ def recorded_routes(log: list):
         moe_mod._route = orig
 
 
-def model_serve(results: dict, smi: str, routes: list):
-    """Phase 12a: the model built on the card from a seeded generator and
-    served through ``serve_lm`` (bsr lane, ``use_backend("cuda")``); then
-    one more decode step under the sync debug mode "error", so no host
-    sync hides in the lane. Returns the served run and its step logits."""
+def first_moe(params) -> dict:
+    """The parameters of the first MoE FFN of a model (layer 0 of the first
+    group that holds one; Jamba's first MoE slot)."""
+    from repro_torch.models.model import layer
+
+    def find(tree):
+        if isinstance(tree, dict):
+            if "router" in tree:
+                return tree
+            for v in tree.values():
+                hit = find(v)
+                if hit is not None:
+                    return hit
+        return None
+
+    for gp in params["groups"]:
+        hit = find(layer(gp, 0))
+        if hit is not None:
+            return hit
+    raise SystemExit("chip_smoke: the model holds no MoE layer")
+
+
+def model_serve(results: dict, smi: str, routes: list, cell: ModelCell):
+    """Phase 12a (13a, 14a): the model built on the card from a seeded
+    generator and served through ``serve_lm`` (bsr lane,
+    ``use_backend("cuda")``); then one more decode step under the sync
+    debug mode "error", so no host sync hides in the step. Returns the
+    served run and its step logits."""
     import types
 
     import torch
@@ -1751,7 +1820,7 @@ def model_serve(results: dict, smi: str, routes: list):
     from repro_torch.distributed.sharding import param_paths
     from repro_torch.launch.serve import serve_lm
 
-    args = types.SimpleNamespace(arch=MODEL_ARCH, smoke=False, seed=0, layers=MODEL_LAYERS,
+    args = types.SimpleNamespace(arch=cell.arch, smoke=False, seed=0, layers=cell.layers,
                                  dispatch_impl="bsr", device=MODEL_DEVICE,
                                  **MODEL_SERVE)
     logits = []
@@ -1773,12 +1842,12 @@ def model_serve(results: dict, smi: str, routes: list):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    del routes[n_routes:]
-    results["model"] = phase(
-        "model serve", smi=repr(smi), arch=cfg.name, layers=cfg.n_layers,
-        d_model=cfg.d_model, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
-        vocab=cfg.vocab, dispatch_impl=cfg.moe.dispatch_impl, batch=MODEL_SERVE["batch"],
-        prompt=MODEL_SERVE["prompt_len"], gen=MODEL_SERVE["gen"],
+    del routes[n_routes:], caches
+    results[cell.key] = phase(
+        f"{cell.key} serve", smi=repr(smi), arch=cfg.name, layers=cfg.n_layers,
+        routed_layers=cell.routed, d_model=cfg.d_model, experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k, vocab=cfg.vocab, dispatch_impl=cfg.moe.dispatch_impl,
+        batch=MODEL_SERVE["batch"], prompt=MODEL_SERVE["prompt_len"], gen=MODEL_SERVE["gen"],
         param_gb=sum(t.numel() * t.element_size() for _, t in param_paths(params)) / 1e9,
         prompt_ms=served["prompt_s"] * 1e3, decode_ms=served["decode_s"] * 1e3,
         tok_s=served["tok_s"], ms_token_p50=served["p50_s"] * 1e3,
@@ -1787,11 +1856,13 @@ def model_serve(results: dict, smi: str, routes: list):
     return served, logits
 
 
-def model_teacher_forced(results: dict, served, logits_a: list, routes: list) -> None:
-    """Phase 12b: the served tokens fed through the same model under
-    ``use_backend("plain")``; each step's logits against the served run's,
-    row by row up to a row's first routing difference, and the greedy
-    tokens wherever the plain run's top-2 margin exceeds the tolerance."""
+def model_teacher_forced(results: dict, served, logits_a: list, routes: list,
+                         cell: ModelCell) -> None:
+    """Phase 12b (13b, 14b): the served tokens fed through the same model
+    under ``use_backend("plain")``; each step's logits against the served
+    run's, row by row up to a row's first routing difference, and the
+    greedy tokens wherever the plain run's top-2 margin exceeds the
+    tolerance."""
     import torch
 
     from repro_torch.core import use_backend
@@ -1802,7 +1873,8 @@ def model_teacher_forced(results: dict, served, logits_a: list, routes: list) ->
     launches = launch_counts()
     n_a = len(routes)
     L = n_a // (S + G)
-    check(n_a == L * (S + G) and L == MODEL_LAYERS, f"model: {n_a} routings for {S + G} steps")
+    check(n_a == L * (S + G) and L == cell.routed,
+          f"{cell.key}: {n_a} routings for {S + G} steps of {cell.routed} routed layers")
     t0 = time.perf_counter()
     logits_b = []
     with use_backend("plain"):
@@ -1812,7 +1884,8 @@ def model_teacher_forced(results: dict, served, logits_a: list, routes: list) ->
             logits_b.append(lg)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    check(launch_counts() == launches, "model: the plain run launched a kernel")
+    del caches
+    check(launch_counts() == launches, f"{cell.key}: the plain run launched a kernel")
     eps = torch.finfo(torch.bfloat16).eps
     alike = torch.ones(B, dtype=torch.bool, device=MODEL_DEVICE)
     compared = tokens_checked = 0
@@ -1824,8 +1897,8 @@ def model_teacher_forced(results: dict, served, logits_a: list, routes: list) ->
         tol = MODEL_LOGIT_EPS * eps * float(lb.abs().max())
         err = (la - lb).abs().amax(dim=-1)
         rows = alike.nonzero().flatten()
-        check(bool((err[rows] <= tol).all()), f"model step {t}: logits of rows routed alike "
-              f"differ by {err[rows].tolist()} > {tol}")
+        check(bool((err[rows] <= tol).all()), f"{cell.key} step {t}: logits of rows routed "
+              f"alike differ by {err[rows].tolist()} > {tol}")
         compared += rows.numel()
         if rows.numel():
             worst = max(worst, float(err[rows].max()))
@@ -1833,58 +1906,71 @@ def model_teacher_forced(results: dict, served, logits_a: list, routes: list) ->
         top2 = lb.topk(2, dim=-1).values
         clear = alike & (top2[:, 0] - top2[:, 1] > tol)
         same = la.argmax(-1) == lb.argmax(-1)
-        check(bool(same[clear].all()), f"model step {t}: greedy tokens differ where plain's "
-              "top-2 margin exceeds the tolerance")
+        check(bool(same[clear].all()), f"{cell.key} step {t}: greedy tokens differ where "
+              "plain's top-2 margin exceeds the tolerance")
         tokens_checked += int(clear.sum())
         if t >= S:  # the served run's greedy token is its logits' argmax
             check(bool((served["generated"][:, t - S].to(MODEL_DEVICE) == la.argmax(-1)).all()),
-                  f"model step {t}: served token is not its logits' argmax")
+                  f"{cell.key} step {t}: served token is not its logits' argmax")
     flips = B * (S + G) - compared
     check(compared >= MODEL_COMPARED * B * (S + G),
-          f"model: only {compared} of {B * (S + G)} row-steps routed alike")
+          f"{cell.key}: only {compared} of {B * (S + G)} row-steps routed alike")
     del routes[n_a:]
-    results["model_plain"] = phase(
-        "model teacher-forced vs plain", row_steps=B * (S + G), compared=compared,
+    results[f"{cell.key}_plain"] = phase(
+        f"{cell.key} teacher-forced vs plain", row_steps=B * (S + G), compared=compared,
         not_compared_after_a_routing_difference=flips, max_abs_err=worst,
         tolerance=worst_tol, tolerance_rule=f"{MODEL_LOGIT_EPS} eps(bf16) max|logit|",
         tokens_checked=tokens_checked, plain_s=plain_s)
 
 
-def model_lanes(results: dict, served) -> None:
-    """Phase 12c: one ``moe_ffn`` per lane on the first layer's weights at
-    full width, f32 activations, ``MODEL_LANE_T`` tokens, under
-    ``use_backend("cuda")``: each against 'sort' at the reference's MoE
-    contract; the bsr and coo dispatch matrices give the dispatched rows
-    ``x[t_s]`` bit for bit."""
+def model_lanes(results: dict, served, cell: ModelCell) -> None:
+    """Phase 12c (13c, 14c): one ``moe_ffn`` per lane on the first MoE
+    layer's weights at full width, f32 activations, ``MODEL_LANE_T`` tokens,
+    under ``use_backend("cuda")``. 'sort' runs twice and gives equal bits;
+    coo, bsr and onehot share its routing and capacity and hold to it at
+    the reference's MoE contract. 'grouped' over two groups runs twice
+    (equal bits) and holds to 'sort' at a capacity where neither drops a
+    pick (a group's capacity differs from the whole batch's, so they drop
+    different picks at the config's). The bsr and coo dispatch matrices
+    give the dispatched rows ``x[t_s]`` bit for bit."""
     import dataclasses
 
     import torch
 
     from repro_torch.core import SparseOperator, use_backend
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.model import layer
 
     cfg = served["cfg"]
-    lp = layer(served["params"]["groups"][0], 0)["ffn"]
+    lp = first_moe(served["params"])
     T, D = MODEL_LANE_T, cfg.d_model
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
     x = torch.randn((T, D), generator=torch.Generator(device=MODEL_DEVICE).manual_seed(1),
                     device=MODEL_DEVICE)
+    nodrop = E / K  # capacity T (Tg a group): no expert can be picked more often
+    runs = {"sort": ("sort", cfg.moe.capacity_factor, 0), "coo": ("coo", None, 0),
+            "bsr": ("bsr", None, 0), "onehot": ("onehot", None, 0),
+            "sort_again": ("sort", None, 0), "sort_nodrop": ("sort", nodrop, 0),
+            "grouped": ("grouped", nodrop, 2), "grouped_again": ("grouped", nodrop, 2)}
     out, secs = {}, {}
     with use_backend("cuda"):
-        for impl in ("sort", "coo", "bsr", "onehot"):
-            mcfg = dataclasses.replace(cfg.moe, dispatch_impl=impl)
+        for name, (impl, cf, groups) in runs.items():
+            mcfg = dataclasses.replace(cfg.moe, dispatch_impl=impl, n_groups=groups,
+                                       capacity_factor=cf or cfg.moe.capacity_factor)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out[impl] = moe_mod.moe_ffn(lp, x, cfg, mcfg)
+            out[name] = moe_mod.moe_ffn(lp, x, cfg, mcfg)
             torch.cuda.synchronize()
-            secs[impl] = time.perf_counter() - t0
-        y0, aux0 = out["sort"]
+            secs[name] = time.perf_counter() - t0
+        for a, b in (("sort", "sort_again"), ("grouped", "grouped_again")):
+            check(bool(torch.equal(out[a][0], out[b][0])), f"{cell.key} moe_ffn {a}: two runs "
+                  "give different bits")
         errs = {}
-        for impl in ("coo", "bsr", "onehot"):
-            y, aux = out[impl]
-            errs[impl] = close(f"moe_ffn {impl} against sort", y, y0, MOE_RTOL, MOE_ATOL)
-            close(f"moe_ffn {impl} aux against sort", aux, aux0, MOE_AUX_RTOL, 0.0)
-        E, K = cfg.moe.n_experts, cfg.moe.top_k
+        for impl, base in (("coo", "sort"), ("bsr", "sort"), ("onehot", "sort"),
+                           ("grouped", "sort_nodrop")):
+            (y, aux), (y0, aux0) = out[impl], out[base]
+            errs[impl] = close(f"{cell.key} moe_ffn {impl} against {base}", y, y0,
+                               MOE_RTOL, MOE_ATOL)
+            close(f"{cell.key} moe_ffn {impl} aux against {base}", aux, aux0, MOE_AUX_RTOL, 0.0)
         C = moe_mod._capacity(T, K, E, cfg.moe.capacity_factor)
         topw, tope, _ = moe_mod._route(lp, x, cfg.moe)
         slot, t_s, w_s, keep = moe_mod._dispatch_indices(tope, topw, T, E, K, C)
@@ -1893,34 +1979,36 @@ def model_lanes(results: dict, served) -> None:
         for make in (moe_mod.bsr_dispatch, moe_mod.coo_dispatch):
             P = make(slot, t_s, keep, T, E, C, x.dtype)
             check(bool(torch.equal(SparseOperator(P) @ x, xe[: E * C])),
-                  f"moe {P.format} dispatch does not give x[t_s] bit for bit")
-    results["model_lanes"] = phase(
-        "model moe_ffn lanes", tokens=T, capacity=C, slots=E * C,
-        kept=int(keep.sum()), seconds=json.dumps({k: round(v, 4) for k, v in secs.items()}),
-        max_abs_err_vs_sort=json.dumps(errs), dispatch_bit_exact=True)
+                  f"{cell.key} moe {P.format} dispatch does not give x[t_s] bit for bit")
+    results[f"{cell.key}_lanes"] = phase(
+        f"{cell.key} moe_ffn lanes", tokens=T, capacity=C, slots=E * C,
+        kept=int(keep.sum()), nodrop_capacity_factor=nodrop,
+        seconds=json.dumps({k: round(v, 4) for k, v in secs.items()}),
+        max_abs_err_vs_sort=json.dumps(errs), dispatch_bit_exact=True,
+        sort_and_grouped_repeat_bits=True)
 
 
-def model_kernels(results: dict, served) -> dict:
-    """Phase 12d: ``bsr_spmm`` at the decode step's dispatch (E*C x T, bf16
-    blocks against T rows of X) and combine (T x E*C+1 against ``h_pad``)
-    shapes, and ``coo_spmv`` on the unsorted combine of a 128-token
-    ``moe_ffn`` (f32), each against its plain version, with the cost of
-    building a step's two BSR containers and of a COO container's first
-    call (its order check reads one flag from the device)."""
-    import dataclasses
-
+def model_kernels(results: dict, served, cell: ModelCell) -> dict:
+    """Phase 12d (13d, 14d): ``bsr_spmm`` at the decode step's dispatch
+    (E*C x T, bf16 blocks against T rows of X) and combine (T x E*C+1
+    against ``h_pad``) shapes, each against its plain version, with the
+    cost of building a step's two BSR containers; phase 12 adds
+    ``coo_spmv`` on the unsorted combine of a 128-token ``moe_ffn`` (f32)
+    and the cost of a COO container's first call (its order check reads
+    one flag from the device)."""
     import torch
 
     from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_path, bsr_spmm_plain
     from repro_torch.kernels.coo_spmv import coo_spmv, coo_spmv_from_container, coo_spmv_plain
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.model import layer
 
     cfg = served["cfg"]
-    lp = layer(served["params"]["groups"][0], 0)["ffn"]
+    lp = first_moe(served["params"])
     E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
     gen = torch.Generator(device=MODEL_DEVICE).manual_seed(2)
     out = {}
+    name = "MoE" if cell.key == "model" else cell.key
+    key = "moe" if cell.key == "model" else cell.key
 
     def bsr_lib(P, X):
         """torch's BSR product on the same blocks (f32) and X, padded to
@@ -1945,8 +2033,8 @@ def model_kernels(results: dict, served) -> dict:
     Xd = x.float()
     real = int((Pd.bcols >= 0).sum())
     moved = real * 64 * Pd.blocks.element_size() + nbytes(Pd.bcols, Xd) + E * C * D * 4
-    out["moe_dispatch"] = measure_model_kernel(
-        "bsr_spmm MoE decode dispatch", lambda: bsr_spmm(Pd.bcols, Pd.blocks, Xd),
+    out[f"{key}_dispatch"] = measure_model_kernel(
+        f"bsr_spmm {name} decode dispatch", lambda: bsr_spmm(Pd.bcols, Pd.blocks, Xd),
         lambda: bsr_spmm_plain(Pd.bcols, Pd.blocks, Xd), moved, 2 * real * 64 * D,
         "bsr_spmm_", library=bsr_lib(Pd, Xd), exact=True,
         shape=(E * C, T), nf=D, bs=Pd.bs, bwidth=Pd.bwidth, block_rows=Pd.bcols.shape[0],
@@ -1960,8 +2048,8 @@ def model_kernels(results: dict, served) -> dict:
     read_rows = int(torch.unique(Pc.bcols[Pc.bcols >= 0]).numel()) * Pc.bs
     moved = real * 64 * Pc.blocks.element_size() + nbytes(Pc.bcols) + read_rows * D * 4 + (
         Pc.bcols.shape[0] * Pc.bs * D * 4)
-    out["moe_combine"] = measure_model_kernel(
-        "bsr_spmm MoE decode combine", lambda: bsr_spmm(Pc.bcols, Pc.blocks, Xc),
+    out[f"{key}_combine"] = measure_model_kernel(
+        f"bsr_spmm {name} decode combine", lambda: bsr_spmm(Pc.bcols, Pc.blocks, Xc),
         lambda: bsr_spmm_plain(Pc.bcols, Pc.blocks, Xc), moved, 2 * real * 64 * D,
         "bsr_spmm_", library=bsr_lib(Pc, Xc), shape=(T, E * C + 1), nf=D, bs=Pc.bs,
         bwidth=Pc.bwidth, block_rows=Pc.bcols.shape[0], real_blocks=real,
@@ -1972,9 +2060,12 @@ def model_kernels(results: dict, served) -> dict:
                 moe_mod.bsr_combine(slot, tope, w_s, keep, T, E, C, h.dtype))
 
     build_ms = cuda_ms(build, 20)
-    out["moe_dispatch"]["containers_ms_per_layer"] = build_ms
-    phase("model containers", bsr_dispatch_and_combine_ms_per_layer=build_ms,
-          per_decode_step_ms=build_ms * MODEL_LAYERS)
+    out[f"{key}_dispatch"]["containers_ms_per_layer"] = build_ms
+    phase(f"{cell.key} containers", bsr_dispatch_and_combine_ms_per_layer=build_ms,
+          per_decode_step_ms=build_ms * cell.routed)
+    results[f"{cell.key}_kernels"] = out
+    if cell.key != "model":
+        return out
 
     # coo_spmv on a 128-token f32 combine: rows are tokens in expert order
     T = MODEL_LANE_T
@@ -1999,8 +2090,36 @@ def model_kernels(results: dict, served) -> dict:
         "coo_rows_kernel", library=lambda: torch.sparse.mm(lib_A, hc[:, None]), exact=True,
         shape=P.shape, entries=P.nnz, sorted_by_row=False,
         first_call_ms=first_ms)
-    results["model_kernels"] = out
     return out
+
+
+def model_mla(results: dict, served) -> None:
+    """Phase 13e: the first layer's MLA fed the prompt's normed embeddings
+    (f32) token by token through the absorbed ``mla_decode``, against the
+    direct ``mla_train``, at the reference's bound (0.05 max|want|)."""
+    import torch
+
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import layer
+
+    cfg, model, params = served["cfg"], served["model"], served["params"]
+    lp = layer(params["groups"][0], 0)
+    prompt = served["prompt"].to(MODEL_DEVICE)
+    B, S = prompt.shape
+    x = rmsnorm(params["embed"][prompt.long()].float(), lp["ln1"].float(), cfg.norm_eps)
+    pos = torch.arange(S, dtype=torch.int32, device=MODEL_DEVICE)[None].expand(B, S)
+    want = mla_mod.mla_train(lp["mixer"], x, cfg, pos)
+    cache = mla_mod.init_mla_cache(cfg, B, S, torch.float32, MODEL_DEVICE)
+    got = torch.cat([mla_mod.mla_decode(lp["mixer"], x[:, t:t + 1], cfg, cache, t)[0]
+                     for t in range(S)], dim=1)
+    err = close("mla_decode (absorbed) against mla_train (direct)", got, want, 0.0,
+                MLA_ATOL_OF_MAX * float(want.abs().max()))
+    results["deepseek_mla"] = phase(
+        "deepseek mla absorbed vs direct", batch=B, positions=S, heads=cfg.n_heads,
+        kv_lora=cfg.mla.kv_lora_rank, max_abs_err=err,
+        tolerance=MLA_ATOL_OF_MAX * float(want.abs().max()),
+        cache_floats_per_token=cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
 
 
 def model_sparsify_attention(results: dict, served) -> None:
@@ -2053,11 +2172,12 @@ def model_sparsify_attention(results: dict, served) -> None:
         attention_max_abs_err=attn_err)
 
 
-def phase_model(results: dict, smi: str) -> tuple:
-    """Phase 12, the model path: (a) serve and (b) the plain teacher-forced
-    check, (c) one ``moe_ffn`` per lane, counted together as the path;
-    then (d) its kernels at its shapes and (e) sparsify and block
-    attention. Returns the path's launches and 12d's kernel lines."""
+def phase_model(results: dict, smi: str, cell: ModelCell = MODEL_CELLS[12]) -> tuple:
+    """Phase 12 (13, 14), a model path: (a) serve and (b) the plain
+    teacher-forced check, (c) one ``moe_ffn`` per lane, counted together as
+    the path; then (d) its kernels at its shapes, and phase 12's (e)
+    sparsify and block attention or phase 13's (e) MLA check. Returns the
+    path's launches and (d)'s kernel lines."""
     import torch
 
     torch.cuda.empty_cache()
@@ -2065,15 +2185,19 @@ def phase_model(results: dict, smi: str) -> tuple:
 
     def drive():
         with recorded_routes(routes):
-            served, logits = model_serve(results, smi, routes)
-            model_teacher_forced(results, served, logits, routes)
+            served, logits = model_serve(results, smi, routes, cell)
+            model_teacher_forced(results, served, logits, routes, cell)
         del logits
-        model_lanes(results, served)
+        model_lanes(results, served, cell)
         return served
 
-    served, launches, _ = counted("model", drive)
-    kern = model_kernels(results, served)
-    model_sparsify_attention(results, served)
+    served, launches, _ = counted(cell.key, drive)
+    check(launches["bsr_spmm"] > 0, f"bsr_spmm was not launched on the {cell.key} path")
+    kern = model_kernels(results, served, cell)
+    if cell.key == "model":
+        model_sparsify_attention(results, served)
+    if served["cfg"].mla is not None:
+        model_mla(results, served)
     del served
     torch.cuda.empty_cache()
     return launches, kern
@@ -2214,12 +2338,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("11 dist")
 
-    # --------------------------------------------------------------- 12
-    launches_model, kern_model = phase_model(results, smi)
-    kern["bsr_spmm"].update(moe_dispatch=kern_model["moe_dispatch"],
-                            moe_combine=kern_model["moe_combine"])
-    kern["coo_spmv"]["moe_combine_unsorted"] = kern_model["moe_combine_unsorted"]
-    lap("12 model")
+    # ---------------------------------------------------------- 12-14
+    launches_model = {}
+    for n, cell in MODEL_CELLS.items():
+        launches_cell, kern_model = phase_model(results, smi, cell)
+        coo_line = kern_model.pop("moe_combine_unsorted", None)
+        if coo_line is not None:
+            kern["coo_spmv"]["moe_combine_unsorted"] = coo_line
+        kern["bsr_spmm"].update(kern_model)
+        for name, count in launches_cell.items():
+            if name != "dia_spmv_split":
+                launches_model[name] = launches_model.get(name, 0) + count
+        lap(f"{n} {cell.key}")
 
     by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled,
                "tuner": launches_tuner, "corpus": launches_corpus, "scoo": launches_scoo,

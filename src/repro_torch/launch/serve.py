@@ -14,8 +14,9 @@ LM serving (the reference's flags, plus the port's):
       --batch 4 --prompt-len 32 --gen 32 --device cpu
   python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --layers 4 \
       --dispatch-impl bsr
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke --device cpu
 
-``--layers`` cuts the model's depth and ``--dispatch-impl`` picks the MoE
+``--layers`` cuts the model's depth (Jamba's in whole periods) and ``--dispatch-impl`` picks the MoE
 lane; the sparse products run under ``use_backend("cuda")`` (the
 hand-written kernels on the card, their plain versions on host tensors).
 Runs on the card unless ``--device cpu``. The LM loop
@@ -68,6 +69,9 @@ def lm_config(args):
     ``--layers`` and given ``--dispatch-impl`` where those are set."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
+        if cfg.attn_period and args.layers % cfg.attn_period:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} is cut in whole periods of "
+                             f"{cfg.attn_period} layers")
         cfg = cfg.replace(n_layers=args.layers)
     if args.dispatch_impl and cfg.moe is not None:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_impl=args.dispatch_impl))
@@ -91,8 +95,10 @@ def serve_lm(args, params=None, logits_out: Optional[List[torch.Tensor]] = None)
     rng = np.random.default_rng(args.seed)  # the reference's prompt, drawn on the host
     B, S, G = args.batch, args.prompt_len, args.gen
     tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
-    # the vision stub's patch positions stay empty in the cache, as in the
-    # reference's loop, which feeds no patches to the decode step
+    if cfg.frontend in ("vision", "audio"):
+        # the reference draws the stub's patches or frames and feeds them to
+        # no step: the patch positions and the cross caches stay zero
+        rng.standard_normal((B, cfg.frontend_tokens, cfg.d_model))
     prefix = cfg.frontend_tokens if cfg.frontend == "vision" else 0
     smax = prefix + S + G
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)

@@ -1,6 +1,6 @@
-"""The model zoo's attention families in PyTorch (the port of
-``repro.models``): dense, vlm and the MoE model without MLA. See
-``model.py`` for what is not ported yet."""
+"""The model zoo in PyTorch (the port of ``repro.models``): the dense, vlm
+and MoE attention families, MLA (DeepSeek-V2), the Mamba/attention hybrid
+(Jamba), RWKV-6 and the Whisper encoder-decoder."""
 from .from_reference import params_from_reference
 from .model import LM, EncDecLM, build_model, count_params_struct
 

@@ -37,6 +37,14 @@ class Init:
         w = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
         return (w * scale).to(dtype or self.weight_dtype)
 
+    def uniform(self, shape) -> torch.Tensor:
+        """f32 draws in [0, 1)."""
+        gen = None if self.device.type == "meta" else self.generator
+        return torch.rand(shape, generator=gen, device=self.device, dtype=torch.float32)
+
+    def full(self, shape, value: float, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype or self.weight_dtype, device=self.device)
+
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(shape, dtype=self.weight_dtype, device=self.device)
 

@@ -1,19 +1,20 @@
-"""Model assembly: config -> (init, train loss, prefill, decode), the port of
-``repro.models.model`` for the attention families.
+"""Model assembly: config -> (init, train loss, prefill, decode) for every
+family: the port of ``repro.models.model``.
 
 Layer stacks are kept as the reference keeps them: each group's parameters
 are stacked along a leading layer axis (``params["groups"][g]``, every leaf
 ``(n, ...)``), and caches are stacked the same way. The reference scans over
 that axis; here a Python loop walks it, one layer at a time, and the decode
 step writes each layer's cache slice in place (the reference donates the
-caches to the step).
+caches to the step): attention and MLA write their slot at ``pos``, and the
+state a Mamba or RWKV layer returns is copied into its slice.
 
-  dense/vlm    : [attn+mlp] x L
-  moe (qwen3)  : [attn+moe] x L
-
-Not ported yet (ROADMAP queue 1, item 9): the MLA mixer (deepseek), the
-Mamba and Jamba blocks (``ssm.py``), RWKV (``rwkv.py``) and the
-encoder-decoder ``EncDecLM`` (whisper); each raises ``NotImplementedError``.
+  dense/vlm       : [attn+mlp] x L
+  moe (qwen3)     : [attn+moe] x L
+  moe (deepseek)  : [mla+mlp] x first_dense + [mla+moe] x rest
+  hybrid (jamba)  : [(mamba|attn)+(mlp|moe) period of `attn_period`] x L/period
+  ssm (rwkv6)     : [rwkv] x L
+  audio (whisper) : encoder [attn+mlp] x Le ; decoder [self+cross+mlp] x Ld
 """
 from __future__ import annotations
 
@@ -27,10 +28,11 @@ from repro_torch.core.formats import resolve_device
 from repro_torch.distributed.sharding import logical_constraint
 
 from . import attention as attn
+from . import mla as mla_mod
 from . import moe as moe_mod
+from . import rwkv as rwkv_mod
+from . import ssm as ssm_mod
 from .layers import Init, apply_mlp, dense_init, embed_init, init_mlp, rmsnorm
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 9)"
 
 
 class GroupDef(NamedTuple):
@@ -60,20 +62,21 @@ def _ffn_apply(lp_ffn, x, cfg, use_moe: bool):
 
 
 def attn_block(cfg: ModelConfig, use_moe: bool, use_mla: bool, name: str) -> GroupDef:
-    if use_mla:
-        raise NotImplementedError(f"the MLA mixer of {cfg.name} {_NOT_PORTED}")
-
     def init(ini: Init):
         return {
             "ln1": ini.ones((cfg.d_model,)),
-            "mixer": attn.init_attention(ini, cfg),
+            "mixer": mla_mod.init_mla(ini, cfg) if use_mla else attn.init_attention(ini, cfg),
             "ln2": ini.ones((cfg.d_model,)),
             "ffn": _ffn_init(ini, cfg, use_moe),
         }
 
     def train(lp, x, ctx):
         h = rmsnorm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
-        x = x + attn.attention_train(lp["mixer"], h, cfg, ctx["positions"])
+        if use_mla:
+            h = mla_mod.mla_train(lp["mixer"], h, cfg, ctx["positions"])
+        else:
+            h = attn.attention_train(lp["mixer"], h, cfg, ctx["positions"])
+        x = x + h
         seq_ax = "seq_act" if cfg.seq_parallel else None
         x = logical_constraint(x, ("batch", seq_ax, None))
         f = rmsnorm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
@@ -82,7 +85,10 @@ def attn_block(cfg: ModelConfig, use_moe: bool, use_mla: bool, name: str) -> Gro
 
     def prefill(lp, x, ctx):
         h = rmsnorm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
-        h, cache = attn.attention_prefill(lp["mixer"], h, cfg, ctx["positions"])
+        if use_mla:
+            h, cache = mla_mod.mla_prefill(lp["mixer"], h, cfg, ctx["positions"])
+        else:
+            h, cache = attn.attention_prefill(lp["mixer"], h, cfg, ctx["positions"])
         x = x + h
         f = rmsnorm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
         y, aux = _ffn_apply(lp["ffn"], f, cfg, use_moe)
@@ -90,13 +96,18 @@ def attn_block(cfg: ModelConfig, use_moe: bool, use_mla: bool, name: str) -> Gro
 
     def decode(lp, x, cache, pos, ctx):
         h = rmsnorm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
-        h, cache = attn.attention_decode(lp["mixer"], h, cfg, cache, pos)
+        if use_mla:
+            h, cache = mla_mod.mla_decode(lp["mixer"], h, cfg, cache, pos)
+        else:
+            h, cache = attn.attention_decode(lp["mixer"], h, cfg, cache, pos)
         x = x + h
         f = rmsnorm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
         y, _ = _ffn_apply(lp["ffn"], f, cfg, use_moe)
         return x + y, cache
 
     def init_cache(batch, seq, dtype, device):
+        if use_mla:
+            return mla_mod.init_mla_cache(cfg, batch, seq, dtype, device)
         shape = (batch, seq, cfg.n_kv_heads, cfg.hd)
         return attn.KVCache(torch.zeros(shape, dtype=dtype, device=device),
                             torch.zeros(shape, dtype=dtype, device=device))
@@ -105,15 +116,120 @@ def attn_block(cfg: ModelConfig, use_moe: bool, use_mla: bool, name: str) -> Gro
 
 
 def mamba_block(cfg: ModelConfig, use_moe: bool, name: str) -> GroupDef:
-    raise NotImplementedError(f"the Mamba block of {cfg.name} {_NOT_PORTED}")
+    def init(ini: Init):
+        return {
+            "ln1": ini.ones((cfg.d_model,)),
+            "mixer": ssm_mod.init_mamba(ini, cfg),
+            "ln2": ini.ones((cfg.d_model,)),
+            "ffn": _ffn_init(ini, cfg, use_moe),
+        }
+
+    def _body(lp, x, state):
+        h = rmsnorm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
+        h, new_state = ssm_mod.mamba_forward(lp["mixer"], h, cfg, state)
+        x = x + h
+        f = rmsnorm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
+        y, aux = _ffn_apply(lp["ffn"], f, cfg, use_moe)
+        return x + y, new_state, aux
+
+    def train(lp, x, ctx):
+        x, _, aux = _body(lp, x, None)
+        return x, aux
+
+    def prefill(lp, x, ctx):
+        return _body(lp, x, None)
+
+    def decode(lp, x, state, pos, ctx):
+        h = rmsnorm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
+        h, new_state = ssm_mod.mamba_decode(lp["mixer"], h, cfg, state)
+        x = x + h
+        f = rmsnorm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
+        y, _ = _ffn_apply(lp["ffn"], f, cfg, use_moe)
+        return x + y, new_state
+
+    def init_cache(batch, seq, dtype, device):
+        return ssm_mod.init_mamba_state(cfg, batch, dtype, device)
+
+    return GroupDef(name, 0, init, train, prefill, decode, init_cache)
 
 
 def rwkv_block(cfg: ModelConfig, name: str) -> GroupDef:
-    raise NotImplementedError(f"the RWKV block of {cfg.name} {_NOT_PORTED}")
+    def init(ini: Init):
+        return {
+            "ln1": ini.ones((cfg.d_model,)),
+            "ln2": ini.ones((cfg.d_model,)),
+            "mix": rwkv_mod.init_rwkv(ini, cfg),
+        }
+
+    def _full(lp, x, state):
+        h = rmsnorm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
+        y, tm_shift, wkv = rwkv_mod.rwkv_time_mix(lp["mix"], h, cfg, state)
+        x = x + y
+        h2 = rmsnorm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
+        y2, cm_shift = rwkv_mod.rwkv_channel_mix(lp["mix"], h2, cfg, state)
+        x = x + y2
+        return x, rwkv_mod.RWKVState(tm_shift.to(x.dtype), cm_shift.to(x.dtype), wkv)
+
+    def train(lp, x, ctx):
+        x, _ = _full(lp, x, None)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def prefill(lp, x, ctx):
+        x, st = _full(lp, x, None)
+        return x, st, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def decode(lp, x, state, pos, ctx):
+        return _full(lp, x, state)
+
+    def init_cache(batch, seq, dtype, device):
+        return rwkv_mod.init_rwkv_state(cfg, batch, dtype, device)
+
+    return GroupDef(name, 0, init, train, prefill, decode, init_cache)
 
 
 def jamba_period(cfg: ModelConfig, name: str) -> GroupDef:
-    raise NotImplementedError(f"the Jamba period of {cfg.name} {_NOT_PORTED}")
+    """One period of `attn_period` layers: attention at slot period//2,
+    mamba elsewhere; MoE FFN on every `moe_every`-th slot."""
+    period = cfg.attn_period
+    attn_slot = period // 2
+    subs: List[GroupDef] = []
+    for i in range(period):
+        use_moe = cfg.moe is not None and (i % cfg.moe_every == cfg.moe_every - 1)
+        if i == attn_slot:
+            subs.append(attn_block(cfg, use_moe, False, f"sub{i}_attn"))
+        else:
+            subs.append(mamba_block(cfg, use_moe, f"sub{i}_mamba"))
+
+    def init(ini: Init):
+        return {f"sub{i}": subs[i].init(ini) for i in range(period)}
+
+    def train(lp, x, ctx):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(period):
+            x, a = subs[i].train(lp[f"sub{i}"], x, ctx)
+            aux = aux + a
+        return x, aux
+
+    def prefill(lp, x, ctx):
+        caches, aux = {}, torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(period):
+            x, c, a = subs[i].prefill(lp[f"sub{i}"], x, ctx)
+            caches[f"sub{i}"] = c
+            aux = aux + a
+        return x, caches, aux
+
+    def decode(lp, x, cache, pos, ctx):
+        new = {}
+        for i in range(period):
+            x, c = subs[i].decode(lp[f"sub{i}"], x, cache[f"sub{i}"], pos, ctx)
+            new[f"sub{i}"] = c
+        return x, new
+
+    def init_cache(batch, seq, dtype, device):
+        return {f"sub{i}": subs[i].init_cache(batch, seq, dtype, device)
+                for i in range(period)}
+
+    return GroupDef(name, 0, init, train, prefill, decode, init_cache)
 
 
 # -------------------------------------------------------------- assembly ----
@@ -122,6 +238,9 @@ def build_groups(cfg: ModelConfig) -> List[GroupDef]:
     if cfg.rwkv:
         return [rwkv_block(cfg, "rwkv")._replace(n=cfg.n_layers)]
     if cfg.attn_period:  # jamba
+        if cfg.n_layers % cfg.attn_period:
+            raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a multiple of "
+                             f"attn_period={cfg.attn_period}")
         return [jamba_period(cfg, "period")._replace(n=cfg.n_layers // cfg.attn_period)]
     use_mla = cfg.mla is not None
     groups = []
@@ -135,27 +254,69 @@ def build_groups(cfg: ModelConfig) -> List[GroupDef]:
     return groups
 
 
-def _stack_init(gdef: GroupDef, init: Init):
-    """``gdef.n`` layers drawn one after another, each leaf stacked along a
-    leading layer axis."""
-    layers = [gdef.init(init) for _ in range(gdef.n)]
-    return _stack(layers)
+def _stack_init(draw: Callable, n: int, init: Init):
+    """``n`` layers drawn one after another by ``draw(init)``, each leaf
+    stacked along a leading layer axis. Each layer is copied into a stack
+    allocated from the first one's leaves, so no more than one layer lives
+    beside the stack (one layer is a view of itself, with no copy)."""
+    first = draw(init)
+    if n == 1:
+        return tree_map(lambda t: t[None], first)
+    stack = tree_map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                           device=t.device), first)
+    write_back(layer(stack, 0), first)
+    del first
+    for i in range(1, n):
+        write_back(layer(stack, i), draw(init))
+    return stack
+
+
+def _initializer(device, generator, weight_dtype) -> Init:
+    """An :class:`Init` on ``device`` from a ``torch.Generator`` or a seed
+    (no generator on the ``meta`` device)."""
+    meta = torch.device(device).type == "meta"
+    if isinstance(generator, int) and not meta:
+        generator = torch.Generator(device=device).manual_seed(generator)
+    return Init(generator if isinstance(generator, torch.Generator) else None, device,
+                weight_dtype)
+
+
+def tree_map(fn, tree):
+    """``fn`` over every tensor of a tree of dicts, lists and named tuples,
+    the tree's structure kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
 
 
 def _stack(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+    """Trees of one structure stacked leaf by leaf along a new first axis."""
+    leaves = [tree_leaves(t) for t in trees]
+    it = iter([torch.stack(ls) for ls in zip(*leaves)])
+    return tree_map(lambda _: next(it), trees[0])
 
 
 def layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copy)."""
-    if isinstance(tree, dict):
-        return {k: layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(layer(v, i) for v in tree))
-    return tree[i]
+    return tree_map(lambda t: t[i], tree)
+
+
+def write_back(dst, src) -> None:
+    """Copy a layer's returned cache ``src`` into its slice ``dst`` in place,
+    leaf by leaf (a leaf the step already wrote in place is skipped)."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        if d is not s:
+            d.copy_(s)
 
 
 @dataclass
@@ -180,14 +341,11 @@ class LM:
         activation dtype instead, the values the reference's per-use casts
         give, at half the bytes."""
         cfg = self.cfg
-        if isinstance(generator, int) and torch.device(self.device).type != "meta":
-            generator = torch.Generator(device=self.device).manual_seed(generator)
-        ini = Init(generator if isinstance(generator, torch.Generator) else None,
-                   self.device, weight_dtype)
+        ini = _initializer(self.device, generator, weight_dtype)
         params: Dict[str, Any] = {
             "embed": embed_init(ini, cfg.vocab, cfg.d_model),
             "norm_f": ini.ones((cfg.d_model,)),
-            "groups": [_stack_init(g, ini) for g in self.groups],
+            "groups": [_stack_init(g.init, g.n, ini) for g in self.groups],
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(ini, cfg.d_model, cfg.vocab, scale=0.02)
@@ -252,18 +410,22 @@ class LM:
             for i in range(g.n):
                 x, cache, _ = g.prefill(layer(gp, i), x, ctx)
                 per_layer.append(cache)
-            caches.append(type(per_layer[0])(*(torch.stack(t) for t in zip(*per_layer))))
+            caches.append(_stack(per_layer))
         x = rmsnorm(x, params["norm_f"].to(x.dtype), cfg.norm_eps)
         return self._head(params, x[:, -1:])[:, 0], caches, S
 
     def decode_step(self, params, token, caches, pos: int):
-        """token: (B,1) int; pos: write index into caches (written in place)."""
+        """token: (B,1) int; pos: write index into caches. The caches are
+        updated in place: each layer's returned cache is written back into
+        its slice, so the next step sees this one's state."""
         cfg = self.cfg
         x = self._embed(params, token)
         ctx = {}
         for g, gp, gc in zip(self.groups, params["groups"], caches):
             for i in range(g.n):
-                x, _ = g.decode(layer(gp, i), x, layer(gc, i), pos, ctx)
+                ci = layer(gc, i)
+                x, new = g.decode(layer(gp, i), x, ci, pos, ctx)
+                write_back(ci, new)
         x = rmsnorm(x, params["norm_f"].to(x.dtype), cfg.norm_eps)
         return self._head(params, x)[:, 0], caches
 
@@ -272,8 +434,8 @@ class LM:
         out = []
         for g in self.groups:
             one = g.init_cache(batch, seq, dtype, self.device)
-            out.append(type(one)(*(torch.zeros((g.n,) + tuple(t.shape), dtype=t.dtype,
-                                               device=t.device) for t in one)))
+            out.append(tree_map(lambda t, n=g.n: torch.zeros(
+                (n,) + tuple(t.shape), dtype=t.dtype, device=t.device), one))
         return out
 
     # --------------------------------------------------------------- loss --
@@ -292,11 +454,141 @@ def softmax_xent(logits, targets):
     return torch.mean(lse - gold)
 
 
-class EncDecLM:
-    """Whisper-style encoder-decoder: not ported yet."""
+class DecCache(NamedTuple):
+    self_kv: attn.KVCache
+    cross_kv: attn.KVCache
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
-        raise NotImplementedError(f"the encoder-decoder model of {cfg.name} {_NOT_PORTED}")
+
+@dataclass
+class EncDecLM:
+    """Whisper-style encoder-decoder on ``device``; the audio frontend is a
+    stub (pre-embedded frames). Decoder = causal self-attn + cross-attn +
+    MLP."""
+
+    cfg: ModelConfig
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        if torch.device(self.device).type != "meta":
+            self.device = resolve_device(self.device)
+
+    def init(self, generator=0, weight_dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+        """Parameters drawn from ``generator`` (as ``LM.init``)."""
+        cfg = self.cfg
+        ini = _initializer(self.device, generator, weight_dtype)
+
+        def enc_layer(i: Init):
+            return {
+                "ln1": i.ones((cfg.d_model,)),
+                "attn": attn.init_attention(i, cfg),
+                "ln2": i.ones((cfg.d_model,)),
+                "mlp": init_mlp(i, cfg.d_model, cfg.d_ff),
+            }
+
+        def dec_layer(i: Init):
+            return {
+                "ln1": i.ones((cfg.d_model,)),
+                "self": attn.init_attention(i, cfg),
+                "ln2": i.ones((cfg.d_model,)),
+                "cross": attn.init_cross_attention(i, cfg),
+                "ln3": i.ones((cfg.d_model,)),
+                "mlp": init_mlp(i, cfg.d_model, cfg.d_ff),
+            }
+
+        return {
+            "embed": embed_init(ini, cfg.vocab, cfg.d_model),
+            "enc": _stack_init(enc_layer, cfg.encoder_layers, ini),
+            "dec": _stack_init(dec_layer, cfg.n_layers, ini),
+            "norm_enc": ini.ones((cfg.d_model,)),
+            "norm_f": ini.ones((cfg.d_model,)),
+            "lm_head": dense_init(ini, cfg.d_model, cfg.vocab, scale=0.02),
+        }
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens.long()].to(self.cfg.activation_dtype)
+
+    def _positions(self, B: int, S: int):
+        return torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
+
+    def _norm(self, x, w):
+        return rmsnorm(x, w.to(x.dtype), self.cfg.norm_eps)
+
+    def encode(self, params, frames):
+        cfg = self.cfg
+        x = frames.to(cfg.activation_dtype)
+        pos = self._positions(*x.shape[:2])
+        for i in range(cfg.encoder_layers):
+            lp = layer(params["enc"], i)
+            h = attn.attention_train(lp["attn"], self._norm(x, lp["ln1"]), cfg, pos, causal=False)
+            x = x + h
+            x = x + apply_mlp(lp["mlp"], self._norm(x, lp["ln2"]))
+        return self._norm(x, params["norm_enc"])
+
+    def forward_train(self, params, tokens, extra):
+        cfg = self.cfg
+        enc = self.encode(params, extra["frames"])
+        x = self._embed(params, tokens)
+        pos = self._positions(*x.shape[:2])
+        for i in range(cfg.n_layers):
+            lp = layer(params["dec"], i)
+            x = x + attn.attention_train(lp["self"], self._norm(x, lp["ln1"]), cfg, pos)
+            x = x + attn.cross_attention(lp["cross"], self._norm(x, lp["ln2"]), enc, cfg)
+            x = x + apply_mlp(lp["mlp"], self._norm(x, lp["ln3"]))
+        x = self._norm(x, params["norm_f"])
+        return (x @ params["lm_head"].to(x.dtype),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def loss(self, params, batch):
+        logits, _ = self.forward_train(params, batch["tokens"], batch)
+        return softmax_xent(logits, batch["targets"])
+
+    def prefill(self, params, tokens, extra):
+        """-> (last-position logits (B,V), caches with the cross K/V of the
+        encoded frames, next_pos)."""
+        cfg = self.cfg
+        enc = self.encode(params, extra["frames"])
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        pos = self._positions(B, S)
+        per_layer = []
+        for i in range(cfg.n_layers):
+            lp = layer(params["dec"], i)
+            h, self_kv = attn.attention_prefill(lp["self"], self._norm(x, lp["ln1"]), cfg, pos)
+            x = x + h
+            ck = (enc @ lp["cross"]["wk"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
+            cv = (enc @ lp["cross"]["wv"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
+            x = x + attn.cross_attention(lp["cross"], self._norm(x, lp["ln2"]), enc, cfg)
+            x = x + apply_mlp(lp["mlp"], self._norm(x, lp["ln3"]))
+            per_layer.append(DecCache(self_kv, attn.KVCache(ck, cv)))
+        x = self._norm(x, params["norm_f"])
+        return x[:, -1] @ params["lm_head"].to(x.dtype), _stack(per_layer), S
+
+    def decode_step(self, params, token, caches, pos: int):
+        """token: (B,1) int; pos: write index into the self-attention caches
+        (written in place); the cross caches are read only."""
+        cfg = self.cfg
+        x = self._embed(params, token)
+        for i in range(cfg.n_layers):
+            lp, cache = layer(params["dec"], i), layer(caches, i)
+            h, _ = attn.attention_decode(lp["self"], self._norm(x, lp["ln1"]), cfg,
+                                         cache.self_kv, pos)
+            x = x + h
+            x = x + attn.cross_attention_cached(lp["cross"], self._norm(x, lp["ln2"]),
+                                                cache.cross_kv, cfg)
+            x = x + apply_mlp(lp["mlp"], self._norm(x, lp["ln3"]))
+        x = self._norm(x, params["norm_f"])
+        return x[:, 0] @ params["lm_head"].to(x.dtype), caches
+
+    def init_caches(self, batch: int, seq: int, dtype=None, enc_len: int = 1500):
+        cfg = self.cfg
+        dtype = dtype or cfg.activation_dtype
+
+        def kv(s):
+            shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.hd)
+            return attn.KVCache(torch.zeros(shape, dtype=dtype, device=self.device),
+                                torch.zeros(shape, dtype=dtype, device=self.device))
+
+        return DecCache(kv(seq), kv(enc_len))
 
 
 # ------------------------------------------------------------- factories ----

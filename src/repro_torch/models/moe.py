@@ -21,10 +21,13 @@ backend exactly as for any other product.
 
 Routing matches the reference exactly: top-k breaks ties to the lower
 expert (a stable descending sort), the slot assignment uses a stable
-argsort and a left ``searchsorted``. The reference's ``.at[].set`` and
-``.at[].add`` are ``index_put_`` and ``index_add_``; on a CUDA device
-``index_add_`` adds with atomics, so the 'sort' lane's bits may vary there
-between runs (the 'coo' and 'bsr' lanes' kernels do not).
+argsort and a left ``searchsorted``. The reference's ``.at[].set`` is
+``index_put_``; its ``.at[].add`` combine is a fixed-order sum
+(``combine_in_order``): each token's contributions, taken by a stable sort
+by token in their sorted-by-expert order, fold left to right in f32 and
+round once to the activation dtype, which is what ``index_add_`` computes
+on the host (it adds a bf16 row in f32). No lane adds floats with atomics,
+so every lane repeats its bits on the card.
 """
 from __future__ import annotations
 
@@ -81,6 +84,21 @@ def _expert_counts(tope, E: int) -> torch.Tensor:
     idx = tope.reshape(-1)
     ones = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
     return torch.zeros(E, dtype=torch.float32, device=idx.device).index_add_(0, idx, ones)
+
+
+def combine_in_order(contrib, t_s, T: int, K: int) -> torch.Tensor:
+    """``y[t] = 0 + c_0 + c_1 + ...`` over token ``t``'s ``K`` entries of
+    ``contrib`` (rows in the sorted-by-expert entry order, ``t_s`` their
+    tokens), folded left to right in f32 in ascending expert order and
+    rounded once to ``contrib``'s dtype: ``index_add_``'s result on the
+    host, bit for bit, with no atomics. Every token owns exactly ``K``
+    entries (a dropped one adds ``+0``, which changes no sum)."""
+    order = torch.argsort(t_s, stable=True)
+    c = contrib[order].reshape(T, K, contrib.shape[-1])
+    y = torch.zeros(c[:, 0].shape, dtype=torch.float32, device=c.device)
+    for k in range(K):
+        y = y + c[:, k].float()
+    return y.to(contrib.dtype)
 
 
 def _route(p, x, mcfg):
@@ -166,18 +184,13 @@ def _moe_grouped(p, x, cfg, mcfg):
     for g in range(G):
         slot, t_s, w_s, keep = _dispatch_indices(tope[g], topw[g], Tg, E, K, C)
         # slot-space inverse map: the token each (expert, cap) slot feeds
-        # and its weight (sentinel slot -> token Tg, weight 0)
+        # (sentinel slot -> token Tg, a zero row)
         t_slot = torch.full((E * C + 1,), Tg, dtype=torch.long, device=dev)
         t_slot[slot] = t_s
-        w_slot = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
-        w_slot[slot] = torch.where(keep, w_s, torch.zeros((), device=dev))
-        t_slot, w_slot = t_slot[: E * C], w_slot[: E * C]
         xpad = torch.cat([x3[g], torch.zeros((1, D), dtype=x.dtype, device=dev)])
-        xe = xpad[t_slot].reshape(1, E, C, D)
+        xe = xpad[t_slot[: E * C]].reshape(1, E, C, D)
         h = _experts_ffn_grouped(p["experts"], xe)[0]
-        contrib = h.reshape(E * C, D) * w_slot[:, None].to(h.dtype)
-        yg = torch.zeros((Tg + 1, D), dtype=h.dtype, device=dev)
-        ys.append(yg.index_add_(0, t_slot, contrib)[:Tg])
+        ys.append(_combine_entries(h, slot, t_s, w_s, keep, Tg, K))
     y3 = logical_constraint(torch.stack(ys), ("batch", None, None))
     return y3.reshape(T, D).to(x.dtype), aux
 
@@ -222,11 +235,17 @@ def _moe_sort(p, x, cfg, mcfg):
     xe = logical_constraint(xe, ("experts", "expert_cap", None))
     h = _experts_ffn(p["experts"], xe)
     h = logical_constraint(h, ("experts", "expert_cap", None))
-    h_flat = torch.cat([h.reshape(E * C, D), torch.zeros((1, D), dtype=h.dtype, device=h.device)])
-    w = torch.where(keep, w_s, torch.zeros((), device=x.device))
-    contrib = h_flat[slot] * w[:, None].to(h.dtype)
-    y = torch.zeros((T, D), dtype=h.dtype, device=x.device).index_add_(0, t_s, contrib)
-    return y.to(x.dtype), aux
+    return _combine_entries(h, slot, t_s, w_s, keep, T, K).to(x.dtype), aux
+
+
+def _combine_entries(h, slot, t_s, w_s, keep, T, K):
+    """The combine of 'sort' and 'grouped': each routed entry's expert row
+    (the zero pad row for a dropped one) times its weight, summed per
+    token in a fixed order (``combine_in_order``)."""
+    E_C, D = h.shape[0] * h.shape[1], h.shape[-1]
+    h_flat = torch.cat([h.reshape(E_C, D), torch.zeros((1, D), dtype=h.dtype, device=h.device)])
+    w = torch.where(keep, w_s, torch.zeros((), device=h.device))
+    return combine_in_order(h_flat[slot] * w[:, None].to(h.dtype), t_s, T, K)
 
 
 # ----------------------------------------------------------- onehot path ----

@@ -40,9 +40,8 @@ tcfg_base = importlib.import_module("repro_torch.configs.base")
 jcfg_base = importlib.import_module("repro.configs.base")
 
 ARCHS = sorted(jlist_archs())
-#: The archs whose models the port builds (no MLA, SSM, RWKV or enc-dec).
-PORTED_FULL = ["command-r-plus-104b", "internvl2-26b", "llama3.2-1b", "mistral-nemo-12b",
-               "qwen1.5-4b", "qwen3-moe-235b-a22b"]
+#: The archs whose models the port builds: every one.
+PORTED_FULL = ARCHS
 F32 = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -94,13 +93,6 @@ def test_param_counts_equal(arch):
     assert cfg.active_param_count() == jget_config(arch).active_param_count()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-7b",
-                                  "whisper-base"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_model(get_smoke_config(arch), device="cpu")
-
-
 # ----------------------------------------------------------------- sharding ----
 
 
@@ -108,7 +100,8 @@ MESHES = [{"data": 2, "model": 4}, {"pod": 2, "data": 2, "model": 16}, {"model":
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "qwen1.5-4b", "internvl2-26b",
-                                  "llama3.2-1b"])
+                                  "llama3.2-1b", "deepseek-v2-236b", "jamba-v0.1-52b",
+                                  "rwkv6-7b", "whisper-base"])
 def test_axes_and_specs_over_every_param_path(arch):
     """Every parameter path of the full config: the same logical axes, and
     the same spec on each mesh (the reference reads a mesh's axis sizes)."""

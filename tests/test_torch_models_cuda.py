@@ -1,13 +1,16 @@
-"""The MoE layer's lanes on the card (``-m cuda``; skipped without one).
+"""The MoE layer's lanes and the model families on the card (``-m cuda``;
+skipped without one).
 
 Imports no JAX: the card's machine has none. Each lane's kernels run on
 CUDA tensors at a mid width (d_model 512, 32 experts, top-4) and hold to
 the 'sort' lane on the card and to the port's own result on the host, at
 the reference's MoE contract (``tests/test_moe.py``: f32 ``rtol=1e-4,
 atol=1e-5``, aux ``rtol=1e-5``). The dispatch matrices give X's rows back
-bit for bit; the bsr and coo lanes give equal bits over two launches
-(their kernels add in a fixed order; the sort lane's ``index_add_`` does
-not).
+bit for bit. Every lane gives equal bits over two runs: the bsr and coo
+kernels add in a fixed order, and the sort and grouped lanes combine with
+a fixed-order sum (no float atomics), the twin of the reference's
+``test_no_drops_at_high_capacity``. Each model family is served at smoke
+size on the card and held to the port's own result on the host.
 """
 import dataclasses
 import importlib
@@ -117,3 +120,61 @@ def test_moe_block_edge_runs_on_cuda_cores(cuda, nf):
     """The MoE lanes' 8x8 blocks take the CUDA-core path at every width,
     where fused multiply-adds by 0 and 1 keep X's bits."""
     assert bsr_spmm_path(8, nf) == "cuda-core"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", ["sort", "grouped"])
+def test_no_drops_at_high_capacity_on_card(cuda, impl, dtype):
+    """The reference's ``test_no_drops_at_high_capacity`` on the card: the
+    default lane (and the grouped one, over two groups) run twice on the
+    same input give equal arrays."""
+    _, pc, x, mcfg = _setup(128, 8.0, cuda)
+    m = dataclasses.replace(mcfg, dispatch_impl=impl, n_groups=2 if impl == "grouped" else 0)
+    xc = x.to(cuda, dtype)
+    y1, _ = tmoe.moe_ffn(pc, xc, CFG, m)
+    y1b, _ = tmoe.moe_ffn(pc, xc, CFG, m)
+    assert y1.shape == xc.shape and y1.dtype == dtype
+    assert bool(torch.isfinite(y1).all())
+    assert torch.equal(y1, y1b)
+
+
+def _to(tree, device):
+    from repro_torch.models.model import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,impl", [("deepseek-v2-236b", "bsr"), ("jamba-v0.1-52b", "bsr"),
+                                       ("rwkv6-7b", None), ("whisper-base", None)])
+def test_new_families_serve_on_card(cuda, arch, impl):
+    """``serve_lm`` at smoke size in f32 on the card against the same
+    weights served on the host: equal greedy tokens, every step's logits
+    at ``rtol=1e-4`` with an atol of ``1e-5 * max|logit|``; the MoE
+    families on the bsr lane launch ``bsr_spmm``."""
+    import types
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as tserve
+
+    args = types.SimpleNamespace(arch=arch, smoke=True, batch=2, prompt_len=5, gen=4, seed=1,
+                                 layers=0, dispatch_impl=impl, device="cpu")
+    get = tserve.get_smoke_config
+    tserve.get_smoke_config = lambda a: get_smoke_config(a).replace(dtype="float32")
+    try:
+        cfg = tserve.lm_config(args)
+        from repro_torch.models import build_model
+        params = build_model(cfg, "cpu").init(3)
+        host_logits, card_logits = [], []
+        host = tserve.serve_lm(args, params=params, logits_out=host_logits)
+        before = bsr_spmm.launches
+        card = tserve.serve_lm(types.SimpleNamespace(**{**vars(args), "device": "cuda"}),
+                               params=_to(params, cuda), logits_out=card_logits)
+    finally:
+        tserve.get_smoke_config = get
+    if impl == "bsr":
+        assert bsr_spmm.launches > before
+    assert torch.equal(card["generated"], host["generated"])
+    for a, b in zip(card_logits, host_logits):
+        scale = float(b.abs().max())
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5 * scale)

@@ -81,7 +81,12 @@ def _record_routes(monkeypatch, mod, log):
 @pytest.mark.parametrize("arch,impl,dtype", [
     ("qwen3-moe-235b-a22b", "bsr", "float32"), ("qwen3-moe-235b-a22b", "coo", "float32"),
     ("qwen3-moe-235b-a22b", "bsr", "bfloat16"), ("llama3.2-1b", None, "float32"),
-    ("llama3.2-1b", None, "bfloat16")])
+    ("llama3.2-1b", None, "bfloat16"),
+    ("deepseek-v2-236b", "sort", "float32"), ("deepseek-v2-236b", "bsr", "float32"),
+    ("deepseek-v2-236b", "coo", "float32"), ("deepseek-v2-236b", "bsr", "bfloat16"),
+    ("jamba-v0.1-52b", "sort", "float32"), ("jamba-v0.1-52b", "bsr", "float32"),
+    ("jamba-v0.1-52b", "bsr", "bfloat16"),
+    ("rwkv6-7b", None, "float32"), ("rwkv6-7b", None, "bfloat16")])
 def test_lm_prefill_and_teacher_forced_decode(monkeypatch, arch, impl, dtype):
     """Weights carried across with ``params_from_reference``: the last
     position's prefill logits, and every decode step's logits fed the same
@@ -183,20 +188,32 @@ def test_serve_lm_greedy_tokens_equal_the_reference(monkeypatch, capsys):
     """``serve_lm --smoke --device cpu`` in f32 on the reference's weights:
     the greedy tokens equal those of the reference's own decode loop, and
     its printed continuation equals the reference's ``serve_lm``'s."""
+    _serve_lm_against_reference(monkeypatch, capsys, "qwen3-moe-235b-a22b")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "whisper-base"])
+def test_serve_lm_greedy_tokens_equal_the_reference_new_families(monkeypatch, capsys, arch):
+    """The same for MLA with shared experts on the default ('sort') lane,
+    and for the encoder-decoder, whose loop draws the frames and leaves
+    the cross caches at zero, as the reference's does."""
+    _serve_lm_against_reference(monkeypatch, capsys, arch)
+
+
+def _serve_lm_against_reference(monkeypatch, capsys, arch):
     from repro.launch import serve as jserve
     from repro_torch.launch import serve as tserve
 
     f32 = lambda get: (lambda arch: get(arch).replace(dtype="float32"))  # noqa: E731
     monkeypatch.setattr(jserve, "get_smoke_config", f32(jget_smoke))
     monkeypatch.setattr(tserve, "get_smoke_config", f32(get_smoke_config))
-    argv = ["--arch", "qwen3-moe-235b-a22b", "--smoke", "--batch", "2", "--prompt-len", "6",
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "6",
             "--gen", "5", "--seed", "2"]
     monkeypatch.setattr("sys.argv", ["serve"] + argv)
     with juse_backend("plain"):
         jserve.main()
     ref_line = [ln for ln in capsys.readouterr().out.splitlines()
                 if ln.startswith("sample continuation")]
-    args = types.SimpleNamespace(arch="qwen3-moe-235b-a22b", smoke=True, batch=2, prompt_len=6,
+    args = types.SimpleNamespace(arch=arch, smoke=True, batch=2, prompt_len=6,
                                  gen=5, seed=2, layers=0, dispatch_impl=None,
                                  device="cpu")
     cfg = tserve.lm_config(args)

@@ -148,3 +148,78 @@ def test_moe_dispatch_containers_give_the_dispatched_rows_exactly(T, cf):
             with use_backend(backend):
                 np.testing.assert_allclose((SparseOperator(P) @ _t(h)).numpy(), _np(want),
                                            **F32)
+
+
+# ------------------------------------------------------ fixed-order combine ----
+
+
+def _index_add_lane(p, x, cfg, m):
+    """The 'sort' and 'grouped' lanes as they combined before the fixed-order
+    sum: ``index_add_`` over the entries (sort) or the slots (grouped), which
+    on the host adds each token's contributions in ascending expert order."""
+    T, D = x.shape
+    E, K = m.n_experts, m.top_k
+    G = m.n_groups if m.dispatch_impl == "grouped" else 1
+    Tg = T // G
+    C = tmoe._capacity(Tg, K, E, m.capacity_factor)
+    if G == 1:
+        topw, tope, _ = tmoe._route(p, x, m)
+        slot, t_s, w_s, keep = tmoe._dispatch_indices(tope, topw, T, E, K, C)
+        xe = torch.zeros((E * C + 1, D), dtype=x.dtype)
+        xe[slot] = x[t_s]
+        h = tmoe._experts_ffn(p["experts"], xe[: E * C].reshape(E, C, D))
+        h_flat = torch.cat([h.reshape(E * C, D), torch.zeros((1, D), dtype=h.dtype)])
+        contrib = h_flat[slot] * torch.where(keep, w_s, 0.0)[:, None].to(h.dtype)
+        return torch.zeros((T, D), dtype=h.dtype).index_add_(0, t_s, contrib).to(x.dtype)
+    x3 = x.reshape(G, Tg, D)
+    gates = torch.softmax(x3.float() @ p["router"], dim=-1)
+    topw, tope = tmoe.top_k(gates, K)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    ys = []
+    for g in range(G):
+        slot, t_s, w_s, keep = tmoe._dispatch_indices(tope[g], topw[g], Tg, E, K, C)
+        t_slot = torch.full((E * C + 1,), Tg, dtype=torch.long)
+        t_slot[slot] = t_s
+        w_slot = torch.zeros((E * C + 1,))
+        w_slot[slot] = torch.where(keep, w_s, 0.0)
+        t_slot, w_slot = t_slot[: E * C], w_slot[: E * C]
+        xpad = torch.cat([x3[g], torch.zeros((1, D), dtype=x.dtype)])
+        h = tmoe._experts_ffn_grouped(p["experts"], xpad[t_slot].reshape(1, E, C, D))[0]
+        contrib = h.reshape(E * C, D) * w_slot[:, None].to(h.dtype)
+        ys.append(torch.zeros((Tg + 1, D), dtype=h.dtype).index_add_(0, t_slot, contrib)[:Tg])
+    return torch.stack(ys).reshape(T, D).to(x.dtype)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", ["sort", "grouped"])
+@pytest.mark.parametrize("T,cf", [(96, 4.0), (64, 0.5), (8, 1.25)])
+def test_fixed_order_combine_keeps_the_host_bits(dtype, impl, T, cf):
+    """The fixed-order combine (no float atomics) gives ``index_add_``'s
+    host result bit for bit, at top-6 (a bf16 row is added in f32 and
+    rounded once, as ``index_add_`` does on the host), with and without
+    drops; the grouped lane over two groups."""
+    cfg = T_MOE_CFG.replace(moe=tcfg_base.MoECfg(n_experts=16, top_k=6, d_expert_ff=48))
+    m = dataclasses.replace(cfg.moe, capacity_factor=cf, dispatch_impl=impl,
+                            n_groups=2 if impl == "grouped" else 0)
+    from repro_torch.models.layers import Init
+    p = tmoe.init_moe(Init(torch.Generator().manual_seed(7), "cpu"), cfg, m)
+    x = torch.randn((T, cfg.d_model), generator=torch.Generator().manual_seed(8)).to(dtype)
+    got, _ = tmoe.moe_ffn(p, x, cfg, m)
+    assert torch.equal(_bits(got), _bits(_index_add_lane(p, x, cfg, m)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_combine_in_order_is_index_add(dtype):
+    """``combine_in_order`` on shuffled entries, wide ranges of magnitude:
+    ``index_add_``'s host bits, each token's entries folded in entry order."""
+    g = torch.Generator().manual_seed(9)
+    T, K, D = 33, 8, 40
+    c = (torch.randn(T * K, D, generator=g)
+         * torch.exp(3 * torch.randn(T * K, 1, generator=g))).to(dtype)
+    t_s = torch.arange(T).repeat_interleave(K)[torch.randperm(T * K, generator=g)]
+    want = torch.zeros((T, D), dtype=dtype).index_add_(0, t_s, c)
+    assert torch.equal(_bits(tmoe.combine_in_order(c, t_s, T, K)), _bits(want))
