@@ -176,11 +176,35 @@ Phases, one or more lines each, each ending with its seconds:
  14. ``jamba-v0.1-52b`` at its published widths cut to one period of 8 of
      its 32 layers (7 Mamba mixers, 1 attention, 4 MoE slots of 16
      experts top-2), served and checked as phase 13 (a)-(d) (dispatch 128
-     x 4, combine 4 x 129, 4096 columns).
+     x 4, combine 4 x 129, 4096 columns);
+ 15. training (``repro_torch.train``): (a) ``bsr_spmm``'s backward kernels,
+     ``bsr_spmm_t`` (dX = A^T dY) and ``bsr_sddmm`` (dB = dY X^T at the
+     stored blocks), at the training step's shapes (the MoE dispatch's dX,
+     1280 block rows x 8 slots; the combine's dH and dB, 128 x 64 against
+     10,241 columns; bs 8, nf 4096, bf16 blocks) and on the block matrix
+     (bs 32, 128 columns), each against its plain version and against
+     autograd through ``bsr_spmm_plain`` (rtol 2e-4), two launches
+     bit-equal, with ``ms``, ``kernel_ms``, ``plain_ms``, the bound and one
+     PyTorch call (torch's BSR product on A^T; ``torch.sparse.sampled_addmm``
+     over the blocks' entries); (b) ``qwen3-moe-235b-a22b`` at its published
+     widths cut to 1 layer (3.73 G parameters, f32 weights and AdamW
+     state), batch 8 x seq 128, on the bsr lane under
+     ``use_backend("cuda")`` and PyTorch's deterministic mode: step 0's
+     gradients of the router, one expert stack and the embedding twice
+     (equal bits) and on the plain lane (within ``TRAIN_GRAD_REL_L2``),
+     the router's gradient from the cross entropy non-zero, then
+     ``TRAIN_STEPS`` steps of ``make_train_step``, counted as the train
+     path (loss, grad_norm, lr and ms a step; p50, tokens/s, peak memory);
+     (c) at smoke size, ``python -m repro_torch.launch.train --smoke
+     --dispatch-impl bsr --steps 12 --ckpt-every 4``, the ``Trainer``'s
+     run with a failure at step 10 against the run without one (steps 8,
+     9, 11 within 1e-6; the CLI's final loss the clean run's), and
+     ``examples/train_lm_torch.py --quick --inject-failure``.
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
-``launches_<path>`` gives every path's count, and ``dia_spmv``'s
+``launches_<path>`` gives every path's count (``train``: phase 15b's
+steps), and ``dia_spmv``'s
 ``launches_split`` its launches on the HPCG paths by level, masked or not,
 ``g^3/4`` for a part of a level on the distributed paths); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -192,6 +216,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -228,6 +253,10 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/coo_spmv.py:200"),
     "scoo_spmv": ("src/repro_torch/csrc/coo_spmv.cu", "src/repro/kernels/coo_spmv.py:141"),
     "bsr_spmm": ("src/repro_torch/csrc/bsr_spmm.cu", "src/repro/kernels/bsr_spmm.py:44"),
+    "bsr_spmm_t": ("src/repro_torch/csrc/bsr_spmm_grad.cu",
+                   "src/repro/kernels/bsr_spmm.py:44 (its backward: no TPU counterpart)"),
+    "bsr_sddmm": ("src/repro_torch/csrc/bsr_spmm_grad.cu",
+                  "src/repro/kernels/bsr_spmm.py:44 (its backward: no TPU counterpart)"),
 }
 
 #: The kernels each format's cuda entry may launch.
@@ -244,13 +273,14 @@ CANDIDATES = [(fmt, impl) for fmt in ("coo", "csr", "dia", "ell", "sell", "bsr")
 #: is the first one's count): the HPCG run (phase 4), the column-limited CG
 #: (phase 5), the one ``scoo_spmv`` call of phase 2, the block path (phase
 #: 8), the serving path (phase 10), the distributed fixed pairs (phase 11)
-#: or the model path (phase 12).
+#: the model paths (phases 12-14) or the train path (phase 15).
 REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve", "dist_pairs"),
                "dia_spmv_tiled": ("tiled_cg",), "ell_spmv": ("hpcg", "dist_pairs"),
                "ell_spmv_tiled": ("hpcg",),
                "coo_spmv": ("hpcg", "serve", "dist_pairs", "model"),
                "scoo_spmv_tiled": ("hpcg",), "scoo_spmv": ("scoo",),
-               "bsr_spmm": ("block", "model")}
+               "bsr_spmm": ("block", "model", "train"), "bsr_spmm_t": ("train",),
+               "bsr_sddmm": ("train",)}
 
 #: What a kernel's entry in the JSON line carries beyond the contract's keys:
 #: its other shapes (``bsr_spmm``'s SpMM and masked forms, ``scs_spmv`` off
@@ -261,6 +291,7 @@ REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve", "dis
 EXTRA_KEYS = ("path", "masked", "spmm", "coarse", "powerlaw", "block", "shape_52",
               "shape_26", "shape_13", "moe_dispatch", "moe_combine", "moe_combine_unsorted",
               "deepseek_dispatch", "deepseek_combine", "jamba_dispatch", "jamba_combine",
+              "train_combine", "work_list_ms", "library", "library_error",
               "bound_staged_ms", "bound_every_slot_ms", "bound_every_id_slot_ms")
 
 #: The block matrix of the block path: ``block_random(n, bs, density)``.
@@ -368,6 +399,29 @@ MOE_RTOL, MOE_ATOL, MOE_AUX_RTOL = 1e-4, 1e-5, 1e-5
 #: config's 64 heads of 128, batch 4, 1,024 positions, blocks of 64, banded.
 PRUNE_DENSITY, PRUNE_BS, PRUNE_TOKENS = 0.25, 32, (4, 128)
 ATTN_B, ATTN_S, ATTN_BLOCK = 4, 1024, 64
+
+#: Phase 15, training: qwen3-moe-235b-a22b at its published widths cut to
+#: one layer (3.73 G parameters: embedding 622.3 M, head 622.3 M, attention
+#: 71.3 M, router 0.5 M, experts 2,415.9 M; at 16 B a parameter for f32
+#: weights, gradients and both AdamW moments that is 59.7 GB, and two layers
+#: would be 98 GB), on the 'bsr' lane under ``use_backend("cuda")`` at the
+#: reference launcher's batch 8 x seq 128 (1,024 tokens a step), a few
+#: steps; f32 weights and AdamW state (``keep_master=False``, the
+#: reference's default).
+TRAIN_ARCH = MODEL_ARCH
+TRAIN_LAYERS = 1
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_STEPS = 5
+TRAIN_DEVICE = "cuda"
+#: Step 0's gradients on bsr/cuda against bsr/plain, relative L2 per leaf:
+#: the activations are bf16, and the plain lane's SpMM multiplies and adds
+#: in bf16 through torch's einsum where the kernels add in f32, so the
+#: combine's outputs (and every gradient below them) may differ by bf16
+#: roundings (2^-8 each). Measured on an H100: 1.1e-3 at most, on the
+#: embedding (PERF.md).
+TRAIN_GRAD_REL_L2 = 1e-2
+#: Phase 15c: the launcher's smoke run and the trainer's restart.
+TRAIN_CLI_STEPS, TRAIN_FAIL_AT = 12, 10
 
 TUNER_MATRICES = (("banded(10**6, 4)", "banded", (10 ** 6, 4)),
                   ("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),
@@ -932,7 +986,7 @@ def phase_kernels(results: dict, block) -> tuple:
 
 def counters() -> dict:
     """Every kernel wrapper by name."""
-    from repro_torch.kernels.bsr_spmm import bsr_spmm
+    from repro_torch.kernels.bsr_spmm import bsr_sddmm, bsr_spmm, bsr_spmm_t
     from repro_torch.kernels.coo_spmv import coo_spmv, scoo_spmv, scoo_spmv_tiled
     from repro_torch.kernels.dia_spmv import dia_spmv, dia_spmv_tiled
     from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_tiled
@@ -940,7 +994,8 @@ def counters() -> dict:
 
     return {"scs_spmv": scs_spmv, "dia_spmv": dia_spmv, "dia_spmv_tiled": dia_spmv_tiled,
             "ell_spmv": ell_spmv, "ell_spmv_tiled": ell_spmv_tiled, "coo_spmv": coo_spmv,
-            "scoo_spmv_tiled": scoo_spmv_tiled, "scoo_spmv": scoo_spmv, "bsr_spmm": bsr_spmm}
+            "scoo_spmv_tiled": scoo_spmv_tiled, "scoo_spmv": scoo_spmv, "bsr_spmm": bsr_spmm,
+            "bsr_spmm_t": bsr_spmm_t, "bsr_sddmm": bsr_sddmm}
 
 
 def launch_counts() -> dict:
@@ -2203,7 +2258,461 @@ def phase_model(results: dict, smi: str, cell: ModelCell = MODEL_CELLS[12]) -> t
     return launches, kern
 
 
+def bsr_transpose_lib(bcols, blocks, ncols: int, work):
+    """torch's BSR product on a BSR tensor of A^T (built once from the
+    work list: block column c's blocks, transposed, are row c of A^T), for
+    ``bsr_spmm_t``'s yardstick: ``At @ dY`` cut to ``ncols`` rows."""
+    import torch
+
+    order, starts = work
+    bs, bwidth = blocks.shape[-1], bcols.shape[1]
+    nbcols = starts.shape[0] - 1
+    n = int(starts[-1])
+    slots = order[:n].long()
+    At = torch.sparse_bsr_tensor(starts.long(), slots // bwidth,
+                                 blocks.reshape(-1, bs, bs)[slots].transpose(-1, -2).float(),
+                                 size=(nbcols * bs, bcols.shape[0] * bs))
+    return lambda dY: (At @ dY)[:ncols]
+
+
+def bsr_sampled_lib(bcols, bs: int, X, ncols: int):
+    """``torch.sparse.sampled_addmm`` over the stored blocks' entries (one
+    CSR pattern, duplicate block positions merged), for ``bsr_sddmm``'s
+    yardstick; returns the call and a map from its values to the kernel's
+    layout (the first stored block of each position)."""
+    import torch
+
+    dev = X.device
+    nbrows, bwidth = bcols.shape
+    nbcols = -(-ncols // bs)
+    valid = ((bcols >= 0) & (bcols < nbcols)).reshape(-1)
+    slots = valid.nonzero().flatten()
+    ar = torch.arange(bs, device=dev)
+    r = (slots // bwidth)[:, None, None] * bs + ar[None, :, None]
+    c = bcols.reshape(-1)[slots].long()[:, None, None] * bs + ar[None, None, :]
+    keys = (r * (nbcols * bs) + c).reshape(-1)
+    uniq, inv = torch.unique(keys, return_inverse=True)
+    rows, cols = uniq // (nbcols * bs), uniq % (nbcols * bs)
+    crow = torch.searchsorted(rows, torch.arange(nbrows * bs + 1, device=dev))
+    S = torch.sparse_csr_tensor(crow, cols, torch.zeros(uniq.shape[0], device=dev),
+                                size=(nbrows * bs, nbcols * bs))
+    Xp = torch.zeros((nbcols * bs, X.shape[1]), device=dev)
+    Xp[:ncols] = X
+
+    def at_positions(dB):
+        out = torch.zeros(uniq.shape[0], device=dev)
+        return out.scatter_(0, inv, dB.reshape(-1, bs * bs)[slots].reshape(-1).float())
+
+    return (lambda dY: torch.sparse.sampled_addmm(S, dY, Xp.t())), at_positions
+
+
+def measure_backward(label: str, kernel: str, fn, plain, autograd, moved: int, flops: int,
+                     library=None, library_name=None, library_at=None, **extra) -> dict:
+    """Phase 15a's line for one backward kernel call: against its plain
+    version and against autograd through ``bsr_spmm_plain`` (rtol 2e-4,
+    atol 2e-4 max|want|), two launches bit-equal, then ``ms`` (events),
+    ``kernel_ms`` (device time), ``plain_ms``, the bound (bytes against
+    flops at ``TF32X3_FLOPS``, the rate phase 2 gives ``bsr_spmm``: the
+    fastest at which the card meets the same tolerance) and the library
+    call's time."""
+    import torch
+
+    y = fn()
+    err = within(f"{label} against its plain version", y, plain())
+    within(f"{label} against autograd through bsr_spmm_plain", y, autograd())
+    check(bool(torch.equal(y, fn())), f"{label}: two launches differ")
+    b_ms, b_by = bound(moved, flops, TF32X3_FLOPS)
+    k_ms = kernel_ms(fn, kernel)
+    check(k_ms is None or k_ms >= b_ms,
+          f"{label}: kernel_ms {k_ms} under its bound {b_ms}: an impossible reading")
+    lib_ms = lib_kernel = None
+    if library is not None:
+        try:
+            lib_y, want = library(), y
+            if library_at is not None:  # a sparse result: its values against the kernel's
+                lib_y, want = lib_y.values(), library_at(y)
+            within(f"{label}: {library_name} against the kernel", lib_y, want)
+            lib_ms, lib_kernel = cuda_ms(library, 20), kernel_ms(library, "")
+        except (RuntimeError, NotImplementedError) as e:  # no such product in this torch
+            extra["library_error"] = repr(f"{type(e).__name__}: {str(e)[:120]}")
+    return phase(f"train kernel {label}", **extra, repeat_equal=True, max_abs_err=err,
+                 ms=cuda_ms(fn, 50), kernel_ms=k_ms, plain_ms=cuda_ms(plain, 5),
+                 library=library_name, library_ms=lib_ms, library_kernel_ms=lib_kernel,
+                 bytes=moved, flops=flops, bound_ms=b_ms, bound_by=b_by)
+
+
+def backward_pair(label: str, P, X, dY, ncols: int, dX_only=False) -> dict:
+    """``bsr_spmm_t`` (and, unless ``dX_only``, ``bsr_sddmm``) for the BSR
+    arrays of ``P`` with the forward's f32 ``X`` and the output gradient
+    ``dY``, each measured by :func:`measure_backward`."""
+    import torch
+
+    from repro_torch.kernels.bsr_spmm import (bsr_column_order, bsr_sddmm, bsr_sddmm_plain,
+                                              bsr_spmm_plain, bsr_spmm_t, bsr_spmm_t_plain)
+
+    bcols, blocks, bs = P.bcols, P.blocks, P.bs
+    nbcols = -(-ncols // bs)
+    work = bsr_column_order(bcols, nbcols)
+    work_ms = cuda_ms(lambda: bsr_column_order(bcols, nbcols), 20)
+    valid = (bcols >= 0) & (bcols < nbcols)
+    real, nf = int(valid.sum()), dY.shape[1]
+    rows_read = int(valid.any(1).sum()) * bs  # dY rows of block rows with a block
+    out = {}
+
+    def autograd(wrt):  # f32 blocks: the plain version upcasts them, and dB stays f32
+        x = X.detach().clone().requires_grad_(wrt == "x")
+        b = blocks.detach().float().requires_grad_(wrt == "b")
+        g = torch.autograd.grad(bsr_spmm_plain(bcols, b, x), x if wrt == "x" else b, dY)[0]
+        return g.float()
+
+    out["t"] = measure_backward(
+        f"bsr_spmm_t {label} dX", "bsr_spmm_t_kernel",
+        lambda: bsr_spmm_t(bcols, blocks, dY, ncols, work),
+        lambda: bsr_spmm_t_plain(bcols, blocks, dY, ncols), lambda: autograd("x"),
+        real * bs * bs * blocks.element_size() + nbytes(bcols) + rows_read * nf * 4
+        + ncols * nf * 4, 2 * real * bs * bs * nf,
+        library=(lambda f=bsr_transpose_lib(bcols, blocks, ncols, work): f(dY)),
+        library_name="torch.sparse_bsr_tensor(A^T) @ dY", shape=tuple(P.shape), nf=nf, bs=bs,
+        bwidth=bcols.shape[1], block_rows=bcols.shape[0], real_blocks=real,
+        work_list_ms=work_ms)
+    if dX_only:
+        return out
+    cols_read = min(int(torch.unique(bcols[valid]).numel()) * bs, ncols)
+    lib, at = bsr_sampled_lib(bcols, bs, X, ncols)
+    out["sddmm"] = measure_backward(
+        f"bsr_sddmm {label} dB", "bsr_sddmm_kernel",
+        lambda: bsr_sddmm(bcols, dY, X, bs, work), lambda: bsr_sddmm_plain(bcols, dY, X, bs),
+        lambda: autograd("b"),
+        rows_read * nf * 4 + cols_read * nf * 4 + nbytes(bcols) + bcols.numel() * bs * bs * 4,
+        2 * real * bs * bs * nf,
+        library=lambda: lib(dY), library_name="torch.sparse.sampled_addmm (entry CSR)",
+        library_at=at, shape=tuple(P.shape), nf=nf, bs=bs, bwidth=bcols.shape[1],
+        block_rows=bcols.shape[0], real_blocks=real, work_list_ms=work_ms)
+    return out
+
+
+def train_config(smoke: bool = False):
+    """Phase 15's model: ``TRAIN_ARCH`` at its published widths cut to
+    ``TRAIN_LAYERS`` (or its smoke config), on the 'bsr' MoE lane."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = get_smoke_config(TRAIN_ARCH) if smoke else get_config(TRAIN_ARCH).replace(
+        n_layers=TRAIN_LAYERS)
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_impl="bsr"))
+
+
+def train_routing(cfg, T: int, gen):
+    """The containers of one training step's MoE layer at the config's
+    widths: ``T`` tokens routed by a random f32 router."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    router = torch.randn((D, E), generator=gen, device=TRAIN_DEVICE) / D ** 0.5
+    x = torch.randn((T, D), generator=gen, device=TRAIN_DEVICE).to(cfg.activation_dtype)
+    C = moe_mod._capacity(T, K, E, cfg.moe.capacity_factor)
+    topw, tope, _ = moe_mod._route({"router": router}, x, cfg.moe)
+    slot, t_s, w_s, keep = moe_mod._dispatch_indices(tope, topw, T, E, K, C)
+    return (x, C, moe_mod.bsr_dispatch(slot, t_s, keep, T, E, C, x.dtype),
+            moe_mod.bsr_combine(slot, tope, w_s, keep, T, E, C, x.dtype))
+
+
+def phase_train_kernels(results: dict, block) -> dict:
+    """Phase 15a: the backward kernels at the training step's shapes (the
+    dispatch's dX; the combine's dH and dB) and on the block matrix of
+    phase 8 (bs 32, 128 columns), each by :func:`backward_pair`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.convert import to_bsr
+
+    cfg = train_config()
+    T, E, D = TRAIN_BATCH * TRAIN_SEQ, cfg.moe.n_experts, cfg.d_model
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(5)
+    x, C, Pd, Pc = train_routing(cfg, T, gen)
+    disp = backward_pair("MoE dispatch", Pd, x.float(),
+                         torch.randn((E * C, D), generator=gen, device=TRAIN_DEVICE), T,
+                         dX_only=True)
+    h = torch.randn((E * C + 1, D), generator=gen, device=TRAIN_DEVICE).to(x.dtype).float()
+    h[-1] = 0
+    comb = backward_pair("MoE combine", Pc, h,
+                         torch.randn((T, D), generator=gen, device=TRAIN_DEVICE), E * C + 1)
+    del x, h, Pd, Pc
+    B = to_bsr(block, device=TRAIN_DEVICE)
+    rng = np.random.default_rng(6)
+    n = block.shape[0]
+    Xb, dYb = (torch.from_numpy(rng.standard_normal((n, BLOCK_NF)).astype(np.float32))
+               .to(TRAIN_DEVICE) for _ in range(2))
+    blk = backward_pair("block bs32", B, Xb, dYb, n)
+    del B, Xb, dYb
+    torch.cuda.empty_cache()
+    out = {"bsr_spmm_t": dict(disp["t"], train_combine=comb["t"], block=blk["t"]),
+           "bsr_sddmm": dict(comb["sddmm"], block=blk["sddmm"])}
+    results["train_kernels"] = out
+    return out
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in f64."""
+    import torch
+
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def train_grads(model, params, batch, backend: str) -> tuple:
+    """The loss and the gradients of the router, one expert stack and the
+    embedding (only those: the others are not asked for, which keeps the
+    card under its memory) on ``backend``, and the router's gradient from
+    the cross entropy alone (the combine's gates; the aux loss has its own
+    path)."""
+    import torch
+
+    from repro_torch.core import use_backend
+    from repro_torch.models.model import softmax_xent
+
+    ffn = params["groups"][0]["ffn"]
+    leaves = {"router": ffn["router"], "w_gate": ffn["experts"]["w_gate"],
+              "embed": params["embed"]}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    try:
+        with use_backend(backend):
+            logits, aux = model.forward_train(params, batch["tokens"], batch)
+            ce = softmax_xent(logits, batch["targets"])
+            loss = ce + 0.01 * aux
+            del logits
+            g = torch.autograd.grad(loss, list(leaves.values()), retain_graph=True)
+            g_ce = torch.autograd.grad(ce, leaves["router"])[0]
+    finally:
+        for t in leaves.values():
+            t.requires_grad_(False)
+    return loss.detach(), dict(zip(leaves, g)), g_ce
+
+
+def train_full_width(results: dict, smi: str) -> dict:
+    """Phase 15b: ``TRAIN_ARCH`` at full width, one layer, trained on the
+    'bsr' lane under ``use_backend("cuda")`` (bsr_spmm forward, bsr_spmm_t
+    and bsr_sddmm backward), f32 weights and AdamW state. Step 0's
+    gradients of those leaves twice on cuda (equal bits) and once on
+    plain (within ``TRAIN_GRAD_REL_L2``), the router's gradient from the
+    cross entropy non-zero; then ``TRAIN_STEPS`` steps of
+    ``make_train_step``, counted as the train path. Returns its launches."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core import use_backend
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed.sharding import param_paths
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.train.trainer import deterministic
+
+    cfg = train_config()
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases left
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=TRAIN_DEVICE)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in param_paths(params))
+    data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=TRAIN_DEVICE)
+    batch0 = data._put(data.batch_at(0))
+    with warnings.catch_warnings(record=True) as caught, deterministic(torch.device(TRAIN_DEVICE)):
+        warnings.simplefilter("always")
+        loss_a, g_a, g_ce = train_grads(model, params, batch0, "cuda")
+        loss_b, g_b, _ = train_grads(model, params, batch0, "cuda")
+        check(bool(torch.equal(loss_a, loss_b)) and all(torch.equal(g_a[k], g_b[k]) for k in g_a),
+              "train: two bsr/cuda gradient passes from one state differ in bits")
+        del g_b
+        check(bool(torch.isfinite(loss_a)) and all(bool(torch.isfinite(g).all())
+                                                   for g in g_a.values()),
+              "train: non-finite loss or gradient at step 0")
+        check(float(g_ce.abs().max()) > 0, "train: the router's gradient from the cross "
+              "entropy is zero (the combine's gates carry none)")
+        loss_p, g_p, _ = train_grads(model, params, batch0, "plain")
+        grad_err = {k: rel_l2(g_a[k], g_p[k]) for k in g_a}
+        grad_max = {k: float((g_a[k] - g_p[k]).abs().max() / g_p[k].abs().max()) for k in g_a}
+        check(all(v <= TRAIN_GRAD_REL_L2 for v in grad_err.values()),
+              f"train: bsr/cuda gradients against bsr/plain beyond rel L2 "
+              f"{TRAIN_GRAD_REL_L2}: {grad_err}")
+        loss_err = abs(float(loss_a) - float(loss_p)) / abs(float(loss_p))
+        del g_a, g_p, g_ce
+        torch.cuda.empty_cache()
+
+        opt = adamw.init(params)
+        step_fn = make_train_step(model, adamw.AdamWConfig(total_steps=TRAIN_STEPS))
+        hist = []
+
+        def steps():
+            nonlocal params, opt
+            with use_backend("cuda"):
+                for i in range(TRAIN_STEPS):
+                    batch = data._put(data.batch_at(i))
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    params, opt, m = step_fn(params, opt, batch)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t1) * 1e3
+                    m = {k: float(v) for k, v in m.items()}
+                    hist.append(dict(m, step=i, ms=ms))
+                    phase(f"train step {i}", loss=m["loss"], grad_norm=m["grad_norm"],
+                          lr=m["lr"], step_ms=ms)
+
+        _, launches, _ = counted("train", steps)
+        split = step_split(model, params, opt, data._put(data.batch_at(TRAIN_STEPS)))
+    notes = sorted({str(w.message)[:160] for w in caught})
+    for note in notes:
+        print(f"  [train warning] {note}", flush=True)
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
+          "train: a non-finite loss or grad_norm")
+    check(hist[0]["loss"] == float(loss_a), "train: step 0's loss is not the gradient pass's")
+    peak = torch.cuda.max_memory_allocated()
+    ms_sorted = sorted(h["ms"] for h in hist)
+    p50 = ms_sorted[len(ms_sorted) // 2]
+    for name in ("bsr_spmm", "bsr_spmm_t", "bsr_sddmm"):
+        check(launches[name] > 0, f"{name} was not launched on the train path")
+    del params, opt, model
+    torch.cuda.empty_cache()
+    results["train"] = phase(
+        "train full width", smi=repr(smi), arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        vocab=cfg.vocab, dispatch_impl=cfg.moe.dispatch_impl, remat=cfg.remat,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+        params=n_params, allocated_before_gb=before_gb, init_s=init_s, steps=TRAIN_STEPS,
+        losses=json.dumps([h["loss"] for h in hist]),
+        step_ms=json.dumps([round(h["ms"], 3) for h in hist]), step_ms_p50=p50,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3), peak_memory_gb=peak / 1e9,
+        launches_per_step=json.dumps({k: launches[k] / TRAIN_STEPS for k in
+                                      ("bsr_spmm", "bsr_spmm_t", "bsr_sddmm")}),
+        grad_rel_l2_vs_plain=json.dumps(grad_err),
+        grad_max_err_of_max_vs_plain=json.dumps(grad_max),
+        grad_tolerance_rel_l2=TRAIN_GRAD_REL_L2, loss_rel_err_vs_plain=loss_err,
+        split_ms=json.dumps(split),
+        grads_repeat_bits=True, deterministic_warnings=len(notes))
+    return launches
+
+
+def step_split(model, params, opt, batch) -> dict:
+    """One more step cut in two, each timed on the host clock between
+    synchronizes: the forward and backward (``torch.autograd.grad`` over
+    every leaf, on ``use_backend("cuda")``) and ``adamw.update``."""
+    import torch
+
+    from repro_torch.core import use_backend
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves as tree_leaves
+    from repro_torch.tree import rebuild
+
+    leaves = tree_leaves(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in leaves:
+        t.requires_grad_(True)
+    with use_backend("cuda"):
+        loss = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw.update(adamw.AdamWConfig(total_steps=TRAIN_STEPS), rebuild(params, grads), opt,
+                 params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"forward_backward": round((t1 - t0) * 1e3, 3),
+            "adamw_update": round((t2 - t1) * 1e3, 3)}
+
+
+def train_cli(results: dict) -> None:
+    """Phase 15c at smoke size on the card: the launcher's CLI (12 steps,
+    checkpoints every 4); the trainer with the CLI's settings run without
+    a failure and with one at step 10 (restored from step 8's checkpoint):
+    losses at steps 8, 9 and 11 within the reference's 1e-6, and the CLI's
+    final loss the clean run's; then ``examples/train_lm_torch.py --quick
+    --inject-failure``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import use_backend
+    from repro_torch.kernels.bsr_spmm import bsr_sddmm
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    try:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+             "--dispatch-impl", "bsr", "--steps", str(TRAIN_CLI_STEPS), "--ckpt-dir",
+             os.path.join(tmp, "cli"), "--ckpt-every", "4", "--device", TRAIN_DEVICE],
+            env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"train CLI failed:\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        cli_final = [ln for ln in r.stdout.splitlines() if ln.startswith("final loss")]
+        check(len(cli_final) == 1, f"train CLI printed no final loss:\n{r.stdout[-2000:]}")
+        print(f"  [train cli] {cli_final[0]}", flush=True)
+
+        def run(name, fail_at=None):
+            tcfg = TrainerConfig(n_steps=TRAIN_CLI_STEPS, ckpt_dir=os.path.join(tmp, name),
+                                 checkpoint_every=4, log_every=100)
+            tr = Trainer(train_config(smoke=True), tcfg,
+                         adamw.AdamWConfig(total_steps=TRAIN_CLI_STEPS), device=TRAIN_DEVICE)
+            with use_backend("cuda"):
+                return tr.train(fail_at=fail_at)
+
+        before = bsr_sddmm.launches
+        h1, h2 = run("clean"), run("failed", fail_at=TRAIN_FAIL_AT)
+        check(bsr_sddmm.launches > before, "train restart: the backward kernels did not run")
+        l1 = [h["loss"] for h in h1]
+        l2 = {}
+        for h in h2:
+            l2[h["step"]] = h["loss"]
+        diffs = {s: abs(l1[s] - l2[s]) for s in (8, 9, 11)}
+        check(all(d < 1e-6 for d in diffs.values()),
+              f"train restart: losses after the failure differ from the clean run's: {diffs}")
+        check([h["step"] for h in h2].count(8) == 2, "train restart: step 8 was not replayed")
+        check(f"final loss: {l1[-1]:.4f}" in cli_final[0],
+              f"train CLI's final loss is not the clean run's {l1[-1]:.4f}")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "train_lm_torch.py"),
+                            "--quick", "--inject-failure", "--ckpt-dir",
+                            os.path.join(tmp, "example"), "--device", TRAIN_DEVICE],
+                           env=env, capture_output=True, text=True, timeout=600)
+        example_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"train example failed:\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        summary = r.stdout.strip().splitlines()[-1]
+        print(f"  [train example] {summary}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["train_restart"] = phase(
+        "train cli and restart", arch=train_config(smoke=True).name, steps=TRAIN_CLI_STEPS,
+        fail_at=TRAIN_FAIL_AT, loss_diffs=json.dumps(diffs), cli_s=cli_s,
+        cli_final=repr(cli_final[0]), example_s=example_s, example=repr(summary))
+
+
+def phase_train(results: dict, smi: str, block) -> tuple:
+    """Phase 15: (a) the backward kernels at the training shapes, (b) the
+    full-width training step, (c) the CLI and the trainer's restart at
+    smoke size. Returns the train path's launches and (a)'s kernel lines."""
+    kern = phase_train_kernels(results, block)
+    launches = train_full_width(results, smi)
+    train_cli(results)
+    return launches, kern
+
+
 def main() -> int:
+    # phase 15 trains under PyTorch's deterministic mode, whose cuBLAS calls
+    # repeat their bits with this workspace setting, read at cuBLAS's start
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2314,7 +2823,6 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 8
     _, launches_block, _ = counted("block", lambda: phase_block(results, block))
-    del block
     lap("8 block")
 
     # ---------------------------------------------------------------- 9
@@ -2351,11 +2859,17 @@ def main() -> int:
                 launches_model[name] = launches_model.get(name, 0) + count
         lap(f"{n} {cell.key}")
 
+    # --------------------------------------------------------------- 15
+    launches_train, kern_train = phase_train(results, smi, block)
+    del block
+    kern.update(kern_train)
+    lap("15 train")
+
     by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled,
                "tuner": launches_tuner, "corpus": launches_corpus, "scoo": launches_scoo,
                "block": launches_block, "hpcg_predict": launches_pred,
                "serve": launches_serve, "dist": launches_dist, "dist_pairs": launches_pairs,
-               "model": launches_model}
+               "model": launches_model, "train": launches_train}
     for name, paths in REQUIRED_ON.items():
         for path in paths:
             check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")

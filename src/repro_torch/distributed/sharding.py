@@ -81,6 +81,10 @@ def current_mesh():
     return _CTX.mesh
 
 
+def current_rules():
+    return _CTX.rules
+
+
 def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]],
              mesh=None, rules=None) -> Tuple:
     """Spec for an array of ``shape`` with logical ``axes``.

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "repro_scoo_spmv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _P),
     "repro_bsr_spmm": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P),
     "repro_bsr_spmm_tensor_cores": (_I, _LL),
+    "repro_bsr_spmm_t": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P),
+    "repro_bsr_sddmm": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _P),
     "repro_ell_spmv_listed": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P),
     "repro_dia_spmv": (_P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
     "repro_dia_spmv_listed": (_P, _P, _P, _P, _P, _LL, _P, _I, _LL, _LL, _I, _P),

@@ -20,6 +20,19 @@ def check_cuda_operands(name: str, *tensors) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
+def no_grad_operands(name: str, *tensors) -> None:
+    """Raise where autograd would need this kernel's gradient: grad mode on
+    and an operand (``None`` skipped) that requires grad. Only ``bsr_spmm``
+    has a backward on the card; every other kernel writes into a fresh
+    tensor through a raw pointer, which would cut the graph without a word,
+    so its launch refuses instead."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an operand requires grad; "
+            f"run this product under use_backend('plain') (or torch.no_grad()) to train "
+            f"through it")
+
+
 def checked_x(name: str, x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """``x`` in f32, once it has been checked to be a contiguous vector on
     ``device``, the device of the operands a cached record checked."""

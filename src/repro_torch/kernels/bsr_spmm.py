@@ -17,14 +17,26 @@ fused multiply-adds; the plain version sums through a batched matmul, so
 the two agree to rounding; two launches give equal bits.
 
 ``launches`` on the wrapper counts the kernel launches of this process.
+
+**Gradients.** On the card, ``bsr_spmm`` called with grad mode on and ``X``
+or ``blocks`` requiring grad goes through an autograd function whose
+backward runs two kernels of ``src/repro_torch/csrc/bsr_spmm_grad.cu``:
+:func:`bsr_spmm_t` (dX = A^T dY) and :func:`bsr_sddmm` (dB = dY X^T at the
+stored blocks), each with its plain version beside it and its own launch
+count. The cast of X to f32 and its alignment copy stay outside the
+function, in the graph, so the caller's X gets its gradient in its dtype;
+dB comes back in the blocks' dtype, summed in f32. Pad slots and X rows
+past ``ncols`` get zero gradients; rows outside ``row_mask`` pass none. On
+the CPU autograd runs through the plain version, as it always has.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from ._launch import check_cuda_operands, current_stream, value_code
+from ._launch import check_cuda_operands, current_stream, segment_starts, value_code
 
 #: Block edges the kernel is built for: every edge ``to_bsr`` produces
 #: (``block_size="auto"`` picks from 64, 32, 16 and 8; the default is 32).
@@ -71,25 +83,15 @@ def bsr_spmm_path(bs: int, nf: int) -> str:
     return "tensor-core" if library().lib.repro_bsr_spmm_tensor_cores(bs, nf) else "cuda-core"
 
 
-def bsr_spmm(bcols: torch.Tensor, blocks: torch.Tensor, X: torch.Tensor,
-             row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Y = A @ X, ``(nbrows * bs, nf)`` f32, for BSR arrays: ``bcols
-    (nbrows, bwidth)`` int32 block columns (-1 pads), ``blocks (nbrows,
-    bwidth, bs, bs)`` f32/bf16/f16, ``X (ncols, nf)``."""
-    if blocks.device.type == "cpu":
-        return bsr_spmm_plain(bcols, blocks, X, row_mask)
-    nbrows, bwidth, bs = _shapes("bsr_spmm", bcols, blocks, X)
-    if bs not in BLOCK_SIZES:
-        raise ValueError(f"bsr_spmm: block edge {bs} is not one of {BLOCK_SIZES}")
-    if bcols.dtype is not torch.int32:
-        raise TypeError(f"bsr_spmm: bcols must be int32, got {bcols.dtype}")
-    if row_mask is not None and (row_mask.dtype is not torch.bool
-                                 or row_mask.shape != (nbrows * bs,)):
-        raise ValueError("bsr_spmm: row_mask must be a bool tensor of shape (nbrows * bs,)")
+def _on_card(t: torch.Tensor) -> bool:
+    """A tensor on a CUDA device: there the wrappers launch their kernels."""
+    return t.device.type != "cpu"
+
+
+def _launch_spmm(bcols, blocks, X, row_mask) -> torch.Tensor:
+    """One launch of the forward kernel on checked, f32, aligned ``X``."""
+    nbrows, bwidth, bs = blocks.shape[0], blocks.shape[1], blocks.shape[-1]
     ncols, nf = X.shape
-    X = X.to(torch.float32).contiguous()
-    if X.data_ptr() % 16:  # the kernel stages X with 16-byte copies
-        X = X.clone()
     check_cuda_operands("bsr_spmm", bcols, blocks, X, row_mask)
     if blocks.data_ptr() % 16:
         raise ValueError("bsr_spmm: blocks must start on a 16-byte boundary")
@@ -104,4 +106,178 @@ def bsr_spmm(bcols: torch.Tensor, blocks: torch.Tensor, X: torch.Tensor,
     return Y
 
 
+class _BsrSpmmGrad(torch.autograd.Function):
+    """``bsr_spmm``'s kernel with its backward kernels: dX through
+    :func:`bsr_spmm_t`, dB through :func:`bsr_sddmm`, each launched only
+    for an operand that needs it, over one column-sorted work list."""
+
+    @staticmethod
+    def forward(ctx, bcols, blocks, X, row_mask):
+        ctx.save_for_backward(bcols, blocks, X, row_mask)
+        return _launch_spmm(bcols, blocks, X, row_mask)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dY):
+        bcols, blocks, X, row_mask = ctx.saved_tensors
+        dY = dY.to(torch.float32).contiguous()
+        if row_mask is not None:
+            dY = torch.where(row_mask[:, None], dY, torch.zeros((), device=dY.device))
+        bs = blocks.shape[-1]
+        work = bsr_column_order(bcols, -(-X.shape[0] // bs))
+        dB = dX = None
+        if ctx.needs_input_grad[2]:
+            dX = bsr_spmm_t(bcols, blocks, dY, X.shape[0], work)
+        if ctx.needs_input_grad[1]:
+            dB = bsr_sddmm(bcols, dY, X, bs, work).to(blocks.dtype)
+        return None, dB, dX, None
+
+
+def bsr_spmm(bcols: torch.Tensor, blocks: torch.Tensor, X: torch.Tensor,
+             row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Y = A @ X, ``(nbrows * bs, nf)`` f32, for BSR arrays: ``bcols
+    (nbrows, bwidth)`` int32 block columns (-1 pads), ``blocks (nbrows,
+    bwidth, bs, bs)`` f32/bf16/f16, ``X (ncols, nf)``. Differentiable in
+    ``X`` and ``blocks``."""
+    if not _on_card(blocks):
+        return bsr_spmm_plain(bcols, blocks, X, row_mask)
+    nbrows, bwidth, bs = _shapes("bsr_spmm", bcols, blocks, X)
+    if bs not in BLOCK_SIZES:
+        raise ValueError(f"bsr_spmm: block edge {bs} is not one of {BLOCK_SIZES}")
+    if bcols.dtype is not torch.int32:
+        raise TypeError(f"bsr_spmm: bcols must be int32, got {bcols.dtype}")
+    if row_mask is not None and (row_mask.dtype is not torch.bool
+                                 or row_mask.shape != (nbrows * bs,)):
+        raise ValueError("bsr_spmm: row_mask must be a bool tensor of shape (nbrows * bs,)")
+    X = X.to(torch.float32).contiguous()
+    if X.data_ptr() % 16:  # the kernel stages X with 16-byte copies
+        X = X.clone()
+    if torch.is_grad_enabled() and (X.requires_grad or blocks.requires_grad):
+        return _BsrSpmmGrad.apply(bcols, blocks, X, row_mask)
+    return _launch_spmm(bcols, blocks, X, row_mask)
+
+
 bsr_spmm.launches = 0
+
+
+# ------------------------------------------------------------- backward ----
+
+
+def bsr_column_order(bcols: torch.Tensor, nbcols: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels' work list: ``order (nslots,)`` int32, the
+    flat slots ``r * bwidth + w`` sorted stably by block column with every
+    pad slot (id < 0 or >= ``nbcols``) last, and ``starts (nbcols + 1,)``
+    int32, column ``c``'s run ``[starts[c], starts[c + 1])``. Built on the
+    tensors' device with no host read."""
+    keys = bcols.reshape(-1).to(torch.int64)
+    keys = torch.where((keys >= 0) & (keys < nbcols), keys, torch.full_like(keys, nbcols))
+    sorted_keys, order = torch.sort(keys, stable=True)
+    return order.to(torch.int32), segment_starts(sorted_keys, nbcols)
+
+
+def bsr_spmm_t_plain(bcols: torch.Tensor, blocks: torch.Tensor, dY: torch.Tensor,
+                     ncols: int) -> torch.Tensor:
+    """Plain version of :func:`bsr_spmm_t`: each valid block's ``B^T`` times
+    its block row of ``dY`` (one batched matmul in f32), added into its
+    block column, rows past ``ncols`` cut."""
+    nbrows, bwidth = bcols.shape
+    bs = blocks.shape[-1]
+    nf = dY.shape[1]
+    nbcols = -(-ncols // bs)
+    valid = (bcols >= 0) & (bcols < nbcols)
+    part = torch.einsum("rwij,rif->rwjf", blocks.float(), dY.float().reshape(nbrows, bs, nf))
+    part = torch.where(valid[..., None, None], part, torch.zeros((), device=dY.device))
+    dX = torch.zeros((nbcols + 1, bs, nf), dtype=torch.float32, device=dY.device)
+    dX.index_add_(0, torch.where(valid, bcols, nbcols).reshape(-1).long(),
+                  part.reshape(nbrows * bwidth, bs, nf))
+    return dX[:nbcols].reshape(nbcols * bs, nf)[:ncols]
+
+
+def bsr_sddmm_plain(bcols: torch.Tensor, dY: torch.Tensor, X: torch.Tensor,
+                    bs: int) -> torch.Tensor:
+    """Plain version of :func:`bsr_sddmm`: ``dY``'s block row times the X
+    block row of each valid block, transposed, in f32; zero at pad slots."""
+    nbrows, bwidth = bcols.shape
+    ncols, nf = X.shape
+    nbcols = -(-ncols // bs)
+    valid = (bcols >= 0) & (bcols < nbcols)
+    Xp = torch.zeros((nbcols * bs, nf), dtype=torch.float32, device=X.device)
+    Xp[:ncols] = X.float()
+    Xg = Xp.reshape(nbcols, bs, nf)[torch.where(valid, bcols, 0).long()]
+    dB = torch.einsum("rif,rwjf->rwij", dY.float().reshape(nbrows, bs, nf), Xg)
+    return torch.where(valid[..., None, None], dB, torch.zeros((), device=X.device))
+
+
+def _launch_spmm_t(bcols, blocks, dY, ncols, work) -> torch.Tensor:
+    order, starts = work
+    nbrows, bwidth, bs = blocks.shape[0], blocks.shape[1], blocks.shape[-1]
+    check_cuda_operands("bsr_spmm_t", order, starts, blocks, dY)
+    code = value_code("bsr_spmm_t", blocks.dtype)
+    nf = dY.shape[1]
+    dX = torch.empty((ncols, nf), dtype=torch.float32, device=dY.device)
+    from ._build import library
+
+    library().call("repro_bsr_spmm_t", order.data_ptr(), starts.data_ptr(), blocks.data_ptr(),
+                   dY.data_ptr(), dX.data_ptr(), starts.shape[0] - 1, bwidth, bs, ncols, nf,
+                   code, current_stream(dY.device))
+    bsr_spmm_t.launches += 1
+    return dX
+
+
+def bsr_spmm_t(bcols: torch.Tensor, blocks: torch.Tensor, dY: torch.Tensor, ncols: int,
+               work: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """dX = A^T @ dY, ``(ncols, nf)`` f32, for the BSR arrays of
+    :func:`bsr_spmm` and ``dY (nbrows * bs, nf)`` f32: the gradient of
+    ``bsr_spmm``'s ``X``. ``work`` is :func:`bsr_column_order`'s list (made
+    here when not given)."""
+    if not _on_card(blocks):
+        return bsr_spmm_t_plain(bcols, blocks, dY, ncols)
+    nbrows, bs = bcols.shape[0], blocks.shape[-1]
+    if (bs not in BLOCK_SIZES or bcols.dtype is not torch.int32
+            or tuple(blocks.shape) != (*bcols.shape, bs, bs)):
+        raise ValueError(f"bsr_spmm_t: int32 bcols (nbrows, bwidth), blocks (nbrows, bwidth, "
+                         f"bs, bs) and a block edge in {BLOCK_SIZES} expected")
+    if dY.dtype is not torch.float32 or dY.shape[0] != nbrows * bs:
+        raise ValueError(f"bsr_spmm_t: dY must be f32 of {nbrows * bs} rows")
+    work = work if work is not None else bsr_column_order(bcols, -(-ncols // bs))
+    return _launch_spmm_t(bcols, blocks, dY, ncols, work)
+
+
+bsr_spmm_t.launches = 0
+
+
+def _launch_sddmm(bcols, dY, X, bs, work) -> torch.Tensor:
+    order, _ = work
+    nbrows, bwidth = bcols.shape
+    check_cuda_operands("bsr_sddmm", order, bcols, dY, X)
+    ncols, nf = X.shape
+    dB = torch.empty((nbrows, bwidth, bs, bs), dtype=torch.float32, device=X.device)
+    from ._build import library
+
+    library().call("repro_bsr_sddmm", order.data_ptr(), bcols.data_ptr(), dY.data_ptr(),
+                   X.data_ptr(), dB.data_ptr(), nbrows * bwidth, bwidth, bs, ncols, nf,
+                   current_stream(X.device))
+    bsr_sddmm.launches += 1
+    return dB
+
+
+def bsr_sddmm(bcols: torch.Tensor, dY: torch.Tensor, X: torch.Tensor, bs: int,
+              work: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """dB, ``(nbrows, bwidth, bs, bs)`` f32: ``dY``'s block row ``r`` times
+    X's block row ``bcols[r, w]``, transposed, at every stored block (zero
+    at pad slots): the gradient of ``bsr_spmm``'s ``blocks``. ``dY
+    (nbrows * bs, nf)`` and ``X (ncols, nf)`` f32."""
+    if not _on_card(X):
+        return bsr_sddmm_plain(bcols, dY, X, bs)
+    nbrows = bcols.shape[0]
+    if bs not in BLOCK_SIZES or bcols.dtype is not torch.int32 or bcols.ndim != 2:
+        raise ValueError(f"bsr_sddmm: int32 bcols (nbrows, bwidth) and a block edge in "
+                         f"{BLOCK_SIZES} expected")
+    if (dY.dtype is not torch.float32 or X.dtype is not torch.float32
+            or dY.shape != (nbrows * bs, X.shape[1])):
+        raise ValueError(f"bsr_sddmm: dY ({nbrows * bs}, nf) and X (ncols, nf) must be f32")
+    work = work if work is not None else bsr_column_order(bcols, -(-X.shape[0] // bs))
+    return _launch_sddmm(bcols, dY, X, bs, work)
+
+
+bsr_sddmm.launches = 0

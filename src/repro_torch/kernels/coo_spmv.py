@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ._launch import (check_cuda_operands, checked_x, current_stream, index_code,
-                      segment_starts, value_code)
+                      no_grad_operands, segment_starts, value_code)
 
 #: Slice rows the sliced kernel holds in shared memory: one window of f32
 #: per warp of the slice's CTA, eight warps up to 1536 rows and four at
@@ -119,6 +119,7 @@ def _launch_rows(r: _Rows, x: torch.Tensor) -> torch.Tensor:
     """The full-window launch on the checked record ``r``; ``x`` is checked
     here."""
     x = checked_x("coo_spmv", x, r.device)
+    no_grad_operands("coo_spmv", r.val, x)
     dev = r.device
     y = torch.empty(r.nrows, dtype=r.val.dtype, device=dev)
     code = r.entry(r.ptrs[0], r.ptrs[1], r.ptrs[2], x.data_ptr(), y.data_ptr(), r.nrows,
@@ -208,6 +209,7 @@ def scoo_spmv_tiled(row, col, val, sid, ctile, x, *, nrows: int, col_tile: int,
         run_start = segment_starts(sid, nslices)
     x = x.to(torch.float32)
     check_cuda_operands("scoo_spmv_tiled", row, col, val, ctile, run_start, x)
+    no_grad_operands("scoo_spmv_tiled", val, x)
     vcode = value_code("scoo_spmv_tiled", val.dtype)
     icode = index_code("scoo_spmv_tiled", col.dtype)
     y = torch.empty(nrows, dtype=val.dtype, device=val.device)
@@ -294,6 +296,7 @@ def scoo_spmv(row, col, val, slice_ids, x, *, nrows: int, slice_rows: int = 512,
         run_start = segment_starts(slice_ids, nslices)
     x = x.to(torch.float32)
     check_cuda_operands("scoo_spmv", row, col, val, run_start, x)
+    no_grad_operands("scoo_spmv", val, x)
     vcode = value_code("scoo_spmv", val.dtype)
     y = torch.empty(nrows, dtype=val.dtype, device=val.device)
     from ._build import library

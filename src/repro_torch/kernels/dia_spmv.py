@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ._launch import check_cuda_operands, checked_x, current_stream, value_code
+from ._launch import check_cuda_operands, checked_x, current_stream, no_grad_operands, value_code
 
 #: Shared memory holds the offsets: 48 KB of int32 without opting in to more.
 MAX_RESIDENT_DIAGS = 12288
@@ -160,6 +160,7 @@ def _launch(r: _Resident, x: torch.Tensor, mask: Optional[torch.Tensor],
             rows: Optional[DiaRowList]) -> torch.Tensor:
     """The kernel's launch on checked operands: over ``rows`` when given,
     else over every row (the masked-out ones written 0)."""
+    no_grad_operands("dia_spmv", r.data, x)
     dev = r.device
     y = torch.empty(r.nrows, dtype=r.data.dtype, device=dev)
     mp = None if mask is None else mask.data_ptr()
@@ -293,6 +294,7 @@ def _tiled(offs_t: torch.Tensor, dat_w: torch.Tensor, nrows: int, col_tile: int)
 
 def _launch_tiled(r: _Tiled, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """The tiled kernel's launch on checked operands."""
+    no_grad_operands("dia_spmv_tiled", r.dat_w, x)
     dev = r.device
     y = torch.empty(r.nrows, dtype=r.dat_w.dtype, device=dev)
     code = r.entry(r.ptrs[0], r.ptrs[1], x.data_ptr(), None if mask is None else mask.data_ptr(),

@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ._launch import check_cuda_operands, current_stream, index_code, value_code
+from ._launch import (check_cuda_operands, current_stream, index_code, no_grad_operands,
+                      value_code)
 
 #: Rows of one chunk of the tiled kernel (one CTA): the granularity of
 #: :func:`ell_tile_index` (``kRows`` in ``csrc/ell_spmv.cu``).
@@ -144,6 +145,7 @@ def _launch_listed(name, idx, dat, x, mask, tile_index, nrows, width, col_tile):
     tile_ptr, tile_ids, _ = tile_index
     x = x.to(torch.float32)
     check_cuda_operands(name, idx, dat, x, mask, tile_ptr, tile_ids)
+    no_grad_operands(name, dat, x)
     vcode = value_code(name, dat.dtype)
     icode = index_code(name, idx.dtype)
     y = torch.empty(nrows, dtype=dat.dtype, device=dat.device)

@@ -25,8 +25,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ._launch import (check_cuda_operands, current_stream, index_code, segment_starts,
-                      value_code)
+from ._launch import (check_cuda_operands, current_stream, index_code, no_grad_operands,
+                      segment_starts, value_code)
 
 #: Slices per window the kernel takes (csrc/sell_spmv.cu: a lane owns at
 #: most 8 rows of a window).
@@ -170,6 +170,8 @@ def scs_spmv(btile, bwin, lsl, idx2, dat2, perm, x, *, nrows: int,
 def _launch(btile, lsl, idx2, dat2, perm, x, nreal, work, nrows, col_tile, C, sw, jb):
     """The kernel's launch on operands :func:`scs_spmv` has checked."""
     from ._build import library
+
+    no_grad_operands("scs_spmv", dat2, x)
 
     y = torch.empty(nrows, dtype=dat2.dtype, device=dat2.device)
     nchunks, nsplit = work.chunk_win.shape[0], work.split_win.shape[0]

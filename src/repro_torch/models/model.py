@@ -26,6 +26,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import resolve_device
 from repro_torch.distributed.sharding import logical_constraint
+from repro_torch.tree import leaves as tree_leaves
+from repro_torch.tree import rebuild, tree_map
 
 from . import attention as attn
 from . import mla as mla_mod
@@ -281,29 +283,10 @@ def _initializer(device, generator, weight_dtype) -> Init:
                 weight_dtype)
 
 
-def tree_map(fn, tree):
-    """``fn`` over every tensor of a tree of dicts, lists and named tuples,
-    the tree's structure kept."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def tree_leaves(tree) -> list:
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
 def _stack(trees):
     """Trees of one structure stacked leaf by leaf along a new first axis."""
     leaves = [tree_leaves(t) for t in trees]
-    it = iter([torch.stack(ls) for ls in zip(*leaves)])
-    return tree_map(lambda _: next(it), trees[0])
+    return rebuild(trees[0], [torch.stack(ls) for ls in zip(*leaves)])
 
 
 def layer(tree, i: int):
@@ -317,6 +300,60 @@ def write_back(dst, src) -> None:
     for d, s in zip(tree_leaves(dst), tree_leaves(src)):
         if d is not s:
             d.copy_(s)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of matrix products without a
+    batch dimension (``mm``, ``addmm``), as the reference's
+    ``dots_with_no_batch_dims_saveable``, and recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg):
+    """A layer's train body under ``cfg.remat``, as the reference wraps it
+    in ``jax.checkpoint``: ``"full"`` keeps the layer's inputs and
+    recomputes the rest in backward (``torch.utils.checkpoint``, not
+    reentrant); ``"dots"`` also keeps the products ``_dots_saveable``
+    names. The recomputed forward runs the same routing and the same
+    kernels, so backward sees the first pass's bits: it re-enters the
+    forward's ambient policy and sharding context, which are per thread
+    (on a CUDA device autograd recomputes on its own thread), and it runs
+    to the end of the layer (PyTorch's early stop would end it by raising
+    from inside the MoE lane's sparse product, where dispatch catches a
+    failing kernel). Outside grad mode (serving, evaluation) the body runs
+    as it is."""
+    if cfg.remat not in ("full", "dots"):
+        return fn
+    import functools
+
+    from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_contexts,
+                                        set_checkpoint_early_stop)
+
+    from repro_torch.core.operator import current_policy, use_policy
+    from repro_torch.distributed.sharding import current_mesh, current_rules, sharding_context
+
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_saveable)
+
+    def body(lp, x, ctx):
+        if not torch.is_grad_enabled():
+            return fn(lp, x, ctx)
+        policy, mesh, rules = current_policy(), current_mesh(), current_rules()
+
+        def run(lp, x, ctx):
+            with use_policy(policy), sharding_context(mesh, rules):
+                return fn(lp, x, ctx)
+
+        with set_checkpoint_early_stop(False):
+            return checkpoint(run, lp, x, ctx, use_reentrant=False, preserve_rng_state=False,
+                              **kw)
+
+    return body
 
 
 @dataclass
@@ -389,8 +426,9 @@ class LM:
         ctx = {"positions": self._positions(B, S)}
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for g, gp in zip(self.groups, params["groups"]):
+            body = _maybe_remat(g.train, cfg)
             for i in range(g.n):
-                x, aux = g.train(layer(gp, i), x, ctx)
+                x, aux = body(layer(gp, i), x, ctx)
                 aux_total = aux_total + aux
         x = rmsnorm(x, params["norm_f"].to(x.dtype), cfg.norm_eps)
         return self._head(params, x[:, P:]), aux_total
@@ -517,11 +555,15 @@ class EncDecLM:
         cfg = self.cfg
         x = frames.to(cfg.activation_dtype)
         pos = self._positions(*x.shape[:2])
-        for i in range(cfg.encoder_layers):
-            lp = layer(params["enc"], i)
+
+        def body(lp, x, ctx):
             h = attn.attention_train(lp["attn"], self._norm(x, lp["ln1"]), cfg, pos, causal=False)
             x = x + h
-            x = x + apply_mlp(lp["mlp"], self._norm(x, lp["ln2"]))
+            return x + apply_mlp(lp["mlp"], self._norm(x, lp["ln2"]))
+
+        body = _maybe_remat(body, cfg)
+        for i in range(cfg.encoder_layers):
+            x = body(layer(params["enc"], i), x, None)
         return self._norm(x, params["norm_enc"])
 
     def forward_train(self, params, tokens, extra):
@@ -529,11 +571,15 @@ class EncDecLM:
         enc = self.encode(params, extra["frames"])
         x = self._embed(params, tokens)
         pos = self._positions(*x.shape[:2])
-        for i in range(cfg.n_layers):
-            lp = layer(params["dec"], i)
+
+        def body(lp, x, ctx):
             x = x + attn.attention_train(lp["self"], self._norm(x, lp["ln1"]), cfg, pos)
             x = x + attn.cross_attention(lp["cross"], self._norm(x, lp["ln2"]), enc, cfg)
-            x = x + apply_mlp(lp["mlp"], self._norm(x, lp["ln3"]))
+            return x + apply_mlp(lp["mlp"], self._norm(x, lp["ln3"]))
+
+        body = _maybe_remat(body, cfg)
+        for i in range(cfg.n_layers):
+            x = body(layer(params["dec"], i), x, None)
         x = self._norm(x, params["norm_f"])
         return (x @ params["lm_head"].to(x.dtype),
                 torch.zeros((), dtype=torch.float32, device=x.device))

@@ -1,0 +1,173 @@
+"""Trainer: model + optimizer + data + checkpoints + fault tolerance: the
+port of ``repro.train.trainer``.
+
+Drives ``make_train_step`` on one device (default the card; ``"cpu"`` for
+the host). Failure injection (``fail_at``) exercises the Supervisor restart
+path for real: the failed step raises, the Supervisor restores the latest
+checkpoint and replays data from the cursor, so the loss curves with and
+without the failure match (``tests/test_torch_train.py``; on the card
+``tests/test_torch_train_cuda.py`` and ``chip_smoke.py`` phase 15).
+
+On the card a run trains under ``torch.use_deterministic_algorithms(True,
+warn_only=True)``, set for the loop and restored after it: PyTorch then
+takes its deterministic variants where an op has one, and the restart
+replays the same bits. cuBLAS repeats its bits only with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (or ``:16:8``), which it reads once,
+before the process's first product; so the entry points
+(``repro_torch.launch.train``, ``examples/train_lm_torch.py``,
+``chip_smoke.py``) set it at their start, and a ``Trainer`` on a CUDA
+device warns when it is unset. The port's own kernels need neither: they
+add in a fixed order.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+import warnings
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager, config_hash
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.formats import resolve_device
+from repro_torch.data.pipeline import DataState, SyntheticTokens
+from repro_torch.models import build_model
+from repro_torch.optim import adamw
+from repro_torch.resilience.monitor import StragglerMonitor, Supervisor
+from repro_torch.train.steps import make_train_step
+from repro_torch.tree import tree_map
+
+
+@dataclass
+class TrainerConfig:
+    n_steps: int = 100
+    global_batch: int = 8
+    seq_len: int = 128
+    microbatches: int = 1
+    checkpoint_every: int = 20
+    ckpt_dir: Optional[str] = None
+    keep_last: int = 3
+    seed: int = 0
+    log_every: int = 10
+    async_checkpoint: bool = True
+
+
+@contextlib.contextmanager
+def deterministic(device: torch.device):
+    """PyTorch's deterministic variants on a CUDA device (warnings, not
+    errors, for an op without one), restored afterwards; nothing on the
+    host, where every op already repeats its bits."""
+    if device.type != "cuda":
+        yield
+        return
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+class Trainer:
+    def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
+                 ocfg: Optional[adamw.AdamWConfig] = None, mesh=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("Trainer: no mesh in the port yet; the model's sharding "
+                                      "over several cards is ROADMAP item 9")
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.ocfg = ocfg or adamw.AdamWConfig(total_steps=tcfg.n_steps)
+        self.mesh = None
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and not os.environ.get("CUBLAS_WORKSPACE_CONFIG"):
+            warnings.warn("Trainer: CUBLAS_WORKSPACE_CONFIG is unset, so cuBLAS may not repeat "
+                          "its bits and a restart may not replay the run; set it to :4096:8 "
+                          "before the process's first matrix product", RuntimeWarning,
+                          stacklevel=2)
+        self.model = build_model(cfg, device=self.device)
+        self.data = SyntheticTokens(
+            cfg.vocab, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed,
+            frontend=cfg.frontend, frontend_tokens=cfg.frontend_tokens,
+            d_model=cfg.d_model, device=self.device)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, tcfg.keep_last) if tcfg.ckpt_dir else None
+        self.straggler = StragglerMonitor()
+        self.history: List[Dict[str, float]] = []
+        self._step = make_train_step(self.model, self.ocfg, tcfg.microbatches)
+        params = self.model.init(tcfg.seed)
+        self.state = (params, adamw.init(params, self.ocfg.keep_master))
+
+    # ------------------------------------------------------- persistence --
+
+    def save(self, step: int, state=None):
+        if self.ckpt is None:
+            return
+        params, opt = state if state is not None else self.state
+        self.ckpt.save(step, {"params": params, "opt": opt},
+                       meta={"data_state": self.data.state.to_dict(),
+                             "config_hash": config_hash(self.cfg)},
+                       async_=self.tcfg.async_checkpoint)
+
+    def restore(self):
+        assert self.ckpt is not None
+        self.ckpt.wait()
+        step = self.ckpt.latest_step()
+        if step is None:
+            return self.state, 0
+        man = self.ckpt.manifest(step)
+        assert man["config_hash"] == config_hash(self.cfg), "checkpoint/config mismatch"
+        # the template's shapes from the meta device: nothing allocated
+        pshapes = build_model(self.cfg, device="meta").init()
+        oshapes = adamw.init(pshapes, self.ocfg.keep_master)
+        tree = self.ckpt.restore({"params": pshapes, "opt": oshapes}, step)
+        tree = tree_map(lambda t: t.to(self.device), tree)
+        self.data.resume(DataState.from_dict(man["data_state"]))
+        self.state = (tree["params"], tree["opt"])
+        return self.state, step
+
+    # -------------------------------------------------------------- loop --
+
+    def train(self, fail_at: Optional[int] = None, resume: bool = False):
+        tcfg = self.tcfg
+        start = 0
+        if resume and self.ckpt is not None and self.ckpt.latest_step() is not None:
+            self.state, start = self.restore()
+
+        failed = {"done": False}
+
+        def step_fn(state, i):
+            if fail_at is not None and i == fail_at and not failed["done"]:
+                failed["done"] = True
+                raise RuntimeError(f"injected failure at step {i}")
+            t0 = time.time()
+            batch = self.data._put(self.data.batch_at(i))
+            self.data.state = DataState(i + 1)
+            params, opt = state
+            params, opt, metrics = self._step(params, opt, batch)
+            self.state = (params, opt)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics["step"] = i
+            metrics["time_s"] = time.time() - t0
+            self.history.append(metrics)
+            if (i + 1) % tcfg.log_every == 0:
+                print(f"step {i+1:5d} loss={metrics['loss']:.4f} "
+                      f"gnorm={metrics['grad_norm']:.3f} {metrics['time_s']*1e3:.0f}ms",
+                      flush=True)
+            return (params, opt)
+
+        sup = Supervisor(
+            step_fn,
+            save_fn=lambda state, i: self.save(i, state),
+            restore_fn=self.restore,
+            checkpoint_every=tcfg.checkpoint_every,
+            straggler=self.straggler,
+        )
+        with deterministic(self.device):
+            self.state, end = sup.run(self.state, start, tcfg.n_steps)
+        if self.ckpt is not None:
+            self.save(end)
+            self.ckpt.wait()
+        return self.history
