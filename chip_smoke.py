@@ -181,14 +181,19 @@ Phases, one or more lines each, each ending with its seconds:
      ``bsr_spmm_t`` (dX = A^T dY) and ``bsr_sddmm`` (dB = dY X^T at the
      stored blocks), at the training step's shapes (the MoE dispatch's dX,
      1280 block rows x 8 slots; the combine's dH and dB, 128 x 64 against
-     10,241 columns; bs 8, nf 4096, bf16 blocks) and on the block matrix
-     (bs 32, 128 columns), each against its plain version and against
+     10,241 columns; bs 8, nf 4096, bf16 blocks), routed by a random
+     router and, for the combine, as (b)'s first step routes it (its
+     column of dropped picks holds thousands of blocks, so the kernels
+     cut it in many chunks), and on the block matrix (bs 32, 128 columns),
+     each against its plain version and against
      autograd through ``bsr_spmm_plain`` (rtol 2e-4), two launches
      bit-equal, with ``ms``, ``kernel_ms``, ``plain_ms``, the bound and one
      PyTorch call (torch's BSR product on A^T; ``torch.sparse.sampled_addmm``
-     over the blocks' entries); (b) ``qwen3-moe-235b-a22b`` at its published
-     widths cut to 1 layer (3.73 G parameters, f32 weights and AdamW
-     state), batch 8 x seq 128, on the bsr lane under
+     over the blocks' entries), and the forward ``bsr_spmm`` at the
+     dispatch's and the combine's shapes with the line phase 12d prints
+     (its bound at 165 TFLOP/s, as the backward's); (b)
+     ``qwen3-moe-235b-a22b`` at its published widths cut to 1 layer (3.73
+     G parameters, f32 weights and AdamW state), batch 8 x seq 128, on the bsr lane under
      ``use_backend("cuda")`` and PyTorch's deterministic mode: step 0's
      gradients of the router, one expert stack and the embedding twice
      (equal bits) and on the plain lane (within ``TRAIN_GRAD_REL_L2``),
@@ -291,8 +296,8 @@ REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve", "dis
 EXTRA_KEYS = ("path", "masked", "spmm", "coarse", "powerlaw", "block", "shape_52",
               "shape_26", "shape_13", "moe_dispatch", "moe_combine", "moe_combine_unsorted",
               "deepseek_dispatch", "deepseek_combine", "jamba_dispatch", "jamba_combine",
-              "train_combine", "work_list_ms", "library", "library_error",
-              "bound_staged_ms", "bound_every_slot_ms", "bound_every_id_slot_ms")
+              "train_dispatch", "train_combine", "step_combine", "work_list_ms", "library",
+              "library_error", "bound_staged_ms", "bound_every_slot_ms", "bound_every_id_slot_ms")
 
 #: The block matrix of the block path: ``block_random(n, bs, density)``.
 BLOCK_MATRIX = (65536, 32, 16 / 2048)
@@ -457,38 +462,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-#: The profiler ranges ``kernel_ms`` marks: three calls that give one
-#: call's record count, then two runs of the timed calls.
-KERNEL_MS_MARKS = ("kernel_ms_per_call", "kernel_ms_a", "kernel_ms_b")
-#: Calls in the range that counts one call's records.
-KERNEL_MS_COUNT_CALLS = 3
+#: The profiler ranges ``kernel_ms`` marks: two runs of the timed calls.
+KERNEL_MS_MARKS = ("kernel_ms_a", "kernel_ms_b")
 
 
 def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     """Device time of one ``fn()`` in ms spent in kernels whose name holds
     ``kernel``, from ``torch.profiler``: the kernel alone, without the
     wrapper's host time that CUDA events around a small call also catch.
-    Each trace runs three calls first and three last (a trace may lose the
-    records of its first and last kernels) around three ranges, each ending
-    in a synchronize: ``KERNEL_MS_COUNT_CALLS`` calls whose records give one
-    call's count, then two ranges of ``reps`` timed calls. It counts the
-    device records that start inside each range and takes the trace only
-    when one call's count is whole and positive and each timed range holds
-    exactly ``reps`` times it: a trace that lost records, or holds one of an
-    earlier trace, is dropped. ``None`` when eight traces in a row fall
-    short."""
+    Each trace runs lead-in calls first and three last (a trace may lose
+    the records of its first and last kernels) around two ranges of
+    ``reps`` timed calls, each ending in a synchronize. It counts the device
+    records that start inside each range and takes the trace only when the
+    two ranges hold equal counts, a positive multiple of ``reps``: a trace
+    that lost records, or holds one of an earlier trace, is dropped. A
+    trace can lose the records of its first milliseconds: each retry
+    doubles the lead-in, from 3 calls. ``None`` when eight traces in a row
+    fall short."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    def trace():
+    def trace(lead):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
+            for _ in range(lead):
                 fn()
             torch.cuda.synchronize()
-            for mark, calls in zip(KERNEL_MS_MARKS, (KERNEL_MS_COUNT_CALLS, reps, reps)):
+            for mark in KERNEL_MS_MARKS:
                 with record_function(mark):
-                    for _ in range(calls):
+                    for _ in range(reps):
                         fn()
                     torch.cuda.synchronize()
             for _ in range(3):
@@ -507,14 +509,13 @@ def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     counts = []
-    for _ in range(8):  # a trace now and then comes back without some records
-        one, a, b = trace()
-        per_call, rest = divmod(len(one), KERNEL_MS_COUNT_CALLS)
-        if per_call > 0 and rest == 0 and len(a) == len(b) == reps * per_call:
+    for attempt in range(8):  # a trace now and then comes back without some records
+        a, b = trace(3 << attempt)
+        if len(a) == len(b) and len(a) > 0 and len(a) % reps == 0:
             return sum(e.time_range.elapsed_us() for e in a + b) / (2 * reps) / 1e3
-        counts.append((len(one), len(a), len(b)))
-    print(f"[kernel_ms] {kernel!r} not measured: records per trace in {KERNEL_MS_COUNT_CALLS} "
-          f"calls and in two ranges of {reps} calls {counts}", flush=True)
+        counts.append((3 << attempt, len(a), len(b)))
+    print(f"[kernel_ms] {kernel!r} not measured: (lead-in calls, records in each of two "
+          f"ranges of {reps} calls) per trace {counts}", flush=True)
     return None  # not measured
 
 
@@ -1785,14 +1786,32 @@ def close(what: str, got, want, rtol: float, atol: float) -> float:
     return float(err.max())
 
 
+def bsr_forward_lib(P, X):
+    """torch's BSR product on the blocks of the BSR container ``P`` (f32)
+    and X, padded to whole block columns beforehand (a BSR tensor's shape
+    is whole blocks): ``bsr_spmm``'s yardstick."""
+    import torch
+
+    dev = P.bcols.device
+    valid = P.bcols >= 0
+    ncols = -(-P.shape[1] // P.bs) * P.bs
+    A = torch.sparse_bsr_tensor(
+        torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), valid.sum(1).cumsum(0)]),
+        P.bcols[valid].long(), P.blocks[valid].float(), size=(P.bcols.shape[0] * P.bs, ncols))
+    Xp = torch.zeros((ncols, X.shape[1]), device=dev)
+    Xp[: P.shape[1]] = X[: P.shape[1]]
+    return lambda: A @ Xp
+
+
 def measure_model_kernel(label: str, fn, plain, moved: int, flops: int, kernel: str,
-                         library=None, exact=False, rtol=2e-4, **extra) -> dict:
+                         library=None, exact=False, rtol=2e-4, rate=F32_FLOPS,
+                         **extra) -> dict:
     """Phase 12d's line for one kernel call at the model path's shapes:
     against its plain version (exactly when ``exact``), two launches
     bit-equal, then ``ms`` (events), ``kernel_ms`` (device time),
     ``plain_ms``, ``library_ms`` (one PyTorch call on the same inputs, or
-    ``None``) and the bound (``moved`` bytes against ``flops`` at the f32
-    CUDA-core rate)."""
+    ``None``) and the bound (``moved`` bytes against ``flops`` at ``rate``,
+    the f32 CUDA-core rate unless given)."""
     import torch
 
     y, y_plain = fn(), plain()
@@ -1801,7 +1820,7 @@ def measure_model_kernel(label: str, fn, plain, moved: int, flops: int, kernel: 
     if exact:
         check(same, f"{label}: kernel differs from its plain version")
     check(bool(torch.equal(y, fn())), f"{label}: two launches differ")
-    b_ms, b_by = bound(moved, flops)
+    b_ms, b_by = bound(moved, flops, rate)
     k_ms = kernel_ms(fn, kernel)
     check(k_ms is None or k_ms >= b_ms,
           f"{label}: kernel_ms {k_ms} under its bound {b_ms}: an impossible reading")
@@ -2065,20 +2084,6 @@ def model_kernels(results: dict, served, cell: ModelCell) -> dict:
     name = "MoE" if cell.key == "model" else cell.key
     key = "moe" if cell.key == "model" else cell.key
 
-    def bsr_lib(P, X):
-        """torch's BSR product on the same blocks (f32) and X, padded to
-        whole block columns beforehand (a BSR tensor's shape is whole
-        blocks)."""
-        valid = P.bcols >= 0
-        ncols = -(-P.shape[1] // P.bs) * P.bs
-        A = torch.sparse_bsr_tensor(
-            torch.cat([torch.zeros(1, dtype=torch.int64, device=MODEL_DEVICE),
-                       valid.sum(1).cumsum(0)]), P.bcols[valid].long(),
-            P.blocks[valid].float(), size=(P.bcols.shape[0] * P.bs, ncols))
-        Xp = torch.zeros((ncols, X.shape[1]), device=MODEL_DEVICE)
-        Xp[: P.shape[1]] = X[: P.shape[1]]
-        return lambda: A @ Xp
-
     T = MODEL_SERVE["batch"]  # a decode step routes one token a sequence
     x = torch.randn((T, D), generator=gen, device=MODEL_DEVICE).to(cfg.activation_dtype)
     C = moe_mod._capacity(T, K, E, cfg.moe.capacity_factor)
@@ -2091,7 +2096,7 @@ def model_kernels(results: dict, served, cell: ModelCell) -> dict:
     out[f"{key}_dispatch"] = measure_model_kernel(
         f"bsr_spmm {name} decode dispatch", lambda: bsr_spmm(Pd.bcols, Pd.blocks, Xd),
         lambda: bsr_spmm_plain(Pd.bcols, Pd.blocks, Xd), moved, 2 * real * 64 * D,
-        "bsr_spmm_", library=bsr_lib(Pd, Xd), exact=True,
+        "bsr_spmm_", library=bsr_forward_lib(Pd, Xd), exact=True,
         shape=(E * C, T), nf=D, bs=Pd.bs, bwidth=Pd.bwidth, block_rows=Pd.bcols.shape[0],
         real_blocks=real, capacity=C, path=bsr_spmm_path(Pd.bs, D))
     h = torch.randn((E * C + 1, D), generator=gen, device=MODEL_DEVICE).to(cfg.activation_dtype)
@@ -2106,7 +2111,7 @@ def model_kernels(results: dict, served, cell: ModelCell) -> dict:
     out[f"{key}_combine"] = measure_model_kernel(
         f"bsr_spmm {name} decode combine", lambda: bsr_spmm(Pc.bcols, Pc.blocks, Xc),
         lambda: bsr_spmm_plain(Pc.bcols, Pc.blocks, Xc), moved, 2 * real * 64 * D,
-        "bsr_spmm_", library=bsr_lib(Pc, Xc), shape=(T, E * C + 1), nf=D, bs=Pc.bs,
+        "bsr_spmm_", library=bsr_forward_lib(Pc, Xc), shape=(T, E * C + 1), nf=D, bs=Pc.bs,
         bwidth=Pc.bwidth, block_rows=Pc.bcols.shape[0], real_blocks=real,
         path=bsr_spmm_path(Pc.bs, D))
 
@@ -2341,10 +2346,11 @@ def measure_backward(label: str, kernel: str, fn, plain, autograd, moved: int, f
                  bytes=moved, flops=flops, bound_ms=b_ms, bound_by=b_by)
 
 
-def backward_pair(label: str, P, X, dY, ncols: int, dX_only=False) -> dict:
+def backward_pair(label: str, P, X, dY, ncols: int, dX_only=False, **extra) -> dict:
     """``bsr_spmm_t`` (and, unless ``dX_only``, ``bsr_sddmm``) for the BSR
     arrays of ``P`` with the forward's f32 ``X`` and the output gradient
-    ``dY``, each measured by :func:`measure_backward`."""
+    ``dY``, each measured by :func:`measure_backward` (``extra`` joins both
+    lines)."""
     import torch
 
     from repro_torch.kernels.bsr_spmm import (bsr_column_order, bsr_sddmm, bsr_sddmm_plain,
@@ -2366,7 +2372,7 @@ def backward_pair(label: str, P, X, dY, ncols: int, dX_only=False) -> dict:
         return g.float()
 
     out["t"] = measure_backward(
-        f"bsr_spmm_t {label} dX", "bsr_spmm_t_kernel",
+        f"bsr_spmm_t {label} dX", "bsr_spmm_t_",
         lambda: bsr_spmm_t(bcols, blocks, dY, ncols, work),
         lambda: bsr_spmm_t_plain(bcols, blocks, dY, ncols), lambda: autograd("x"),
         real * bs * bs * blocks.element_size() + nbytes(bcols) + rows_read * nf * 4
@@ -2374,20 +2380,20 @@ def backward_pair(label: str, P, X, dY, ncols: int, dX_only=False) -> dict:
         library=(lambda f=bsr_transpose_lib(bcols, blocks, ncols, work): f(dY)),
         library_name="torch.sparse_bsr_tensor(A^T) @ dY", shape=tuple(P.shape), nf=nf, bs=bs,
         bwidth=bcols.shape[1], block_rows=bcols.shape[0], real_blocks=real,
-        work_list_ms=work_ms)
+        work_list_ms=work_ms, **extra)
     if dX_only:
         return out
     cols_read = min(int(torch.unique(bcols[valid]).numel()) * bs, ncols)
     lib, at = bsr_sampled_lib(bcols, bs, X, ncols)
     out["sddmm"] = measure_backward(
-        f"bsr_sddmm {label} dB", "bsr_sddmm_kernel",
+        f"bsr_sddmm {label} dB", "bsr_sddmm_",
         lambda: bsr_sddmm(bcols, dY, X, bs, work), lambda: bsr_sddmm_plain(bcols, dY, X, bs),
         lambda: autograd("b"),
         rows_read * nf * 4 + cols_read * nf * 4 + nbytes(bcols) + bcols.numel() * bs * bs * 4,
         2 * real * bs * bs * nf,
         library=lambda: lib(dY), library_name="torch.sparse.sampled_addmm (entry CSR)",
         library_at=at, shape=tuple(P.shape), nf=nf, bs=bs, bwidth=bcols.shape[1],
-        block_rows=bcols.shape[0], real_blocks=real, work_list_ms=work_ms)
+        block_rows=bcols.shape[0], real_blocks=real, work_list_ms=work_ms, **extra)
     return out
 
 
@@ -2420,10 +2426,50 @@ def train_routing(cfg, T: int, gen):
             moe_mod.bsr_combine(slot, tope, w_s, keep, T, E, C, x.dtype))
 
 
-def phase_train_kernels(results: dict, block) -> dict:
-    """Phase 15a: the backward kernels at the training step's shapes (the
-    dispatch's dX; the combine's dH and dB) and on the block matrix of
-    phase 8 (bs 32, 128 columns), each by :func:`backward_pair`."""
+def step_combine(cfg):
+    """The combine that phase 15b's first step routes: ``cfg``'s model,
+    initialised from its seed, run forward on the step's first batch
+    (``SyntheticTokens`` seed 0) with no graph, its MoE layer's
+    ``bsr_combine`` kept. Its routing is far from a random router's: the
+    overflow column (the dropped picks, block column ``E * C // 8``) holds
+    thousands of blocks, where a random router leaves a few."""
+    import torch
+
+    from repro_torch.core import use_backend
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+
+    model = build_model(cfg, device=TRAIN_DEVICE)
+    params = model.init(0)
+    data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=TRAIN_DEVICE)
+    batch = data._put(data.batch_at(0))
+    kept, combine = [], moe_mod.bsr_combine
+
+    def keep(*args):
+        kept.append(combine(*args))
+        return kept[-1]
+
+    moe_mod.bsr_combine = keep
+    try:
+        with torch.no_grad(), use_backend("cuda"):
+            model.forward_train(params, batch["tokens"], batch)
+    finally:
+        moe_mod.bsr_combine = combine
+    del model, params
+    torch.cuda.empty_cache()
+    return kept[0]
+
+
+def train_kernel_cases(block):
+    """Phase 15a's operands, made one case at a time in its order from its
+    seeds: ``(label, P, X, dY, ncols, dX_only)`` for the MoE dispatch (dX
+    only: its X is the tokens) and the MoE combine (X the experts' outputs,
+    dH and dB) at the training step's shapes, routed by a random router;
+    the combine of the step itself (:func:`step_combine`), its X's last row
+    (the zero row the layer pads with) made non-zero so that the overflow
+    column's dB is not zero; and the block matrix of phase 8 (bs 32) at
+    ``BLOCK_NF`` columns."""
     import numpy as np
     import torch
 
@@ -2433,24 +2479,74 @@ def phase_train_kernels(results: dict, block) -> dict:
     T, E, D = TRAIN_BATCH * TRAIN_SEQ, cfg.moe.n_experts, cfg.d_model
     gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(5)
     x, C, Pd, Pc = train_routing(cfg, T, gen)
-    disp = backward_pair("MoE dispatch", Pd, x.float(),
-                         torch.randn((E * C, D), generator=gen, device=TRAIN_DEVICE), T,
-                         dX_only=True)
+    yield ("MoE dispatch", Pd, x.float(),
+           torch.randn((E * C, D), generator=gen, device=TRAIN_DEVICE), T, True)
     h = torch.randn((E * C + 1, D), generator=gen, device=TRAIN_DEVICE).to(x.dtype).float()
     h[-1] = 0
-    comb = backward_pair("MoE combine", Pc, h,
-                         torch.randn((T, D), generator=gen, device=TRAIN_DEVICE), E * C + 1)
+    yield ("MoE combine", Pc, h, torch.randn((T, D), generator=gen, device=TRAIN_DEVICE),
+           E * C + 1, False)
     del x, h, Pd, Pc
-    B = to_bsr(block, device=TRAIN_DEVICE)
+    Ps = step_combine(cfg)
+    hs = torch.randn((E * C + 1, D), generator=gen, device=TRAIN_DEVICE).to(Ps.blocks.dtype)
+    yield ("MoE step combine", Ps, hs.float(),
+           torch.randn((T, D), generator=gen, device=TRAIN_DEVICE), E * C + 1, False)
+    del Ps, hs
     rng = np.random.default_rng(6)
     n = block.shape[0]
     Xb, dYb = (torch.from_numpy(rng.standard_normal((n, BLOCK_NF)).astype(np.float32))
                .to(TRAIN_DEVICE) for _ in range(2))
-    blk = backward_pair("block bs32", B, Xb, dYb, n)
-    del B, Xb, dYb
+    yield "block bs32", to_bsr(block, device=TRAIN_DEVICE), Xb, dYb, n, False
+
+
+def forward_line(label: str, P, X) -> dict:
+    """Phase 15a's line for the forward ``bsr_spmm`` on a MoE case's
+    operands (phase 12d's, with the bound at ``TF32X3_FLOPS`` as the
+    backward's): its blocks, the rows of X its real blocks name, bcols and
+    Y written whole."""
+    import torch
+
+    from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_path, bsr_spmm_plain
+
+    bcols, blocks, bs, nf = P.bcols, P.blocks, P.bs, X.shape[1]
+    valid = (bcols >= 0) & (bcols < -(-X.shape[0] // bs))
+    real = int(valid.sum())
+    read_rows = min(int(torch.unique(bcols[valid]).numel()) * bs, X.shape[0])
+    moved = (real * bs * bs * blocks.element_size() + nbytes(bcols) + read_rows * nf * 4
+             + bcols.shape[0] * bs * nf * 4)
+    with torch.no_grad():
+        return measure_model_kernel(
+            f"bsr_spmm {label} forward", lambda: bsr_spmm(bcols, blocks, X),
+            lambda: bsr_spmm_plain(bcols, blocks, X), moved, 2 * real * bs * bs * nf,
+            "bsr_spmm_", library=bsr_forward_lib(P, X), rate=TF32X3_FLOPS,
+            shape=tuple(P.shape), nf=nf, bs=bs, bwidth=bcols.shape[1],
+            block_rows=bcols.shape[0], real_blocks=real, path=bsr_spmm_path(bs, nf))
+
+
+def phase_train_kernels(results: dict, block) -> dict:
+    """Phase 15a: the backward kernels at the training step's shapes (the
+    dispatch's dX; the combine's dH and dB, randomly routed and as the
+    step routes it) and on the block matrix of phase 8 (bs 32, 128
+    columns), each by :func:`backward_pair`, and the forward at the two
+    randomly routed MoE shapes by :func:`forward_line`."""
+    import torch
+
+    fwd, back = {}, {}
+    for label, P, X, dY, ncols, dx_only in train_kernel_cases(block):
+        if label in ("MoE dispatch", "MoE combine"):
+            fwd[f"train_{label.split()[1]}"] = forward_line(f"MoE training {label.split()[1]}",
+                                                            P, X)
+        # the blocks of the MoE combine's last column: one for each dropped pick
+        extra = ({"overflow_blocks": int((P.bcols == -(-ncols // P.bs) - 1).sum())}
+                 if "combine" in label else {})
+        back[label] = backward_pair(label, P, X, dY, ncols, dX_only=dx_only, **extra)
+        del P, X, dY
     torch.cuda.empty_cache()
-    out = {"bsr_spmm_t": dict(disp["t"], train_combine=comb["t"], block=blk["t"]),
-           "bsr_sddmm": dict(comb["sddmm"], block=blk["sddmm"])}
+    disp, comb, blk = back["MoE dispatch"], back["MoE combine"], back["block bs32"]
+    step = back["MoE step combine"]
+    out = {"bsr_spmm_t": dict(disp["t"], train_combine=comb["t"], step_combine=step["t"],
+                              block=blk["t"]),
+           "bsr_sddmm": dict(comb["sddmm"], step_combine=step["sddmm"], block=blk["sddmm"]),
+           "bsr_spmm": fwd}
     results["train_kernels"] = out
     return out
 
@@ -2862,6 +2958,7 @@ def main() -> int:
     # --------------------------------------------------------------- 15
     launches_train, kern_train = phase_train(results, smi, block)
     del block
+    kern["bsr_spmm"].update(kern_train.pop("bsr_spmm"))
     kern.update(kern_train)
     lap("15 train")
 

@@ -3,8 +3,9 @@ by side, and time them in rounds that alternate their order.
 
 Used by ``examples/ell_kernel_ab.py``, ``examples/scoo_kernel_ab.py``,
 ``examples/coo_kernel_ab.py``, ``examples/scs_kernel_ab.py``,
-``examples/bsr_kernel_ab.py`` and ``examples/dia_kernel_ab.py``. The build
-prints each kernel's registers and spills as ptxas reports them. Needs a CUDA card and nvcc.
+``examples/bsr_kernel_ab.py``, ``examples/bsr_grad_kernel_ab.py`` and
+``examples/dia_kernel_ab.py``. The build prints each kernel's registers and
+spills as ptxas reports them. Needs a CUDA card and nvcc.
 """
 import ctypes
 import os

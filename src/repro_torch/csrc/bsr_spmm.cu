@@ -45,6 +45,7 @@
 
 #include <type_traits>
 
+#include "async_tf32.cuh"
 #include "common.cuh"
 
 namespace repro {
@@ -54,24 +55,6 @@ constexpr int kBsrThreads = 256;
 // The tensor-core kernel takes bs 16/32/64 at 8 columns or more; bs 8 and
 // SpMV-like widths take the CUDA-core one.
 __host__ __device__ constexpr bool tensor_cores(int bs, int64_t nf) { return bs >= 16 && nf >= 8; }
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// Copies of 16 or 4 bytes; src_bytes < size fills the rest with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Shared-memory layout of one kernel instance: S stages of a block (BS rows
 // of LDA T, padded by 16 bytes a row) and the X rows it multiplies (BS rows
@@ -185,23 +168,6 @@ __device__ __forceinline__ void walk_blocks(unsigned char* smem, Walk& walk, con
     --pending;
     take = take + 1 == L::S ? 0 : take + 1;
   }
-}
-
-__device__ __forceinline__ unsigned tf32(float v) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
-  hi = tf32(v);
-  lo = tf32(__fsub_rn(v, __uint_as_float(hi)));
-}
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Tensor cores: MT x NT tiles of 16 x 8; warp (wm, wn) of WM x WN warps owns

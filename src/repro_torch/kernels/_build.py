@@ -41,8 +41,10 @@ _SIGNATURES = {
     "repro_scoo_spmv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _P),
     "repro_bsr_spmm": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P),
     "repro_bsr_spmm_tensor_cores": (_I, _LL),
-    "repro_bsr_spmm_t": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P),
-    "repro_bsr_sddmm": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _P),
+    "repro_bsr_spmm_t_scratch": (_LL, _LL, _I, _LL),
+    "repro_bsr_spmm_t": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _LL, _I, _P),
+    "repro_bsr_sddmm_scratch": (_LL,),
+    "repro_bsr_sddmm": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _P),
     "repro_ell_spmv_listed": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P),
     "repro_dia_spmv": (_P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
     "repro_dia_spmv_listed": (_P, _P, _P, _P, _P, _LL, _P, _I, _LL, _LL, _I, _P),
@@ -64,7 +66,8 @@ class KernelLibrary:
         for name, args in _SIGNATURES.items():
             fn = getattr(self.lib, name)
             fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
+            # the *_scratch queries give a size in bytes, the rest a cudaError_t
+            fn.restype = _LL if name.endswith("_scratch") else ctypes.c_int
         self.lib.repro_error_string.argtypes = [ctypes.c_int]
         self.lib.repro_error_string.restype = ctypes.c_char_p
 

@@ -23,11 +23,25 @@ or ``blocks`` requiring grad goes through an autograd function whose
 backward runs two kernels of ``src/repro_torch/csrc/bsr_spmm_grad.cu``:
 :func:`bsr_spmm_t` (dX = A^T dY) and :func:`bsr_sddmm` (dB = dY X^T at the
 stored blocks), each with its plain version beside it and its own launch
-count. The cast of X to f32 and its alignment copy stay outside the
-function, in the graph, so the caller's X gets its gradient in its dtype;
-dB comes back in the blocks' dtype, summed in f32. Pad slots and X rows
-past ``ncols`` get zero gradients; rows outside ``row_mask`` pass none. On
-the CPU autograd runs through the plain version, as it always has.
+count. Both walk one work list, the slots sorted by block column
+(:func:`bsr_column_order`, built on the device). ``bsr_spmm_t`` is the
+forward with the roles swapped: a CTA owns a block column and a feature
+tile and walks the column's run, on the tensor cores in 3xTF32 at block
+edges 16, 32 and 64; on the CUDA cores at 8, where a run is cut in chunks
+whose partial sums a second kernel adds in chunk order. ``bsr_sddmm``
+gives each CTA a chunk of a run, stages the column's X rows once for it and
+multiplies the dY rows of its blocks against them on the tensor cores in
+3xTF32 (two 8-row blocks to one 16-row tile at bs 8). Each C entry cuts
+the runs in its chunks itself, from the list's run bounds, in a scratch
+buffer whose size it gives (``repro_bsr_spmm_t_scratch``,
+``repro_bsr_sddmm_scratch``).
+Nothing is atomic and every sum runs in a fixed order, so two launches
+give equal bits. The cast of X to f32 and its alignment copy stay outside
+the function, in the graph, so the caller's X gets its gradient in its
+dtype; dB comes back in the blocks' dtype, summed in f32. Pad slots and X
+rows past ``ncols`` get zero gradients; rows outside ``row_mask`` pass
+none. On the CPU autograd runs through the plain version, as it always
+has.
 """
 from __future__ import annotations
 
@@ -208,18 +222,40 @@ def bsr_sddmm_plain(bcols: torch.Tensor, dY: torch.Tensor, X: torch.Tensor,
     return torch.where(valid[..., None, None], dB, torch.zeros((), device=X.device))
 
 
-def _launch_spmm_t(bcols, blocks, dY, ncols, work) -> torch.Tensor:
+def _work_list(name: str, work, nslots: int, nbcols: int):
+    """``work``'s ``(order, starts)`` once their lengths fit the kernels'
+    grid: one entry a slot, ``ceil(ncols / bs) + 1`` run bounds."""
     order, starts = work
+    if order.shape != (nslots,) or starts.shape != (nbcols + 1,):
+        raise ValueError(f"{name}: a work list of {nslots} slots and {nbcols + 1} run bounds "
+                         f"(ceil(ncols / bs) + 1) expected, got {tuple(order.shape)} and "
+                         f"{tuple(starts.shape)}")
+    return order, starts
+
+
+def _scratch(lib, query: str, *args, device) -> torch.Tensor:
+    """The bytes a C entry's ``query`` asks for, uninitialised, on a
+    16-byte boundary (the allocator's blocks start on 512)."""
+    return torch.empty((getattr(lib.lib, query)(*args),), dtype=torch.uint8, device=device)
+
+
+def _launch_spmm_t(bcols, blocks, dY, ncols, work) -> torch.Tensor:
     nbrows, bwidth, bs = blocks.shape[0], blocks.shape[1], blocks.shape[-1]
+    order, starts = _work_list("bsr_spmm_t", work, nbrows * bwidth, -(-ncols // bs))
     check_cuda_operands("bsr_spmm_t", order, starts, blocks, dY)
     code = value_code("bsr_spmm_t", blocks.dtype)
-    nf = dY.shape[1]
+    if blocks.data_ptr() % 16:  # the kernel stages blocks with 16-byte copies
+        blocks = blocks.clone()
+    nf, nbcols = dY.shape[1], starts.shape[0] - 1
     dX = torch.empty((ncols, nf), dtype=torch.float32, device=dY.device)
     from ._build import library
 
-    library().call("repro_bsr_spmm_t", order.data_ptr(), starts.data_ptr(), blocks.data_ptr(),
-                   dY.data_ptr(), dX.data_ptr(), starts.shape[0] - 1, bwidth, bs, ncols, nf,
-                   code, current_stream(dY.device))
+    lib = library()
+    scratch = _scratch(lib, "repro_bsr_spmm_t_scratch", nbrows * bwidth, nbcols, bs, nf,
+                       device=dY.device)
+    lib.call("repro_bsr_spmm_t", order.data_ptr(), starts.data_ptr(), blocks.data_ptr(),
+             dY.data_ptr(), dX.data_ptr(), scratch.data_ptr(), nbrows * bwidth, nbcols, bwidth,
+             bs, ncols, nf, code, current_stream(dY.device))
     bsr_spmm_t.launches += 1
     return dX
 
@@ -247,16 +283,18 @@ bsr_spmm_t.launches = 0
 
 
 def _launch_sddmm(bcols, dY, X, bs, work) -> torch.Tensor:
-    order, _ = work
     nbrows, bwidth = bcols.shape
-    check_cuda_operands("bsr_sddmm", order, bcols, dY, X)
     ncols, nf = X.shape
+    order, starts = _work_list("bsr_sddmm", work, nbrows * bwidth, -(-ncols // bs))
+    check_cuda_operands("bsr_sddmm", order, starts, dY, X)
     dB = torch.empty((nbrows, bwidth, bs, bs), dtype=torch.float32, device=X.device)
     from ._build import library
 
-    library().call("repro_bsr_sddmm", order.data_ptr(), bcols.data_ptr(), dY.data_ptr(),
-                   X.data_ptr(), dB.data_ptr(), nbrows * bwidth, bwidth, bs, ncols, nf,
-                   current_stream(X.device))
+    lib = library()
+    scratch = _scratch(lib, "repro_bsr_sddmm_scratch", starts.shape[0] - 1, device=X.device)
+    lib.call("repro_bsr_sddmm", order.data_ptr(), starts.data_ptr(), dY.data_ptr(),
+             X.data_ptr(), dB.data_ptr(), scratch.data_ptr(), nbrows * bwidth, bwidth, bs,
+             ncols, nf, current_stream(X.device))
     bsr_sddmm.launches += 1
     return dB
 

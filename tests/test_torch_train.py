@@ -17,6 +17,7 @@ again) and 'dots' give the gradients of no remat.
 """
 import dataclasses
 import functools
+import importlib
 import os
 import subprocess
 import sys
@@ -181,7 +182,7 @@ def card_rules(monkeypatch):
     """``bsr_spmm`` and its backward wrappers take the card's branch on
     host tensors, each launch standing in for its kernel with the plain
     version, so the autograd function's plumbing runs here."""
-    mod = sys.modules["repro_torch.kernels.bsr_spmm"]
+    mod = importlib.import_module("repro_torch.kernels.bsr_spmm")
     calls = {"spmm": 0, "t": 0, "sddmm": 0}
 
     def count(name, fn):
@@ -250,6 +251,33 @@ def test_bsr_lane_router_gradient_through_the_function(card_rules):
     for a, b in zip(*grads):
         assert float(a.abs().max()) > 0
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("case", ["pads_and_ids_past_the_end", "long_runs", "empty_columns"])
+def test_backward_work_list_matches_numpy(case):
+    """The work list both backward kernels walk: the flat slots sorted
+    stably by block column, pads (id < 0 or >= nbcols) last, each column's
+    run bounds, against a numpy construction; the kernels' wrappers take
+    it only at the lengths their grids need."""
+    mod = importlib.import_module("repro_torch.kernels.bsr_spmm")
+    rng = np.random.default_rng(3)
+    if case == "pads_and_ids_past_the_end":
+        nbcols, bcols = 5, rng.integers(-2, 8, (9, 4))
+    elif case == "long_runs":
+        nbcols, bcols = 2, np.tile([[0, 1]], (150, 1))
+    else:
+        nbcols, bcols = 8, np.array([[r, -1] for r in range(5)])
+    order, starts = mod.bsr_column_order(torch.from_numpy(bcols.astype(np.int32)), nbcols)
+    assert order.dtype == torch.int32 and starts.dtype == torch.int32
+    keys = bcols.reshape(-1)
+    keys = np.where((keys >= 0) & (keys < nbcols), keys, nbcols)
+    np.testing.assert_array_equal(order.numpy(), np.argsort(keys, kind="stable"))
+    np.testing.assert_array_equal(starts.numpy(),
+                                  np.searchsorted(np.sort(keys), np.arange(nbcols + 1)))
+    assert mod._work_list("bsr_sddmm", (order, starts), bcols.size, nbcols)[1] is starts
+    for nslots, nb in ((bcols.size, nbcols + 1), (bcols.size + 1, nbcols)):
+        with pytest.raises(ValueError, match="work list of"):
+            mod._work_list("bsr_sddmm", (order, starts), nslots, nb)
 
 
 def test_no_grad_guard_names_the_kernel():

@@ -45,7 +45,7 @@ def cuda():
 
 
 def _close(got, want, tol=KERNEL_TOL):
-    got, want = got.double().cpu(), want.double().cpu()
+    got, want = got.double(), want.double().to(got.device)
     assert torch.isfinite(got).all()
     atol = tol * max(float(want.abs().max()), 1e-30)
     err = (got - want).abs()
@@ -67,6 +67,78 @@ def _bsr_case(bs, dtype, nf, device, seed=0, nbrows=6, bwidth=3):
     return [t.to(device) for t in (bcols, blocks, X, dY, mask)]
 
 
+def _blocks_of(A, bs, dtype):
+    """``(bcols, blocks)`` of a dense ``(nbrows * bs, ncols)`` matrix: each
+    block row's nonzero blocks in ascending column, padded with -1."""
+    nbrows, nbcols = A.shape[0] // bs, -(-A.shape[1] // bs)
+    Ap = torch.zeros((nbrows * bs, nbcols * bs))
+    Ap[:, :A.shape[1]] = A
+    tiles = Ap.reshape(nbrows, bs, nbcols, bs).permute(0, 2, 1, 3)
+    cols = [torch.nonzero(tiles[r].abs().sum((1, 2))).flatten() for r in range(nbrows)]
+    bwidth = max(1, max(len(c) for c in cols))
+    bcols = torch.full((nbrows, bwidth), -1, dtype=torch.int32)
+    blocks = torch.zeros((nbrows, bwidth, bs, bs))
+    for r, c in enumerate(cols):
+        bcols[r, :len(c)] = c.int()
+        blocks[r, :len(c)] = tiles[r, c]
+    return bcols, blocks.to(dtype)
+
+
+def _layout_case(layout, bs, dtype, nf, device, seed=0):
+    """:func:`_bsr_case`'s arrays, or a layout that walks the kernels' edges:
+    ``long_runs``, two block columns of 80 blocks each (longer than a staged
+    batch or chunk, as the MoE dispatch's runs of ~64); ``overflow_column``,
+    most slots of every block row in the last, ragged column (a run of 266,
+    many chunks, beside runs of 8: the MoE combine's column of dropped
+    picks); ``many_columns``, 1,100 block columns, more than the 1,024 the
+    C entries' chunk prefix scans at a time, with a run of 80 in column
+    1,090; ``single_runs``, a
+    run of one block in each of the first five columns and three empty ones
+    (the last ragged); ``one_hot``, at most one entry a row, ones (the
+    dispatch's kind); ``unaligned``, :func:`_bsr_case` with dY and X one
+    float off a 16-byte boundary."""
+    if layout in ("random", "unaligned"):
+        case = _bsr_case(bs, dtype, nf, device, seed)
+        if layout == "unaligned":
+            for i in (2, 3):
+                buf = torch.empty(case[i].numel() + 1, device=device)
+                case[i] = buf[1:].view(case[i].shape).copy_(case[i])
+                assert case[i].data_ptr() % 16
+        return case
+    g = torch.Generator().manual_seed(seed)
+    if layout == "long_runs":
+        nbrows, ncols = 80, 2 * bs - 1
+        bcols = torch.tensor([[0, 1]] * nbrows, dtype=torch.int32)
+        bcols[7, 1] = -1  # a pad inside the run's block rows
+        blocks = torch.randn((nbrows, 2, bs, bs), generator=g).to(dtype)
+    elif layout == "overflow_column":
+        nbrows, ncols = 40, 6 * bs - 5
+        bcols = torch.full((nbrows, 8), 5, dtype=torch.int32)
+        bcols[:, 0] = torch.arange(nbrows) % 5
+        bcols[::3, 7] = -1
+        blocks = torch.randn((nbrows, 8, bs, bs), generator=g).to(dtype)
+    elif layout == "many_columns":
+        nbrows, ncols = 80, 1100 * bs - 3
+        bcols = torch.randint(0, 1100, (nbrows, 8), generator=g).int()
+        bcols[:, 7] = 1090
+        bcols[::5, 3] = -1
+        blocks = torch.randn((nbrows, 8, bs, bs), generator=g).to(dtype)
+    elif layout == "single_runs":
+        nbrows, ncols = 5, 8 * bs - 3
+        bcols = torch.tensor([[r, -1] for r in range(nbrows)], dtype=torch.int32)
+        blocks = torch.randn((nbrows, 2, bs, bs), generator=g).to(dtype)
+    else:  # one_hot
+        nbrows, ncols = 12, 10 * bs - 5
+        A = torch.zeros((nbrows * bs, ncols))
+        rows = torch.nonzero(torch.rand(nbrows * bs, generator=g) < 0.8).flatten()
+        A[rows, torch.randint(0, ncols, (len(rows),), generator=g)] = 1.0
+        bcols, blocks = _blocks_of(A, bs, dtype)
+    X = torch.randn((ncols, nf), generator=g)
+    dY = torch.randn((nbrows * bs, nf), generator=g)
+    mask = torch.rand((nbrows * bs,), generator=g) < 0.5
+    return [t.to(device) for t in (bcols, blocks, X, dY, mask)]
+
+
 def _autograd_plain(bcols, blocks, X, dY, mask):
     """dX and dB by autograd through ``bsr_spmm_plain`` (f32 blocks, so dB
     is not rounded to the blocks' dtype)."""
@@ -76,15 +148,18 @@ def _autograd_plain(bcols, blocks, X, dY, mask):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nf", [1, 8, 128, 4096])
+@pytest.mark.parametrize("layout", ["random", "long_runs", "overflow_column", "many_columns",
+                                    "single_runs", "one_hot", "unaligned"])
+@pytest.mark.parametrize("nf", [1, 8, 128, 131, 4096])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("bs", [8, 16, 32, 64])
-def test_backward_kernels_match_plain_and_repeat(cuda, bs, dtype, nf):
+def test_backward_kernels_match_plain_and_repeat(cuda, bs, dtype, nf, layout):
     """Each kernel against its plain version and against autograd through
     ``bsr_spmm_plain`` (the row mask applied to dY, as the autograd
     function does), with pads, ids past the last column and a ragged last
-    column; two launches give equal bits."""
-    bcols, blocks, X, dY, mask = _bsr_case(bs, dtype, nf, cuda)
+    column, on each layout of :func:`_layout_case` (nf 1 and 131 leave a
+    tail short of 16 bytes); two launches give equal bits."""
+    bcols, blocks, X, dY, mask = _layout_case(layout, bs, dtype, nf, cuda)
     ncols = X.shape[0]
     t0, s0 = bsr_spmm_t.launches, bsr_sddmm.launches
     dX = bsr_spmm_t(bcols, blocks, dY, ncols)
