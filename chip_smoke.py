@@ -93,9 +93,9 @@ Phases, one or more lines each, each ending with its seconds:
      runs each counted on its own: **hot** (one banded tenant, 512 requests
      flushed every 64 through ``ServeEngine(capacity=8, max_batch=32,
      tune_mode="predict")``: one admission, 16 coalesced tiles of 32),
-     **churn** (16 tenants of the four archetypes against 8 slots, 72
+     **churn** (16 tenants of the four archetypes against 8 slots, 68
      requests, cut from 128: a window of 64 admits each tenant once and one
-     of 8 brings evicted tenants back, re-tuned; then one admission of a
+     of 4 brings evicted tenants back, re-tuned; then one admission of a
      tenant of each predicted key timed by stage), **dynamic** (``mutable``
      on the hot tenant, 1% of its rows
      gain an entry off its band, ``ov @ x`` against the merged matrix in f64,
@@ -204,7 +204,20 @@ Phases, one or more lines each, each ending with its seconds:
      --dispatch-impl bsr --steps 12 --ckpt-every 4``, the ``Trainer``'s
      run with a failure at step 10 against the run without one (steps 8,
      9, 11 within 1e-6; the CLI's final loss the clean run's), and
-     ``examples/train_lm_torch.py --quick --inject-failure``.
+     ``examples/train_lm_torch.py --quick --inject-failure``;
+ 16. the roofline, the dry run and the compressed all-reduce: (a) for each
+     LM cell of phases 12-15, at that phase's own depth and shape, the
+     analytic bound of ``repro_torch.roofline`` (the reference's
+     per-device model over the card's peaks, chips 1: t_compute, t_memory,
+     the bottleneck) beside the p50 the phase measured (no new timing);
+     (b) ``CompressedAllReduce`` over ``PartMesh.on("cuda", parts=4)``,
+     chunk 256, 2^28 f32 a part from a seeded generator: the mean within
+     rel 0.05 of the true mean, 0 < max|err| < 0.05 max|v|, two calls equal
+     in bits, at 2^20 the card within one quantisation step of the host;
+     ms by events, the bytes it must move against 3.35 TB/s, peak memory;
+     (c) ``launch.dryrun.build_cell`` on the ``meta`` device for
+     qwen3-moe-235b-a22b train_4k and deepseek-v2-236b decode_32k on the
+     single-pod mesh (status, bottleneck, the terms, counted/analytic).
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
@@ -230,15 +243,17 @@ from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS = os.path.join(ROOT, "tests", "fixtures", "corpus")
+if os.path.join(ROOT, "src") not in sys.path:
+    sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32 outside the
-#: tensor cores — the roofline of a CUDA-core f32 SpMV.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-#: f32 products on the tensor cores at f32 accuracy: a 3xTF32 split takes
-#: three passes at the dense TF32 peak of 495 TFLOP/s (one pass misses rtol
-#: 2e-4). The fastest rate at which the card meets ``bsr_spmm``'s tolerance.
-TF32X3_FLOPS = 495e12 / 3
+#: H100 SXM peaks (NVIDIA data sheet, 700 W), from the port's one roofline
+#: model: HBM3 bandwidth and f32 outside the tensor cores (the roofline of a
+#: CUDA-core f32 SpMV), and f32 products on the tensor cores at f32 accuracy
+#: (a 3xTF32 split: three passes at the dense TF32 peak of 495 TFLOP/s; one
+#: pass misses rtol 2e-4), the fastest rate at which the card meets
+#: ``bsr_spmm``'s tolerance.
+from repro_torch.roofline import F32_FLOPS, TF32X3_FLOPS  # noqa: E402
+from repro_torch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 
 #: HPCG's default local grid (the ``hpcg.dat`` of the reference distribution).
 GRID = 104
@@ -315,13 +330,14 @@ BLOCK_NF = 128
 SERVE_N = 1 << 20
 SERVE_CAPACITY, SERVE_MAX_BATCH, SERVE_FLUSH_EVERY = 8, 32, 64
 SERVE_CHURN_TENANTS = 16
-SERVE_REQUESTS = {"hot": 512, "churn": 72}
-#: Why churn sends 72 requests, not 128: a window of 64 admits each of the
-#: 16 tenants once, and a second window of 8 brings 5 evicted tenants back
-#: (24 admissions: 21 misses, 3 hits); 128 requests make 32 admissions and
-#: took 261.8 s (NVIDIA H100 80GB HBM3, 700.00 W).
-SERVE_CHURN_CUT = ("churn requests cut 128 -> 72 (a window of 64 and one of 8: "
-                   "24 admissions with 5 readmissions, not 32)")
+SERVE_REQUESTS = {"hot": 512, "churn": 68}
+#: Why churn sends 68 requests, not 128: a window of 64 admits each of the
+#: 16 tenants once, and a second window of 4 brings evicted tenants back
+#: (20 admissions: 18 misses, 2 of them re-tunes, and 2 hits); 128 requests
+#: make 32 admissions and took 261.8 s, and 72 (24 admissions) left the
+#: whole smoke at 1162.6 s of its 1200 (NVIDIA H100 80GB HBM3, 700.00 W).
+SERVE_CHURN_CUT = ("churn requests cut 128 -> 68 (a window of 64 and one of 4: "
+                   "20 admissions with 2 re-tuned readmissions, not 32)")
 SERVE_REPLAY_N = 4096
 SMALL_TENANT = 8192
 #: The summary fields a serving phase prints (``launch/serve.py``'s, and the
@@ -427,6 +443,18 @@ TRAIN_DEVICE = "cuda"
 TRAIN_GRAD_REL_L2 = 1e-2
 #: Phase 15c: the launcher's smoke run and the trainer's restart.
 TRAIN_CLI_STEPS, TRAIN_FAIL_AT = 12, 10
+
+#: Phase 16b: the int8 compressed all-reduce over four parts of the card,
+#: each part's vector 2^28 f32 (1 GiB): a fifth of llama3.2-1b's 1.24 G
+#: gradient, cut by the card's 80 GB (four parts' vectors, residuals and
+#: outputs all live on one card); chunk 256, vectors from a seeded
+#: generator, checked at the reference test's bounds and, at
+#: ``ALLREDUCE_CHECK_N``, against the same call on host tensors.
+ALLREDUCE_PARTS, ALLREDUCE_N, ALLREDUCE_CHUNK = 4, 1 << 28, 256
+ALLREDUCE_CHECK_N = 1 << 20
+ALLREDUCE_REL, ALLREDUCE_ERR_OF_MAX = 0.05, 0.05
+#: Phase 16c: two cells of the dry run on the ``meta`` device.
+DRYRUN_CELLS = (("qwen3-moe-235b-a22b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
 
 TUNER_MATRICES = (("banded(10**6, 4)", "banded", (10 ** 6, 4)),
                   ("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),
@@ -2795,6 +2823,129 @@ def train_cli(results: dict) -> None:
         cli_final=repr(cli_final[0]), example_s=example_s, example=repr(summary))
 
 
+def roofline_cells():
+    """Phase 16a's cells: each LM cell the smoke runs, at that phase's own
+    config (its cut depth) and shape, with the result key and field of its
+    measured p50 (phases 12-14: a decode step of batch 4 against a cache of
+    prompt + gen; phase 15: a train step of batch 8 x seq 128)."""
+    from repro_torch.configs import ShapeCell, get_config
+
+    cache = MODEL_SERVE["prompt_len"] + MODEL_SERVE["gen"]
+    out = []
+    for n, cell in MODEL_CELLS.items():
+        cfg = get_config(cell.arch).replace(n_layers=cell.layers)
+        out.append((n, cell.key, "ms_token_p50", cfg,
+                    ShapeCell("decode", cache, MODEL_SERVE["batch"], "decode")))
+    out.append((15, "train", "step_ms_p50", train_config(),
+                ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train")))
+    return out
+
+
+def phase_roofline(results: dict, smi: str) -> None:
+    """Phase 16a: the analytic bound (``repro_torch.roofline``: the
+    reference's per-device model over the card's peaks, chips=1) of each LM
+    cell phases 12-15 ran, against the p50 those phases measured (no new
+    timing). A decode reads every parameter in bf16, as the reference's
+    model counts it."""
+    from repro_torch.roofline import analysis, analytic
+
+    rows = {}
+    for n, key, field, cfg, shape in roofline_cells():
+        acost = analytic.cost(cfg, shape, 1)
+        rl = analysis.analyze(analysis.Counts(collectives=None), analytic=acost)
+        p50 = results[key][field]
+        rows[key] = phase(
+            f"roofline {n} {key}", smi=repr(smi), arch=cfg.name, layers=cfg.n_layers,
+            kind=shape.kind, batch=shape.global_batch, seq=shape.seq_len,
+            flops=acost.flops_per_device, hbm_bytes=acost.hbm_bytes_per_device,
+            t_compute_ms=rl.t_compute * 1e3, t_memory_ms=rl.t_memory * 1e3,
+            bottleneck=rl.bottleneck, t_bound_ms=rl.t_bound * 1e3, p50_ms=p50,
+            p50_over_bound=p50 / (rl.t_bound * 1e3))
+    results["roofline"] = rows
+
+
+def phase_allreduce(results: dict, smi: str) -> None:
+    """Phase 16b: ``CompressedAllReduce`` on ``PartMesh.on("cuda",
+    parts=4)``, chunk 256, 2^28 f32 a part: the mean within rel 0.05 of
+    the true mean, 0 < max|err| < 0.05 max|v|, equal bits over two calls,
+    and at 2^20 the card within one quantisation step of the host; ms by
+    events, the bytes it must move (four vectors and residuals read, the
+    mean and four residuals written) against 3.35 TB/s, peak memory."""
+    import torch
+
+    from repro_torch.core import PartMesh
+    from repro_torch.distributed.compression import CompressedAllReduce
+
+    P, n = ALLREDUCE_PARTS, ALLREDUCE_N
+    car = CompressedAllReduce(PartMesh.on("cuda", parts=P), chunk=ALLREDUCE_CHUNK)
+    check(car.padded_len(n) == n, "allreduce: the vector length needs no padding")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # the card against the host at a size the host checks quickly
+    m = ALLREDUCE_CHECK_N
+    small = torch.randn((P, m), generator=gen, device="cuda")
+    host = CompressedAllReduce(PartMesh.on("cpu", parts=P), chunk=ALLREDUCE_CHUNK)
+    m_h, e_h = host(small.cpu(), host.init_error(m))
+    m_d, e_d = car(small, car.init_error(m))
+    dm = float((m_d.cpu() - m_h).abs().max())
+    de = float((e_d.cpu() - e_h).abs().max())
+    step_m, step_e = float(m_h.abs().max()) / 127, float(small.abs().max()) / 127
+    check(dm <= step_m and de <= step_e,
+          f"allreduce: card vs host {dm}, {de} past one quantisation step {step_m}, {step_e}")
+    del small, m_d, e_d
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vec = torch.randn((P, n), generator=gen, device="cuda")
+    err0 = car.init_error(n)
+    mean, err = car(vec, err0)
+    torch.cuda.synchronize()
+    true = vec.mean(dim=0)
+    rel = float((mean - true).abs().max() / true.abs().max())
+    err_max, v_max = float(err.abs().max()), float(vec.abs().max())
+    mean2, err2 = car(vec, err0)
+    same = bool(torch.equal(mean, mean2) and torch.equal(err, err2))
+    del mean2, err2, true
+    check(rel < ALLREDUCE_REL, f"allreduce: mean rel {rel} >= {ALLREDUCE_REL}")
+    check(0 < err_max < ALLREDUCE_ERR_OF_MAX * v_max,
+          f"allreduce: max|err| {err_max} outside (0, {ALLREDUCE_ERR_OF_MAX} max|v| = "
+          f"{ALLREDUCE_ERR_OF_MAX * v_max})")
+    check(same, "allreduce: two calls differ in bits")
+    del mean, err
+    ms = cuda_ms(lambda: car(vec, err0), reps=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    moved = 4 * n * (2 * P + 1 + P)
+    results["allreduce"] = phase(
+        "allreduce int8", smi=repr(smi), parts=P, n_per_part=n, chunk=ALLREDUCE_CHUNK,
+        reduced="2^28 f32 a part, a fifth of llama3.2-1b's gradient (the card's 80 GB)",
+        mean_rel_err=rel, max_err=err_max, max_v=v_max, repeat_bits=same,
+        card_vs_host_mean=dm, card_vs_host_err=de, ms=ms, bytes_moved=moved,
+        bound_ms=moved / HBM_BYTES_PER_S * 1e3, wire_bytes_per_part=2 * n,
+        peak_memory_gb=peak / 1e9)
+    del vec, err0
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(results: dict) -> None:
+    """Phase 16c: ``repro_torch.launch.dryrun.build_cell`` on the ``meta``
+    device for two cells on the single-pod mesh."""
+    from repro_torch.launch.dryrun import build_cell
+
+    rows = {}
+    for arch, shape in DRYRUN_CELLS:
+        out = build_cell(arch, shape, multi_pod=False)
+        check(out["status"] == "OK", f"dryrun {arch} {shape}: {out['status']}")
+        r = out["roofline"]
+        rows[f"{arch}|{shape}"] = phase(
+            f"dryrun {arch} {shape}", status=out["status"], chips=out["chips"],
+            bottleneck=r["bottleneck"], t_compute_s=r["t_compute_s"],
+            t_memory_s=r["t_memory_s"], t_collective_s=r["t_collective_s"],
+            counted_over_analytic_flops=out["counted_over_analytic_flops"],
+            argument_gb_per_device=out["memory_analysis"]["argument_size_in_bytes"] / 1e9,
+            trace_s=out["lower_s"], traced=json.dumps(out["traced"]))
+    results["dryrun"] = rows
+
+
 def phase_train(results: dict, smi: str, block) -> tuple:
     """Phase 15: (a) the backward kernels at the training shapes, (b) the
     full-width training step, (c) the CLI and the trainer's restart at
@@ -2815,7 +2966,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
     from repro_torch.apps.hpcg import run_hpcg
@@ -2961,6 +3111,12 @@ def main() -> int:
     kern["bsr_spmm"].update(kern_train.pop("bsr_spmm"))
     kern.update(kern_train)
     lap("15 train")
+
+    # --------------------------------------------------------------- 16
+    phase_roofline(results, smi)
+    phase_allreduce(results, smi)
+    phase_dryrun(results)
+    lap("16 roofline")
 
     by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled,
                "tuner": launches_tuner, "corpus": launches_corpus, "scoo": launches_scoo,

@@ -1,9 +1,11 @@
 """Model-side distribution: the logical-axis sharding rules the models read
-(``sharding``). Gradient compression waits for the training slice."""
+(``sharding``) and the int8 compressed all-reduce with error feedback over a
+``PartMesh`` (``compression``)."""
+from .compression import CompressedAllReduce, int8_psum_mean
 from .sharding import (DEFAULT_RULES, PARAM_AXES_RULES, axes_for_path, current_mesh,
                        logical_constraint, param_paths, params_pspecs, sharding_context,
                        spec_for)
 
-__all__ = ["DEFAULT_RULES", "PARAM_AXES_RULES", "axes_for_path", "current_mesh",
-           "logical_constraint", "param_paths", "params_pspecs", "sharding_context",
-           "spec_for"]
+__all__ = ["CompressedAllReduce", "DEFAULT_RULES", "PARAM_AXES_RULES", "axes_for_path",
+           "current_mesh", "int8_psum_mean", "logical_constraint", "param_paths",
+           "params_pspecs", "sharding_context", "spec_for"]

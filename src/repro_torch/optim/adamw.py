@@ -114,13 +114,14 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
         for p, g, m, v, mp in zip(flat_p, flat_g, flat_m, flat_v, flat_mp):
             pf, gf, mf, vf = _flat(p), g.reshape(-1), _flat(m), _flat(v)
             mpf = _flat(mp) if mp is not None else None
+            own = mpf is None and p.dtype is torch.float32  # the parameter is its master
             for lo in range(0, pf.numel(), CHUNK):
                 sl = slice(lo, lo + CHUNK)
                 # mp: the f32 master (the parameter itself when it is f32
                 # and no master is kept)
                 if mpf is not None:
                     mpc = mpf[sl]
-                elif p.dtype is torch.float32:
+                elif own:
                     mpc = pf[sl]
                 else:
                     mpc = pf[sl].to(torch.float32)
@@ -134,7 +135,7 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
                 d.div_(torch.div(vc, b2c, out=gc).sqrt_().add_(cfg.eps))
                 d.add_(torch.mul(mpc, cfg.weight_decay, out=t))
                 mpc.sub_(d.mul_(lr))
-                if mpc.data_ptr() != pf[sl].data_ptr():
+                if not own:
                     pf[sl].copy_(mpc)
         return params, AdamWState(step, state.m, state.v, state.master), \
             {"grad_norm": gnorm, "lr": lr}
