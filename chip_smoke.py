@@ -217,12 +217,26 @@ Phases, one or more lines each, each ending with its seconds:
      ms by events, the bytes it must move against 3.35 TB/s, peak memory;
      (c) ``launch.dryrun.build_cell`` on the ``meta`` device for
      qwen3-moe-235b-a22b train_4k and deepseek-v2-236b decode_32k on the
-     single-pod mesh (status, bottleneck, the terms, counted/analytic).
+     single-pod mesh (status, bottleneck, the terms, counted/analytic, and
+     the collective term: counts and bytes by kind, traced on the 256-rank
+     ``DeviceMesh`` of torch's ``"fake"`` group, priced at NVLink's 450 GB/s);
+ 17. the model's sharding on the card: the ``Trainer`` on the ``--mesh
+     local`` ``DeviceMesh`` (NCCL, one rank a card: (1, 1) for this lone
+     process), phase 15b's model (full width, 1 layer, the 'bsr' lane under
+     ``use_backend("cuda")``), batch and seed for ``SHARDED_STEPS`` steps,
+     every parameter and AdamW moment a DTensor; each step's loss and
+     grad_norm equal phase 15b's in bits (every mesh axis is 1), counted
+     as the ``train_sharded`` path (``bsr_spmm``, ``bsr_spmm_t`` and
+     ``bsr_sddmm`` launched from the MoE's ``local_map`` region); step ms
+     (the first carries DTensor's sharding propagation, so the p50 is of
+     the later steps) and peak memory beside 15b's; then a ``save`` and
+     ``restore_sharded`` round trip of a Trainer's sharded state at smoke
+     size on the same mesh (equal bits, the same placements).
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
 ``launches_<path>`` gives every path's count (``train``: phase 15b's
-steps), and ``dia_spmv``'s
+steps; ``train_sharded``: phase 17's), and ``dia_spmv``'s
 ``launches_split`` its launches on the HPCG paths by level, masked or not,
 ``g^3/4`` for a part of a level on the distributed paths); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -299,8 +313,9 @@ REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve", "dis
                "ell_spmv_tiled": ("hpcg",),
                "coo_spmv": ("hpcg", "serve", "dist_pairs", "model"),
                "scoo_spmv_tiled": ("hpcg",), "scoo_spmv": ("scoo",),
-               "bsr_spmm": ("block", "model", "train"), "bsr_spmm_t": ("train",),
-               "bsr_sddmm": ("train",)}
+               "bsr_spmm": ("block", "model", "train", "train_sharded"),
+               "bsr_spmm_t": ("train", "train_sharded"),
+               "bsr_sddmm": ("train", "train_sharded")}
 
 #: What a kernel's entry in the JSON line carries beyond the contract's keys:
 #: its other shapes (``bsr_spmm``'s SpMM and masked forms, ``scs_spmv`` off
@@ -455,6 +470,10 @@ ALLREDUCE_CHECK_N = 1 << 20
 ALLREDUCE_REL, ALLREDUCE_ERR_OF_MAX = 0.05, 0.05
 #: Phase 16c: two cells of the dry run on the ``meta`` device.
 DRYRUN_CELLS = (("qwen3-moe-235b-a22b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
+#: Phase 17: the sharded Trainer's steps (phase 15b's first ones), and the
+#: smoke-size round trip's: the full-width state (59.7 GB) would take
+#: minutes to write and read back, past the smoke's time limit.
+SHARDED_STEPS = 2
 
 TUNER_MATRICES = (("banded(10**6, 4)", "banded", (10 ** 6, 4)),
                   ("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),
@@ -2712,6 +2731,7 @@ def train_full_width(results: dict, smi: str) -> dict:
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
         params=n_params, allocated_before_gb=before_gb, init_s=init_s, steps=TRAIN_STEPS,
         losses=json.dumps([h["loss"] for h in hist]),
+        grad_norms=json.dumps([h["grad_norm"] for h in hist]),
         step_ms=json.dumps([round(h["ms"], 3) for h in hist]), step_ms_p50=p50,
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3), peak_memory_gb=peak / 1e9,
         launches_per_step=json.dumps({k: launches[k] / TRAIN_STEPS for k in
@@ -2928,22 +2948,138 @@ def phase_allreduce(results: dict, smi: str) -> None:
 
 def phase_dryrun(results: dict) -> None:
     """Phase 16c: ``repro_torch.launch.dryrun.build_cell`` on the ``meta``
-    device for two cells on the single-pod mesh."""
+    device for two cells on the single-pod mesh, each with a collective
+    term (host work on ``meta`` over the fake group: nothing is sent)."""
     from repro_torch.launch.dryrun import build_cell
 
     rows = {}
     for arch, shape in DRYRUN_CELLS:
         out = build_cell(arch, shape, multi_pod=False)
         check(out["status"] == "OK", f"dryrun {arch} {shape}: {out['status']}")
+        check((out["roofline"]["t_collective_s"] or 0) > 0,
+              f"dryrun {arch} {shape}: no collective term")
         r = out["roofline"]
         rows[f"{arch}|{shape}"] = phase(
             f"dryrun {arch} {shape}", status=out["status"], chips=out["chips"],
             bottleneck=r["bottleneck"], t_compute_s=r["t_compute_s"],
             t_memory_s=r["t_memory_s"], t_collective_s=r["t_collective_s"],
+            collective_bytes_by_kind=json.dumps(r["collective_bytes_by_kind"]),
+            collective_counts=json.dumps(r["collective_counts"]),
             counted_over_analytic_flops=out["counted_over_analytic_flops"],
             argument_gb_per_device=out["memory_analysis"]["argument_size_in_bytes"] / 1e9,
             trace_s=out["lower_s"], traced=json.dumps(out["traced"]))
     results["dryrun"] = rows
+
+
+def phase_train_sharded(results: dict, smi: str) -> dict:
+    """Phase 17: the ``Trainer`` on ``launch.train``'s ``--mesh local``
+    ``DeviceMesh`` (NCCL; a lone process is a world of one, (1, 1) over
+    ``("data", "model")``), phase 15b's model, batch and seed, on the 'bsr'
+    lane under ``use_backend("cuda")``: its losses and grad_norms equal
+    15b's first steps in bits, every leaf of its state a DTensor, the
+    backward kernels launched from the sharded path; then the smoke-size
+    round trip (:func:`sharded_round_trip`). The process group is torn
+    down at the end. Returns the path's launches."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core import use_backend
+    from repro_torch.launch.train import train_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    base = results["train"]
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    mesh = train_mesh("local", "cuda")
+    try:
+        cfg = train_config()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, TrainerConfig(n_steps=SHARDED_STEPS, global_batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ, seed=0, log_every=100),
+                     adamw.AdamWConfig(total_steps=TRAIN_STEPS), mesh=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params, opt = tr.state
+        check(all(isinstance(t, DTensor) for t in leaves((params, opt.m, opt.v))),
+              "train sharded: a parameter or moment is not a DTensor")
+        del params, opt
+        placements = sorted({str(t.placements) for t in leaves(tr.state[0])})
+
+        def steps():
+            with use_backend("cuda"):
+                return tr.train()
+
+        hist, launches, _ = counted("train_sharded", steps)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in hist]
+        gnorms = [h["grad_norm"] for h in hist]
+        want_l = json.loads(base["losses"])[:SHARDED_STEPS]
+        want_g = json.loads(base["grad_norms"])[:SHARDED_STEPS]
+        check(losses == want_l and gnorms == want_g,
+              f"train sharded: losses {losses} / grad_norms {gnorms} are not the unsharded "
+              f"step's bits {want_l} / {want_g}")
+        for name in ("bsr_spmm", "bsr_spmm_t", "bsr_sddmm"):
+            check(launches[name] > 0, f"{name} was not launched on the sharded train path")
+        ms = [h["time_s"] * 1e3 for h in hist]
+        del tr, hist
+        torch.cuda.empty_cache()
+        rt = sharded_round_trip(mesh)
+    finally:
+        dist.destroy_process_group()
+    results["train_sharded"] = phase(
+        "train sharded", smi=repr(smi), mesh=repr(mesh), arch=cfg.name, layers=cfg.n_layers,
+        dispatch_impl=cfg.moe.dispatch_impl, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=SHARDED_STEPS, placements=json.dumps(placements),
+        allocated_before_gb=before_gb, init_s=init_s, losses=json.dumps(losses),
+        grad_norms=json.dumps(gnorms), bits_equal_unsharded=True,
+        step_ms=json.dumps([round(m, 3) for m in ms]),
+        step_ms_warm_p50=sorted(ms[1:])[len(ms[1:]) // 2],
+        unsharded_step_ms_p50=base["step_ms_p50"],
+        peak_memory_gb=peak / 1e9, unsharded_peak_memory_gb=base["peak_memory_gb"],
+        launches=json.dumps({k: launches[k] for k in ("bsr_spmm", "bsr_spmm_t", "bsr_sddmm")}),
+        **rt)
+    return launches
+
+
+def sharded_round_trip(mesh) -> dict:
+    """A ``Trainer`` at smoke size on ``mesh`` trains two steps and saves
+    (every rank gathers, rank 0 writes); ``Trainer.restore`` puts the
+    checkpoint back with ``restore_sharded``: every leaf equal in bits and
+    in its placements to the live state's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import use_backend
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        t0 = time.perf_counter()
+        tr = Trainer(train_config(smoke=True),
+                     TrainerConfig(n_steps=2, global_batch=TRAIN_BATCH, seq_len=32,
+                                   ckpt_dir=tmp, checkpoint_every=100, log_every=100),
+                     adamw.AdamWConfig(total_steps=2), mesh=mesh)
+        with use_backend("cuda"):
+            tr.train()
+        live = leaves(tr.state)
+        (params, opt), step = tr.restore()
+        back = leaves((params, opt))
+        same = len(live) == len(back) and all(
+            str(a.placements) == str(b.placements) and torch.equal(a.to_local(), b.to_local())
+            if hasattr(a, "placements") else torch.equal(a, b) for a, b in zip(live, back))
+        check(step == 2 and same, f"train sharded: restore_sharded gave other bits (step {step})")
+        return {"round_trip_leaves": len(back), "round_trip_equal": same,
+                "round_trip_s": round(time.perf_counter() - t0, 2)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_train(results: dict, smi: str, block) -> tuple:
@@ -3118,11 +3254,16 @@ def main() -> int:
     phase_dryrun(results)
     lap("16 roofline")
 
+    # --------------------------------------------------------------- 17
+    launches_sharded = phase_train_sharded(results, smi)
+    lap("17 train sharded")
+
     by_path = {"hpcg": launches_hpcg, "tiled_cg": launches_tiled,
                "tuner": launches_tuner, "corpus": launches_corpus, "scoo": launches_scoo,
                "block": launches_block, "hpcg_predict": launches_pred,
                "serve": launches_serve, "dist": launches_dist, "dist_pairs": launches_pairs,
-               "model": launches_model, "train": launches_train}
+               "model": launches_model, "train": launches_train,
+               "train_sharded": launches_sharded}
     for name, paths in REQUIRED_ON.items():
         for path in paths:
             check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")

@@ -6,8 +6,12 @@ Layout:  <dir>/step_<n>/arrays.npz + manifest.json   (tmp-dir + atomic rename)
   the live tensors in place) and then writes; async_=True moves the write
   to a background thread, so training goes on during the I/O.
 - restore() returns host tensors shaped by a template; the trainer moves
-  them onto its device. ``restore_sharded`` waits with the model's
-  sharding over several cards (ROADMAP item 9).
+  them onto its device. ``restore_sharded`` puts them on the current
+  ``DeviceMesh`` with the given placements, each rank keeping its chunk:
+  elastic, a checkpoint written on one mesh shape restores onto another.
+- A DTensor leaf is saved whole: ``save`` gathers it on every rank
+  (``full_tensor()``, a collective that every rank calls) and only rank 0
+  writes.
 - keep_last trims old steps; the manifest carries step/data-state/config-hash
   so a resumed run can check that it continues the same experiment.
 
@@ -39,6 +43,10 @@ from repro_torch.tree import map_with_path
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype is torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -85,6 +93,12 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray]):
     return map_with_path(take, template)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def config_hash(cfg) -> str:
     return hashlib.sha1(repr(cfg).encode()).hexdigest()[:16]
 
@@ -100,6 +114,8 @@ class CheckpointManager:
 
     def save(self, step: int, tree, meta: Optional[dict] = None, async_: bool = False):
         flat = _flatten(tree)   # host snapshot taken synchronously (consistent)
+        if _rank() != 0:
+            return
         meta = dict(meta or {}, step=int(step), time=time.time())
         bf16 = _bf16_keys(tree)
         if bf16:
@@ -165,6 +181,22 @@ class CheckpointManager:
             flat = {k: z[k] for k in z.files}
         return _unflatten_into(template, flat)
 
-    def restore_sharded(self, template, shardings, step: Optional[int] = None):
-        raise NotImplementedError("restore_sharded: the port has no mesh yet; the model's "
-                                  "sharding over several cards is ROADMAP item 9")
+    def restore_sharded(self, template, shardings, step: Optional[int] = None, mesh=None):
+        """Elastic restore: the host tensors of :meth:`restore`, each a
+        DTensor of ``shardings[its key]`` (placements) on ``mesh`` (default
+        the ambient ``DeviceMesh``) keeping this rank's chunk, with nothing
+        sent; a key absent from ``shardings`` stays a plain tensor on the
+        mesh's device (the optimizer's step count). The mesh may have
+        another shape than the one that wrote the checkpoint."""
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.distributed.sharding import current_mesh
+
+        mesh = mesh if mesh is not None else current_mesh()
+        if mesh is None:
+            raise ValueError("restore_sharded: no DeviceMesh given or ambient")
+        host = self.restore(template, step)
+        dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+        return map_with_path(lambda k, t: t.to(dev) if k not in shardings else distribute_tensor(
+            t.to(dev), mesh, shardings[k], src_data_rank=None), host)

@@ -5,8 +5,10 @@ Counter-based RNG (numpy's Philox keyed on (seed, step)) makes every batch a
 pure function of the step index, so resuming from a checkpoint's data state
 replays the exact stream with no stored cursor files. ``batch_at`` is the
 reference's numpy code, so both packages give the same arrays bit for bit;
-``_put`` moves a batch onto the trainer's device. There is no mesh: the
-model's sharding over several cards is ROADMAP item 9.
+``_put`` moves a batch onto the trainer's device, and on a ``DeviceMesh``
+makes each entry a DTensor split along the batch over the ``batch`` rule's
+axes (the reference's ``spec_for(shape, ("batch", None, ...))``). Every
+rank makes the same batch, so each keeps its chunk and nothing is sent.
 """
 from __future__ import annotations
 
@@ -40,14 +42,11 @@ class SyntheticTokens:
     def __init__(self, vocab: int, seq_len: int, global_batch: int,
                  seed: int = 0, mesh=None, frontend: str = "none",
                  frontend_tokens: int = 0, d_model: int = 0, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("SyntheticTokens: no mesh in the port yet; the model's "
-                                      "sharding over several cards is ROADMAP item 9")
         self.vocab = vocab
         self.seq_len = seq_len
         self.global_batch = global_batch
         self.seed = seed
-        self.mesh = None
+        self.mesh = mesh
         self.frontend = frontend
         self.frontend_tokens = frontend_tokens
         self.d_model = d_model
@@ -77,8 +76,18 @@ class SyntheticTokens:
         return batch
 
     def _put(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+               for k, v in batch.items()}
+        if self.mesh is None:
+            return out
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.distributed.sharding import named_sharding
+
+        return {k: distribute_tensor(v, self.mesh, named_sharding(
+                    v.shape, ("batch",) + (None,) * (v.ndim - 1), self.mesh),
+                    src_data_rank=None)
+                for k, v in out.items()}
 
     def __iter__(self):
         return self

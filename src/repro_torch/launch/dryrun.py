@@ -13,8 +13,17 @@ a dtype and no storage, so a step at full width runs through every op of
 the port (the dispatch, the MoE lane, the chunked attention) without
 touching a device. What XLA gives the reference, the port takes from torch:
 ``memory_analysis()`` becomes the per-device bytes of each leaf under its
-spec, ``cost_analysis()`` and the HLO's collectives become a
-:class:`~repro_torch.roofline.analysis.CountingMode` over the traced step.
+spec, ``cost_analysis()`` becomes a
+:class:`~repro_torch.roofline.analysis.CountingMode` over the traced step
+on one device, and the HLO's collectives become a second trace of the
+step under the production ``DeviceMesh`` over torch's ``"fake"`` process
+group (256 ranks single-pod, 512 multi-pod; :func:`~repro_torch.launch.mesh.device_mesh`),
+with the reference's rules: params, batch and caches are DTensors of their
+placements on ``meta``, and every collective that DTensor runs (a
+constraint's redistribute, or one that an op needs) is counted on its
+per-device shard. The fake group sends nothing: these are host work on
+``meta`` priced at the data sheet's rates, and the collective term takes
+``roofline.analysis.LINK_BW`` (NVLink, 450 GB/s each way) for every link.
 
 The trace is whole where the reference's is not (XLA counts a ``while``
 body once), but a full-depth trace at 4k or 32k tokens is out of reach for
@@ -35,6 +44,7 @@ Results land in results/dryrun_torch/<arch>__<shape>__<mesh>.json
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import pathlib
@@ -48,10 +58,13 @@ import torch
 
 from repro_torch.configs import (SHAPES, ShapeCell, cell_applicable, get_config, list_archs,
                                  shape_by_name)
-from repro_torch.distributed.sharding import (param_paths, params_pspecs, sharding_context,
-                                              spec_for)
-from repro_torch.launch.mesh import make_production_mesh, mesh_chips
+from repro_torch.distributed.sharding import (distribute, param_paths, params_pspecs,
+                                              params_shardings, placements_for,
+                                              sharding_context, spec_for)
+from repro_torch.launch.mesh import make_production_mesh, mesh_chips, mesh_scope
 from repro_torch.models import build_model
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.optim import adamw
 from repro_torch.roofline import analysis as roofline
 from repro_torch.roofline import analytic
@@ -62,11 +75,23 @@ RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results" / "dryrun_torc
 
 META = torch.device("meta")
 #: A model with recurrent layers is traced at SEQ_FIT x (1, 2, 3) tokens
-#: (train and prefill) and extended to the cell's sequence.
+#: (train and prefill) and extended to the cell's sequence. On a mesh no
+#: length is fitted: DTensor picks among strategies by their bytes, so its
+#: collectives change form between lengths (jamba's prefill at 128, 256
+#: and 512 tokens takes three plans), and the trace runs at the cell's
+#: own length with the recurrences by shape (:func:`_scans_by_shape`).
 SEQ_FIT = 8
-NO_COLLECTIVE = ("not traced: the model places nothing over several cards "
-                 "(logical_constraint returns its input), so the traced step holds no "
-                 "collective and no collective term exists")
+NO_COLLECTIVE = ("the mesh places nothing of this cell (every leaf replicated), so the "
+                 "step holds no collective and no collective term exists")
+#: What the collective term's rate stands for.
+COLLECTIVE_LINK = {
+    "rate_bytes_per_s": roofline.LINK_BW,
+    "link": "NVLink 4 within one 8-card host, 450 GB/s each way (H100 data sheet)",
+    "note": ("a group of more than 8 ranks (the 16-wide data and model axes, the pod "
+             "axis) crosses hosts; the repo has no number for the link between two "
+             "hosts, so every collective is priced at the NVLink rate"),
+    "measured": "host work on meta over the fake process group: no byte was sent",
+}
 NO_TEMP = "not measured: the model runs on one device"
 NO_COMPILE = "no compiled program: the step runs eagerly"
 
@@ -140,6 +165,17 @@ def cache_shardings(caches, mesh, seq_len):
 RULES = {"seq_kv": ("model", "data")}
 
 
+def cell_rules(cfg) -> Tuple[dict, dict]:
+    """(the model's rules, the optimizer state's rules) of a cell, as the
+    reference's ``build_cell`` sets them: FSDP shards the weights' embed
+    dim over data, and FSDP or ZeRO shards the optimizer state so."""
+    rules = dict(RULES)
+    if cfg.fsdp:
+        rules["embed"] = ("data",)   # ZeRO-3/FSDP: weights' embed dim over DP
+    opt_rules = dict(RULES, embed=("data",)) if (cfg.fsdp or cfg.zero) else rules
+    return rules, opt_rules
+
+
 # ------------------------------------------------------- per-device bytes ----
 
 def _spec_bytes(leaf, spec, mesh) -> int:
@@ -178,32 +214,42 @@ def _as_bf16(params):
 
 # ---------------------------------------------------------------- tracing ----
 
-def _depth_plan(cfg) -> Tuple[object, List[Tuple[str, int, Callable[[int], object]]]]:
-    """(the config with one layer of each layer group, [(group, its full
-    layer count, ``k -> the config with k layers of it``)]); a group of one
-    layer needs no second trace."""
+def _depth_plan(cfg, lo: int = 1) -> Tuple[object, List[Tuple[str, int, int,
+                                                             Callable[[int], object]]]]:
+    """(the config with ``lo`` layers of each layer group (all of a smaller
+    group), [(group, its full layer count, its layers in the base, ``k ->
+    the base with k layers of it``)]); a group that the base holds whole
+    needs no further trace."""
+    def at(n):
+        return min(lo, n)
+
     if cfg.is_encdec:
-        base = cfg.replace(n_layers=1, encoder_layers=1)
-        plan = [("decoder", cfg.n_layers, lambda k: base.replace(n_layers=k)),
-                ("encoder", cfg.encoder_layers, lambda k: base.replace(encoder_layers=k))]
+        nd, ne = at(cfg.n_layers), at(cfg.encoder_layers)
+        base = cfg.replace(n_layers=nd, encoder_layers=ne)
+        plan = [("decoder", cfg.n_layers, nd, lambda k: base.replace(n_layers=k)),
+                ("encoder", cfg.encoder_layers, ne, lambda k: base.replace(encoder_layers=k))]
     elif cfg.rwkv:
-        base = cfg.replace(n_layers=1)
-        plan = [("rwkv", cfg.n_layers, lambda k: base.replace(n_layers=k))]
+        n = at(cfg.n_layers)
+        base = cfg.replace(n_layers=n)
+        plan = [("rwkv", cfg.n_layers, n, lambda k: base.replace(n_layers=k))]
     elif cfg.attn_period:
         p = cfg.attn_period
-        base = cfg.replace(n_layers=p)
-        plan = [("period", cfg.n_layers // p, lambda k: base.replace(n_layers=k * p))]
+        n = at(cfg.n_layers // p)
+        base = cfg.replace(n_layers=n * p)
+        plan = [("period", cfg.n_layers // p, n, lambda k: base.replace(n_layers=k * p))]
     elif cfg.moe is not None and cfg.first_dense_layers:
-        base = cfg.replace(first_dense_layers=1, n_layers=2)
-        plan = [("dense_head", cfg.first_dense_layers,
-                 lambda k: base.replace(first_dense_layers=k, n_layers=k + 1)),
-                ("moe_body", cfg.n_layers - cfg.first_dense_layers,
-                 lambda k: base.replace(n_layers=k + 1))]
+        fd = cfg.first_dense_layers
+        nd, nb = at(fd), at(cfg.n_layers - fd)
+        base = cfg.replace(first_dense_layers=nd, n_layers=nd + nb)
+        plan = [("dense_head", fd, nd,
+                 lambda k: base.replace(first_dense_layers=k, n_layers=k + nb)),
+                ("moe_body", cfg.n_layers - fd, nb, lambda k: base.replace(n_layers=nd + k))]
     else:
-        base = cfg.replace(n_layers=1)
-        plan = [("moe_body" if cfg.moe is not None else "body", cfg.n_layers,
+        n = at(cfg.n_layers)
+        base = cfg.replace(n_layers=n)
+        plan = [("moe_body" if cfg.moe is not None else "body", cfg.n_layers, n,
                  lambda k: base.replace(n_layers=k))]
-    return base, [g for g in plan if g[1] > 1]
+    return base, [g for g in plan if g[1] > g[2]]
 
 
 def _seq_plan(cfg, shape) -> List[int]:
@@ -216,104 +262,195 @@ def _seq_plan(cfg, shape) -> List[int]:
 
 
 def _combine(terms) -> roofline.Counts:
-    """``sum(coef * counts)`` over ``(coef, Counts)`` pairs (integers)."""
+    """``sum(coef * counts)`` over ``(coef, Counts)`` pairs (integers),
+    collectives kind by kind (``None`` where no term has any)."""
     out = roofline.Counts(collectives=None)
     for coef, c in terms:
         out.flops += coef * c.flops
         out.bytes_accessed += coef * c.bytes_accessed
         out.ops += coef * c.ops
+        if c.collectives is not None:
+            if out.collectives is None:
+                out.collectives = roofline.CollectiveStats()
+            out.collectives.add_scaled(coef, c.collectives)
     return out
 
 
 def _extend(points: List[Tuple[int, roofline.Counts]], x: int) -> roofline.Counts:
-    """The counts at ``x`` from counts at ``x0, 2 x0[, 3 x0]``: the line or
-    the quadratic through them (Lagrange weights, exact in integers)."""
+    """The counts at ``x`` from counts at two or three equally spaced
+    points (``x0, 2 x0, 3 x0`` or ``2, 3, 4``): the line or the quadratic
+    through them (Lagrange weights, exact in integers)."""
     if len(points) == 1:
         return points[0][1]
-    x0 = points[0][0]
-    t = x // x0
-    if t * x0 != x:
-        raise ValueError(f"{x} is not a multiple of the traced {x0}")
+    x0, h = points[0][0], points[1][0] - points[0][0]
+    t = (x - x0) // h
+    if t * h != x - x0:
+        raise ValueError(f"{x} is not on the grid of the traced {x0}, {x0 + h}")
     if len(points) == 2:
-        return _combine([(2 - t, points[0][1]), (t - 1, points[1][1])])
-    w1 = (t - 2) * (t - 3) // 2
-    w2 = -(t - 1) * (t - 3)
-    w3 = (t - 1) * (t - 2) // 2
-    return _combine([(w1, points[0][1]), (w2, points[1][1]), (w3, points[2][1])])
+        return _combine([(1 - t, points[0][1]), (t, points[1][1])])
+    w0 = (t - 1) * (t - 2) // 2
+    w1 = -t * (t - 2)
+    w2 = t * (t - 1) // 2
+    return _combine([(w0, points[0][1]), (w1, points[1][1]), (w2, points[2][1])])
 
 
-def _trace_step(cfg, shape) -> roofline.Counts:
+def _place_inputs(specs, mesh):
+    """:func:`input_specs`' tensors as DTensors of their batch placements."""
+    from torch.distributed.tensor import distribute_tensor
+
+    shardings = batch_shardings(specs, mesh)
+
+    def one(v, sh):
+        if isinstance(v, dict):
+            return {k: one(v[k], sh[k]) for k in v}
+        if not isinstance(v, torch.Tensor):
+            return v
+        return distribute_tensor(v, mesh, placements_for(sh, mesh), src_data_rank=None)
+
+    return one(specs, shardings)
+
+
+def _ssm_scan_shapes(h, xcf, dt, Bc, Cc, A):
+    """``ssm._scan``'s outputs' shapes, each depending on every input,
+    without the loop over tokens."""
+    y = xcf * dt * (Bc * Cc).sum(-1, keepdim=True)
+    return y, h * A + y.sum(1)[..., None]
+
+
+def _wkv_scan_shapes(Sc, rf, kf, vf, w, u):
+    """``rwkv._wkv_scan``'s outputs' shapes, each depending on every input,
+    without the loop over tokens."""
+    y = rf * kf * vf * w * u
+    return y, Sc + y.sum(1)[..., None]
+
+
+@contextlib.contextmanager
+def _scans_by_shape():
+    """While held, the Mamba and RWKV recurrences are their shape stand-ins.
+    The collective trace holds it: what a recurrence's region sends is
+    decided at its edges (its inputs' and outputs' placements, and their
+    gradients'), so a scan over 32k tokens need not loop to be counted."""
+    saved = ssm_mod._scan, rwkv_mod._wkv_scan
+    ssm_mod._scan, rwkv_mod._wkv_scan = _ssm_scan_shapes, _wkv_scan_shapes
+    try:
+        yield
+    finally:
+        ssm_mod._scan, rwkv_mod._wkv_scan = saved
+
+
+@contextlib.contextmanager
+def _on_mesh(mesh, rules):
+    """The sharding context of a trace on the mesh, with the recurrences by
+    shape."""
+    with sharding_context(mesh, rules), _scans_by_shape():
+        yield
+
+
+def _trace_step(cfg, shape, mesh=None) -> roofline.Counts:
     """One step of ``cfg`` at ``shape`` traced on ``meta`` under a
-    :class:`~repro_torch.roofline.analysis.CountingMode`."""
+    :class:`~repro_torch.roofline.analysis.CountingMode`. With ``mesh`` (a
+    ``DeviceMesh`` over the fake group) params, optimizer state, batch and
+    caches are DTensors of the cell's placements (:func:`cell_rules`) and
+    the step runs under ``sharding_context(mesh, rules)``; only its
+    collectives are counted."""
     model = build_model(cfg, device=META)
     params = model.init()
     if cfg.zero:
         params = _as_bf16(params)
     specs = input_specs(cfg, shape)
-    mode = roofline.CountingMode()
+    grad_shardings = opt_shardings = None
+    ctx = contextlib.nullcontext
+    if mesh is not None:
+        rules, opt_rules = cell_rules(cfg)
+        opt_shardings = params_shardings(params, mesh, opt_rules)
+        grad_shardings = opt_shardings if cfg.zero else None
+        params = distribute(params, mesh, params_shardings(params, mesh, rules))
+        specs = _place_inputs(specs, mesh)
+        ctx = functools.partial(_on_mesh, mesh, rules)
+    mode = roofline.CountingMode(collectives_only=mesh is not None)
     if shape.kind == "train":
-        opt = adamw.init(params, keep_master=cfg.zero)
-        # grad_shardings (ZeRO-2's reduce-scatter) places gradients over
-        # cards: on one device it changes no op of the step
+        opt = adamw.init(params, keep_master=cfg.zero, shardings=opt_shardings)
         step = make_train_step(model, adamw.AdamWConfig(keep_master=cfg.zero),
                                microbatches=cfg.microbatch or 1,
+                               grad_shardings=grad_shardings,
                                accum_dtype=torch.bfloat16 if cfg.zero else None)
-        with mode:
+        with ctx(), mode:
             step(params, opt, specs)
     elif shape.kind == "prefill":
         step = make_prefill_step(model)
-        with mode:
+        with ctx(), mode:
             step(params, specs["tokens"], specs["extra"])
     else:
         caches = model.init_caches(shape.global_batch, shape.seq_len)
+        if mesh is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            with sharding_context(mesh, RULES):
+                caches = tree_map(lambda t: distribute_tensor(
+                    t, mesh, placements_for(cache_spec(t.shape, mesh, shape.seq_len), mesh),
+                    src_data_rank=None), caches)
         step = make_decode_step(model)
-        with mode:
+        with ctx(), mode:
             step(params, specs["token"], caches, specs["pos"])
     return mode.counts
 
 
-@functools.lru_cache(maxsize=128)  # every cell of --all, traced once for both meshes
-def _step_counts(cfg, shape, groups_mesh) -> Tuple[roofline.Counts, dict]:
+@functools.lru_cache(maxsize=256)  # every cell of --all: once, and once a mesh
+def _step_counts(cfg, shape, groups_mesh, multi_pod=None) -> Tuple[roofline.Counts, dict]:
     """The whole step's counts, assembled from traces of one, two (and for
     a train step three) layers of each group, at the sequences of
     :func:`_seq_plan`, and what was traced. A train step's bytes grow as
     the square of a group's depth (the backward of each layer's slice of a
     stacked weight writes a gradient of the whole stack), so its depth fit
     is quadratic. ``groups_mesh`` is the mesh the grouped MoE lane reads
-    its group count from (``None`` for every other lane)."""
+    its group count from (``None`` for every other lane). With
+    ``multi_pod`` (``False`` or ``True``) every trace runs on that
+    production ``DeviceMesh`` and counts collectives only; they are
+    assembled kind by kind, counts and bytes, as FLOPs are."""
     t0 = time.perf_counter()
-    base, plan = _depth_plan(cfg)
-    seqs = _seq_plan(cfg, shape)
-    depths = (1, 2, 3) if shape.kind == "train" else (1, 2)
-    collectives = traces = 0
+    # on a mesh a stack of one layer takes other strategies than deeper ones
+    # (its gradient's reductions): fit from two layers a group there
+    lo = 1 if multi_pod is None else 2
+    base, plan = _depth_plan(cfg, lo)
+    seqs = _seq_plan(cfg, shape) if multi_pod is None else [shape.seq_len]
+    depths = tuple(range(lo, lo + (3 if shape.kind == "train" else 2)))
+    traces = 0
+    m = None if multi_pod is None else make_production_mesh(multi_pod=multi_pod)
+    world = contextlib.nullcontext() if m is None else mesh_scope(m.axis_names, m.sizes, "meta")
 
-    def at_cell(c) -> roofline.Counts:
-        nonlocal collectives, traces
+    def at_cell(c, mesh) -> roofline.Counts:
+        nonlocal traces
         points = []
         for s in seqs:
-            with sharding_context(groups_mesh):
-                counts = _trace_step(c, ShapeCell(shape.name, s, shape.global_batch, shape.kind))
-            collectives += sum(counts.collectives.count_by_kind.values())
+            with sharding_context(groups_mesh) if mesh is None else contextlib.nullcontext():
+                counts = _trace_step(c, ShapeCell(shape.name, s, shape.global_batch, shape.kind),
+                                     mesh)
             traces += 1
             points.append((s, counts))
         return _extend(points, shape.seq_len)
 
-    c_base = at_cell(base)
-    terms = [(1, c_base)]
-    for _, n, make in plan:
-        points = [(1, c_base)] + [(k, at_cell(make(k))) for k in depths[1:] if k <= n]
-        terms += [(1, _extend(points, n)), (-1, c_base)]
-    if collectives:
-        raise RuntimeError(f"the traced step dispatched {collectives} collectives; "
-                           f"the dry run assumes none")
+    with world as mesh:
+        c_base = at_cell(base, mesh)
+        terms = [(1, c_base)]
+        for _, n, nb, make in plan:
+            points = [(nb, c_base)] + [(k, at_cell(make(k), mesh))
+                                       for k in range(nb + 1, nb + len(depths)) if k <= n]
+            terms += [(1, _extend(points, n)), (-1, c_base)]
+    out = _combine(terms)
+    st = out.collectives
+    if multi_pod is not None and st is not None and (
+            min(list(st.bytes_by_kind.values()) + list(st.count_by_kind.values()) + [0]) < 0):
+        raise RuntimeError(f"{cfg.name} {shape.name}: the collectives assembled from the traces "
+                           f"are negative ({st.count_by_kind}); the traces took other "
+                           f"strategies at their depths or lengths")
     traced = {"layers": {"base": _layer_desc(base)},
-              "multipliers": {g: n for g, n, _ in plan},
+              "multipliers": {g: n for g, n, _, _ in plan},
               "depths": list(depths),
               "depth_fit": "quadratic" if len(depths) == 3 else "linear",
               "seq_lens": seqs, "seq_fit": "quadratic" if len(seqs) > 1 else "none",
               "traces": traces,
               "trace_s": round(time.perf_counter() - t0, 2)}
-    return _combine(terms), traced
+    return out, traced
 
 
 def _layer_desc(cfg) -> dict:
@@ -322,6 +459,17 @@ def _layer_desc(cfg) -> dict:
 
 
 # ------------------------------------------------------------------ cells ----
+
+def _spec_list(shardings) -> list:
+    """The spec tuples of :func:`batch_shardings`' nested dict."""
+    out = []
+    for v in shardings.values():
+        if isinstance(v, dict):
+            out += _spec_list(v)
+        elif v is not None:
+            out.append(v)
+    return out
+
 
 def build_cell(arch: str, shape_name: str, multi_pod: bool, cfg=None):
     cfg = cfg if cfg is not None else get_config(arch)
@@ -334,10 +482,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, cfg=None):
     chips = mesh_chips(mesh)
     t0 = time.time()
 
-    rules = dict(RULES)
-    if cfg.fsdp:
-        rules["embed"] = ("data",)   # ZeRO-3/FSDP: weights' embed dim over DP
-    opt_rules = dict(RULES, embed=("data",)) if (cfg.fsdp or cfg.zero) else rules
+    rules, opt_rules = cell_rules(cfg)
     B, S = shape.global_batch, shape.seq_len
 
     with sharding_context(mesh, rules):
@@ -369,11 +514,22 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, cfg=None):
             arg = p_bytes + b_bytes + (c_bytes if shape.kind == "decode" else 0)
             out_b = logit_bytes + c_bytes
             alias = c_bytes if shape.kind == "decode" else 0
+        placed = any(any(e is not None for e in sp) for sp in pspecs.values()) or \
+            any(any(e is not None for e in sp) for sp in _spec_list(
+                batch_shardings(specs, mesh)))
         del model, params, specs
     t_build = time.time() - t0
 
     grouped = cfg.moe is not None and cfg.moe.dispatch_impl == "grouped"
     counts, traced = _step_counts(cfg, shape, mesh if grouped else None)
+    if placed:
+        sharded, traced_c = _step_counts(cfg, shape, None, multi_pod)
+        counts = roofline.Counts(counts.flops, counts.bytes_accessed, counts.ops,
+                                 sharded.collectives or roofline.CollectiveStats())
+        traced["collective_traces"] = traced_c["traces"]
+        traced["collective_trace_s"] = traced_c["trace_s"]
+    else:
+        counts = roofline.Counts(counts.flops, counts.bytes_accessed, counts.ops, None)
 
     mb = cfg.microbatch or 1
     acost = analytic.cost(cfg, shape, chips, microbatches=mb)
@@ -396,7 +552,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, cfg=None):
         "lower_s": traced["trace_s"], "compile_s": None, "build_s": round(t_build, 2),
         "memory_analysis": mem,
         "roofline": rl.to_dict(),
-        "collective_reason": NO_COLLECTIVE,
+        "collective_reason": None if placed else NO_COLLECTIVE,
+        "collective_link": COLLECTIVE_LINK if placed else None,
         "analytic_detail": {k: float(v) for k, v in acost.detail.items()},
         "model_flops_per_device": mf,
         "useful_flops_frac": (mf / rl.flops) if rl.flops else None,

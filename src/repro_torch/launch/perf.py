@@ -5,11 +5,13 @@ config variants of three cells through :func:`repro_torch.launch.dryrun.build_ce
   PYTHONPATH=src python -m repro_torch.launch.perf --cell qwen3 --iter M1_grouped_dispatch
   PYTHONPATH=src python -m repro_torch.launch.perf --all
 
-The port runs the model on one device: ``remat="dots"`` and ``causal_skip``
-change the traced step (its counted FLOPs move with the analytic ones),
-while ``seq_parallel``, ``fsdp`` and ``zero`` move only the per-device
-bytes taken from the sharding specs (``zero`` also makes the compute
-params bf16 with an f32 master), as each record's ``placement_note`` says.
+``remat="dots"`` and ``causal_skip`` change the traced step (its counted
+FLOPs move with the analytic ones); ``seq_parallel``, ``fsdp`` and ``zero``
+move the per-device bytes taken from the sharding specs (``zero`` also
+makes the compute params bf16 with an f32 master) and the collective term
+of the step traced on the production ``DeviceMesh``, not the counted
+FLOPs, which come from the one-device trace, as each record's
+``placement_note`` says.
 Results land in results/perf_torch/<cell>__<iter>.json.
 """
 from __future__ import annotations
@@ -25,8 +27,9 @@ from repro_torch.configs import get_config
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results" / "perf_torch"
 
-PLACEMENT_NOTE = ("seq_parallel, fsdp and zero move only the per-device bytes from the specs: "
-                  "the model runs on one device and places nothing over several cards")
+PLACEMENT_NOTE = ("seq_parallel, fsdp and zero move the per-device bytes from the specs and the "
+                  "collective term (the step traced on the DeviceMesh), not the counted FLOPs "
+                  "(the one-device trace)")
 
 
 def _moe(cfg, **kw):

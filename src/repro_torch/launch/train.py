@@ -4,6 +4,8 @@
       --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt --device cpu
   python -m repro_torch.launch.train --arch qwen3-moe-235b-a22b --layers 1 \
       --dispatch-impl bsr --steps 5
+  torchrun --nproc-per-node=<cards> -m repro_torch.launch.train --mesh local ...
+  torchrun --nproc-per-node=4 -m repro_torch.launch.train --mesh local --device cpu ...
 
 The reference's flags, plus the port's: ``--device`` (default the card),
 ``--layers`` (cut the model's depth, Jamba's in whole periods) and
@@ -13,8 +15,15 @@ them. As in ``serve_lm``, the sparse products run under
 and its backward kernels on the 'bsr' lane), their plain versions on host
 tensors. Only ``bsr_spmm`` has a backward on the card, so the 'coo' lane
 trains there through ``examples/train_lm_torch.py --spmv-backend plain``.
-``--mesh`` takes ``none`` only: the model's sharding over several cards is
-ROADMAP item 9.
+
+``--mesh local`` trains on a ``DeviceMesh`` of every rank that ``torchrun``
+started (a lone process is a world of one), all on the first axis:
+``(world, 1)`` over ``("data", "model")``, as the reference's
+``make_local_mesh`` puts every device on its first axis; NCCL with one rank
+a card, or ``gloo`` with ``--device cpu``. ``--mesh prod`` and ``--mesh
+multi`` are the production meshes, (16, 16) and (2, 16, 16), and need a
+world of 256 or 512 ranks. ``--mesh none`` (the default) trains on one
+device with no mesh.
 
 ``main`` sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` where the environment has
 none, before the first product, so that cuBLAS takes its deterministic
@@ -27,10 +36,25 @@ import os
 
 from repro_torch.configs import list_archs
 from repro_torch.core import use_backend
+from repro_torch.launch.mesh import device_mesh, make_production_mesh, mesh_chips
 from repro_torch.launch.serve import lm_config
 from repro_torch.optim import adamw
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves
+
+
+def train_mesh(kind: str, device="cuda"):
+    """The ``DeviceMesh`` of ``--mesh`` (``None`` for ``"none"``)."""
+    if kind == "none":
+        return None
+    if kind == "local":
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        return device_mesh(("data", "model"), (world, 1), device)
+    m = make_production_mesh(multi_pod=kind == "multi")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world != mesh_chips(m):
+        raise ValueError(f"--mesh {kind} needs {mesh_chips(m)} ranks, torchrun started {world}")
+    return device_mesh(m.axis_names, m.sizes, device)
 
 
 def main(argv=None):
@@ -44,8 +68,10 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--mesh", default="none", choices=["none"],
-                    help="no mesh yet (the model's sharding over several cards waits)")
+    ap.add_argument("--mesh", default="none", choices=["none", "local", "prod", "multi"],
+                    help="none: one device; local: (world, 1) over (data, model) from the "
+                         "ranks torchrun started; prod/multi: the production meshes (256 or "
+                         "512 ranks)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to this many layers (0: the config's)")
@@ -62,7 +88,7 @@ def main(argv=None):
                          seq_len=args.seq, microbatches=args.microbatches,
                          ckpt_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every)
     ocfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps)
-    tr = Trainer(cfg, tcfg, ocfg, device=args.device)
+    tr = Trainer(cfg, tcfg, ocfg, mesh=train_mesh(args.mesh, args.device), device=args.device)
     n_params = sum(x.numel() for x in leaves(tr.state[0]))
     print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params:,} steps={args.steps} "
           f"batch={args.batch}x{args.seq} mesh={args.mesh} device={tr.device}")

@@ -9,14 +9,22 @@ outside any Pallas kernel, so no kernel of this package replaces it.
 ``block_sparse_attention`` runs ``O = P @ V`` as one BSR SpMM through
 ``SparseOperator``, so the ambient policy picks the bsr backend (the
 ``bsr_spmm`` kernel on ``cuda``).
+
+On a ``DeviceMesh`` (DTensor inputs under ``sharding_context``) the chunked
+core runs in a ``local_map`` region on each rank's batch rows and heads
+(:func:`_sharded_core`); the projections around it run on DTensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import (dtensor_mesh, merge_dims, placements_for, spec_for,
+                                              split_dim)
 
 from .layers import Init, apply_rope, dense_init, rmsnorm
 
@@ -42,7 +50,6 @@ def init_attention(init: Init, cfg):
 
 
 def _project_qkv(p, x, cfg, positions):
-    B, S, _ = x.shape
     hd = cfg.hd
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
@@ -51,9 +58,9 @@ def _project_qkv(p, x, cfg, positions):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_dim(q, 2, (cfg.n_heads, hd))
+    k = split_dim(k, 2, (cfg.n_kv_heads, hd))
+    v = split_dim(v, 2, (cfg.n_kv_heads, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"].to(x.dtype), cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"].to(x.dtype), cfg.norm_eps)
@@ -68,6 +75,11 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
                       causal_skip: bool = False) -> torch.Tensor:
     """Online-softmax attention. q: (B,Sq,Hq,hd); k,v: (B,Skv,Hkv,hd).
     Hq % Hkv == 0 (GQA); kv heads are never materialised repeated."""
+    mesh = dtensor_mesh(q)
+    if mesh is not None:
+        return _sharded_core(functools.partial(
+            chunked_attention, causal=causal, q_offset=q_offset, q_chunk=q_chunk,
+            kv_chunk=kv_chunk, causal_skip=causal_skip), q, k, v, mesh)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     hdv = v.shape[-1]
@@ -124,6 +136,25 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return out[:, :Sq]
 
 
+def _sharded_core(core, q, k, v, mesh):
+    """``core(q, k, v)`` in a ``local_map`` region: every rank runs it on
+    its rows of the batch (split over the ``batch`` rule's axes) and, where
+    the ``heads_out`` axes divide both the query and the kv heads (so that
+    each rank's query heads read its own kv heads), on its heads; other
+    dims whole. Attention mixes neither batch rows nor heads, so the local
+    results are the global one's chunks and the gradients need no sum."""
+    from torch.distributed.tensor.experimental import local_map
+
+    axes = ("batch", None, "heads_out", None)
+    sq, sk = spec_for(q.shape, axes, mesh), spec_for(k.shape, axes, mesh)
+    batch = sq[0] if sq and sk and sq[0] == sk[0] else None
+    heads = sq[2] if len(sq) > 2 and len(sk) > 2 and sq[2] == sk[2] else None
+    pl = placements_for((batch, None, heads), mesh)
+    return local_map(core, out_placements=list(pl), in_placements=(pl, pl, pl),
+                     in_grad_placements=(pl, pl, pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     """q: (B,1,Hq,hd); k_cache: (B,Smax,Hkv,hd); v_cache: (B,Smax,Hkv,hdv);
     pos: current index. Attends to cache[0..pos] inclusive (the cache
@@ -133,7 +164,7 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     hdv = v_cache.shape[-1]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, Hkv, G, hd)
+    qg = split_dim(q.squeeze(1), 1, (Hkv, G))
     s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * scale
     mask = torch.arange(Smax, device=q.device) <= pos
     s = torch.where(mask[None, None, None, :], s, torch.full((), NEG_INF, device=q.device))
@@ -151,8 +182,7 @@ def attention_train(p, x, cfg, positions, causal=True, q_offset=0):
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
                           causal_skip=getattr(cfg, "causal_skip", False))
-    B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    return merge_dims(o, 2) @ p["wo"].to(x.dtype)
 
 
 def attention_prefill(p, x, cfg, positions) -> Tuple[torch.Tensor, KVCache]:
@@ -182,20 +212,19 @@ def init_cross_attention(init: Init, cfg):
 
 def cross_attention(p, x, kv_src, cfg):
     """Full (non-causal) attention of x over kv_src (encoder states)."""
-    B, S, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
-    k = (kv_src @ p["wk"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, hd)
-    v = (kv_src @ p["wv"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, hd)
+    q = split_dim(x @ p["wq"].to(x.dtype), 2, (cfg.n_heads, hd))
+    k = split_dim(kv_src @ p["wk"].to(x.dtype), 2, (cfg.n_kv_heads, hd))
+    v = split_dim(kv_src @ p["wv"].to(x.dtype), 2, (cfg.n_kv_heads, hd))
     o = chunked_attention(q, k, v, causal=False)
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    return merge_dims(o, 2) @ p["wo"].to(x.dtype)
 
 
 def cross_attention_cached(p, x, kv_cache: KVCache, cfg):
     """Decode-side cross attention against precomputed encoder K/V."""
     B = x.shape[0]
     hd = cfg.hd
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, 1, cfg.n_heads, hd)
+    q = split_dim(x @ p["wq"].to(x.dtype), 2, (cfg.n_heads, hd))
     o = decode_attention(q, kv_cache.k, kv_cache.v, kv_cache.k.shape[1] - 1)
     return o.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
 

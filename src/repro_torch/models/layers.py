@@ -61,6 +61,49 @@ def embed_init(init: Init, vocab: int, dim: int):
     return init.normal((vocab, dim), 0.02)
 
 
+def embed_lookup(table, tokens):
+    """``table``'s rows at ``tokens``. On a ``DeviceMesh`` (a DTensor table
+    under ``sharding_context``) the lookup is vocab-parallel, in a
+    ``local_map`` region: each rank looks its ids up in its own rows of the
+    vocab (zeros for an id outside them) for its own batch rows, and the
+    result is a partial sum over the vocab's axes (DTensor's own lookup
+    gives a masked partial whose gradient it cannot redistribute). Where
+    the vocab is whole the region is ``F.embedding`` times ones."""
+    from repro_torch.distributed.sharding import dtensor_mesh, is_shard
+
+    mesh = dtensor_mesh(table)
+    if mesh is None:
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    n = mesh.ndim
+    vocab = [i for i, p in enumerate(table.placements) if is_shard(p) and p.dim == 0]
+    tok = list(tokens.placements) if isinstance(tokens, DTensor) else [Replicate()] * n
+    batch = [i for i in range(n) if i not in vocab and is_shard(tok[i]) and tok[i].dim == 0]
+    t_in = [Shard(0) if i in vocab else Replicate() for i in range(n)]
+    k_in = [Shard(0) if i in batch else Replicate() for i in range(n)]
+    out = [Shard(0) if i in batch else Partial() if i in vocab else Replicate()
+           for i in range(n)]
+    t_grad = [Shard(0) if i in vocab else Partial() if i in batch else Replicate()
+              for i in range(n)]
+    sizes = mesh.shape
+
+    def lookup(rows, ids):
+        first = 0
+        for i in vocab:
+            first = first * sizes[i] + mesh.get_local_rank(i)
+        first *= rows.shape[0]
+        idx = ids - first
+        inside = (idx >= 0) & (idx < rows.shape[0])
+        got = F.embedding(torch.where(inside, idx, torch.zeros_like(idx)), rows)
+        return got * inside[..., None].to(got.dtype)
+
+    return local_map(lookup, out_placements=out, in_placements=(t_in, k_in),
+                     in_grad_placements=(t_grad, k_in), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
 def rmsnorm(x, w, eps: float = 1e-5):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)

@@ -14,6 +14,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import merge_dims, split_dim
+
 from .attention import NEG_INF, chunked_attention
 from .layers import Init, apply_rope, dense_init, rmsnorm
 
@@ -40,10 +42,9 @@ def init_mla(init: Init, cfg):
 
 def _project_q(p, x, cfg, positions):
     m = cfg.mla
-    B, S, _ = x.shape
     H = cfg.n_heads
     cq = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"].to(x.dtype), cfg.norm_eps)
-    q = (cq @ p["wq_b"].to(x.dtype)).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q = split_dim(cq @ p["wq_b"].to(x.dtype), 2, (H, m.nope_head_dim + m.rope_head_dim))
     q_nope, q_pe = q[..., : m.nope_head_dim], q[..., m.nope_head_dim:]
     return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
 
@@ -65,12 +66,12 @@ def mla_train(p, x, cfg, positions) -> torch.Tensor:
     H = cfg.n_heads
     q_nope, q_pe = _project_q(p, x, cfg, positions)
     c_kv, k_pe = _project_kv_latent(p, x, cfg, positions)
-    kv = (c_kv @ p["wkv_b"].to(x.dtype)).reshape(B, S, H, m.nope_head_dim + m.v_head_dim)
+    kv = split_dim(c_kv @ p["wkv_b"].to(x.dtype), 2, (H, m.nope_head_dim + m.v_head_dim))
     k_nope, v = kv[..., : m.nope_head_dim], kv[..., m.nope_head_dim:]
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, m.rope_head_dim)], dim=-1)
     o = chunked_attention(q, k, v, causal=True)             # (B,S,H,v_hd)
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    return merge_dims(o, 2) @ p["wo"].to(x.dtype)
 
 
 def mla_prefill(p, x, cfg, positions) -> Tuple[torch.Tensor, MLACache]:
@@ -92,7 +93,7 @@ def mla_decode(p, x, cfg, cache: MLACache, pos: int) -> Tuple[torch.Tensor, MLAC
     cache.k_pe[:, pos] = kpe_new[:, 0].to(cache.k_pe.dtype)
     c_kv, k_pe = cache
 
-    wkv_b = p["wkv_b"].to(x.dtype).reshape(m.kv_lora_rank, H, m.nope_head_dim + m.v_head_dim)
+    wkv_b = split_dim(p["wkv_b"].to(x.dtype), 1, (H, m.nope_head_dim + m.v_head_dim))
     wk = wkv_b[..., : m.nope_head_dim]                      # (L, H, nope)
     wv = wkv_b[..., m.nope_head_dim:]                       # (L, H, v_hd)
     # absorb: q_c[h] = q_nope[h] @ wk[:,h,:].T -> (B,H,L), in the activation dtype

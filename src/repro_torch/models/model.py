@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import resolve_device
-from repro_torch.distributed.sharding import logical_constraint
+from repro_torch.distributed.sharding import logical_constraint, merge_dims, split_dim
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import rebuild, tree_map
 
@@ -34,7 +34,7 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
-from .layers import Init, apply_mlp, dense_init, embed_init, init_mlp, rmsnorm
+from .layers import Init, apply_mlp, dense_init, embed_init, embed_lookup, init_mlp, rmsnorm
 
 
 class GroupDef(NamedTuple):
@@ -57,9 +57,9 @@ def _ffn_init(init: Init, cfg, use_moe: bool):
 
 def _ffn_apply(lp_ffn, x, cfg, use_moe: bool):
     if use_moe:
-        B, S, D = x.shape
-        y, aux = moe_mod.moe_ffn(lp_ffn, x.reshape(B * S, D), cfg, cfg.moe)
-        return y.reshape(B, S, D), aux
+        B, S = x.shape[:2]
+        y, aux = moe_mod.moe_ffn(lp_ffn, merge_dims(x, 0), cfg, cfg.moe)
+        return split_dim(y, 0, (B, S)), aux
     return apply_mlp(lp_ffn, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -256,12 +256,15 @@ def build_groups(cfg: ModelConfig) -> List[GroupDef]:
     return groups
 
 
-def _stack_init(draw: Callable, n: int, init: Init):
+def _stack_init(draw: Callable, n: int, init: Init, local: Callable = None):
     """``n`` layers drawn one after another by ``draw(init)``, each leaf
     stacked along a leading layer axis. Each layer is copied into a stack
     allocated from the first one's leaves, so no more than one layer lives
-    beside the stack (one layer is a view of itself, with no copy)."""
-    first = draw(init)
+    beside the stack (one layer is a view of itself, with no copy). With
+    ``local`` (a drawn layer -> the tree of its local shards) only each
+    layer's shard is kept, at once."""
+    local = local or (lambda tree: tree)
+    first = local(draw(init))
     if n == 1:
         return tree_map(lambda t: t[None], first)
     stack = tree_map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
@@ -269,8 +272,50 @@ def _stack_init(draw: Callable, n: int, init: Init):
     write_back(layer(stack, 0), first)
     del first
     for i in range(1, n):
-        write_back(layer(stack, i), draw(init))
+        write_back(layer(stack, i), local(draw(init)))
     return stack
+
+
+class _Placer:
+    """Where ``init`` puts each leaf: as drawn (no mesh), or, on a
+    ``DeviceMesh``, as a DTensor of the leaf's placements in ``shardings``
+    (``{path: placements}``, :func:`params_shardings`) holding only this
+    rank's chunk. Every rank draws every leaf from the same stream, so the
+    sharded params are the unsharded ones, and nothing is sent; a stacked
+    group keeps each layer's chunk as soon as the layer is drawn, so no
+    rank holds more than one whole layer beside its shards."""
+
+    def __init__(self, mesh=None, shardings=None):
+        self.mesh, self.shardings = mesh, shardings
+
+    def leaf(self, key: str, t):
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(t, self.mesh, self.shardings[key], src_data_rank=None)
+
+    def stack(self, key: str, draw: Callable, n: int, init: Init):
+        if self.mesh is None:
+            return _stack_init(draw, n, init)
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        from repro_torch.tree import map_with_path
+
+        mesh, sh, shapes = self.mesh, self.shardings, {}
+
+        def local(tree):
+            def one(k, t):
+                shapes[k] = (n,) + tuple(t.shape)
+                # the layer as a stack of one: the stacked leaf's placements
+                return distribute_tensor(t[None], mesh, sh[f"{key}/{k}"],
+                                         src_data_rank=None).to_local()[0]
+            return map_with_path(one, tree)
+
+        stack = _stack_init(draw, n, init, local)
+        return map_with_path(lambda k, t: DTensor.from_local(
+            t, mesh, sh[f"{key}/{k}"], run_check=False, shape=torch.Size(shapes[k]),
+            stride=torch.empty(shapes[k], device="meta").stride()), stack)
 
 
 def _initializer(device, generator, weight_dtype) -> Init:
@@ -371,29 +416,37 @@ class LM:
 
     # ------------------------------------------------------------ params --
 
-    def init(self, generator=0, weight_dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    def init(self, generator=0, weight_dtype: torch.dtype = torch.float32, mesh=None,
+             shardings=None) -> Dict[str, Any]:
         """Parameters drawn from ``generator`` (a ``torch.Generator`` on the
         model's device, or a seed for one). ``weight_dtype`` is f32, the
         reference's; a server may keep every weight but the router in the
         activation dtype instead, the values the reference's per-use casts
-        give, at half the bytes."""
+        give, at half the bytes. On a ``DeviceMesh`` every leaf is a
+        DTensor of its placements in ``shardings`` (``{path: placements}``,
+        default ``params_shardings`` under the ambient rules) holding this
+        rank's chunk of the same values (:class:`_Placer`)."""
         cfg = self.cfg
         ini = _initializer(self.device, generator, weight_dtype)
+        put = _Placer(mesh, _shardings(self, mesh, shardings, weight_dtype))
         params: Dict[str, Any] = {
-            "embed": embed_init(ini, cfg.vocab, cfg.d_model),
-            "norm_f": ini.ones((cfg.d_model,)),
-            "groups": [_stack_init(g.init, g.n, ini) for g in self.groups],
+            "embed": put.leaf("embed", embed_init(ini, cfg.vocab, cfg.d_model)),
+            "norm_f": put.leaf("norm_f", ini.ones((cfg.d_model,))),
+            "groups": [put.stack(f"groups/{i}", g.init, g.n, ini)
+                       for i, g in enumerate(self.groups)],
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = dense_init(ini, cfg.d_model, cfg.vocab, scale=0.02)
+            params["lm_head"] = put.leaf("lm_head",
+                                         dense_init(ini, cfg.d_model, cfg.vocab, scale=0.02))
         if cfg.frontend == "vision":
-            params["frontend_proj"] = dense_init(ini, cfg.d_model, cfg.d_model)
+            params["frontend_proj"] = put.leaf("frontend_proj",
+                                               dense_init(ini, cfg.d_model, cfg.d_model))
         return params
 
     # ----------------------------------------------------------- helpers --
 
     def _embed(self, params, tokens):
-        x = params["embed"][tokens.long()].to(self.cfg.activation_dtype)
+        x = embed_lookup(params["embed"], tokens.long()).to(self.cfg.activation_dtype)
         return logical_constraint(x, ("batch", None, None))
 
     def _prefix(self, params, extra):
@@ -488,8 +541,8 @@ class LM:
 def softmax_xent(logits, targets):
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
-    return torch.mean(lse - gold)
+    gold = torch.gather(lf, -1, targets[..., None].long())
+    return torch.mean(lse[..., None] - gold)
 
 
 class DecCache(NamedTuple):
@@ -510,10 +563,13 @@ class EncDecLM:
         if torch.device(self.device).type != "meta":
             self.device = resolve_device(self.device)
 
-    def init(self, generator=0, weight_dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-        """Parameters drawn from ``generator`` (as ``LM.init``)."""
+    def init(self, generator=0, weight_dtype: torch.dtype = torch.float32, mesh=None,
+             shardings=None) -> Dict[str, Any]:
+        """Parameters drawn from ``generator``, placed on ``mesh`` (as
+        ``LM.init``)."""
         cfg = self.cfg
         ini = _initializer(self.device, generator, weight_dtype)
+        put = _Placer(mesh, _shardings(self, mesh, shardings, weight_dtype))
 
         def enc_layer(i: Init):
             return {
@@ -534,16 +590,16 @@ class EncDecLM:
             }
 
         return {
-            "embed": embed_init(ini, cfg.vocab, cfg.d_model),
-            "enc": _stack_init(enc_layer, cfg.encoder_layers, ini),
-            "dec": _stack_init(dec_layer, cfg.n_layers, ini),
-            "norm_enc": ini.ones((cfg.d_model,)),
-            "norm_f": ini.ones((cfg.d_model,)),
-            "lm_head": dense_init(ini, cfg.d_model, cfg.vocab, scale=0.02),
+            "embed": put.leaf("embed", embed_init(ini, cfg.vocab, cfg.d_model)),
+            "enc": put.stack("enc", enc_layer, cfg.encoder_layers, ini),
+            "dec": put.stack("dec", dec_layer, cfg.n_layers, ini),
+            "norm_enc": put.leaf("norm_enc", ini.ones((cfg.d_model,))),
+            "norm_f": put.leaf("norm_f", ini.ones((cfg.d_model,))),
+            "lm_head": put.leaf("lm_head", dense_init(ini, cfg.d_model, cfg.vocab, scale=0.02)),
         }
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(self.cfg.activation_dtype)
+        return embed_lookup(params["embed"], tokens.long()).to(self.cfg.activation_dtype)
 
     def _positions(self, B: int, S: int):
         return torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
@@ -601,8 +657,8 @@ class EncDecLM:
             lp = layer(params["dec"], i)
             h, self_kv = attn.attention_prefill(lp["self"], self._norm(x, lp["ln1"]), cfg, pos)
             x = x + h
-            ck = (enc @ lp["cross"]["wk"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
-            cv = (enc @ lp["cross"]["wv"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
+            ck = split_dim(enc @ lp["cross"]["wk"].to(x.dtype), 2, (cfg.n_kv_heads, cfg.hd))
+            cv = split_dim(enc @ lp["cross"]["wv"].to(x.dtype), 2, (cfg.n_kv_heads, cfg.hd))
             x = x + attn.cross_attention(lp["cross"], self._norm(x, lp["ln2"]), enc, cfg)
             x = x + apply_mlp(lp["mlp"], self._norm(x, lp["ln3"]))
             per_layer.append(DecCache(self_kv, attn.KVCache(ck, cv)))
@@ -635,6 +691,17 @@ class EncDecLM:
                                 torch.zeros(shape, dtype=dtype, device=self.device))
 
         return DecCache(kv(seq), kv(enc_len))
+
+
+def _shardings(model, mesh, shardings, weight_dtype):
+    """``shardings``, or on a mesh the ambient rules' placements of the
+    model's leaves (their shapes from an init on ``meta``)."""
+    if mesh is None or shardings is not None:
+        return shardings
+    from repro_torch.distributed.sharding import params_shardings
+
+    meta = type(model)(model.cfg, device="meta").init(weight_dtype=weight_dtype)
+    return params_shardings(meta, mesh)
 
 
 # ------------------------------------------------------------- factories ----

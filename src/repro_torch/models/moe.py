@@ -28,16 +28,31 @@ by token in their sorted-by-expert order, fold left to right in f32 and
 round once to the activation dtype, which is what ``index_add_`` computes
 on the host (it adds a bf16 row in f32). No lane adds floats with atomics,
 so every lane repeats its bits on the card.
+
+On a ``DeviceMesh`` (tokens a DTensor under ``sharding_context``) the MoE
+is expert-parallel, as the reference's rules say: the expert weights are
+split along the expert dim over the ``experts`` axes (``model``), the
+capacity over the ``expert_cap`` axes (``data``) where the local slot
+count stays a whole number of 8-row blocks. The router runs on DTensors;
+the lanes, whose sorts, gathers, container builds and kernel launches take
+plain tensors, run in one ``local_map`` region (:func:`_moe_sharded`). Each
+rank holds every token and the full routing, so the slot assignment is the
+reference's, and computes only the slots of its own experts and capacity
+chunk; the combine's result is partial over those axes and is reduced.
+The sum over experts then runs in another order than on one device, so a
+sharded run holds to a tolerance; where every such axis has size 1 the
+bits are equal.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import logical_constraint
+from repro_torch.distributed.sharding import (axis_sizes, current_mesh, dtensor_mesh,
+                                              logical_constraint, spec_for, split_dim)
 
 from .layers import Init, dense_init
 
@@ -101,17 +116,29 @@ def combine_in_order(contrib, t_s, T: int, K: int) -> torch.Tensor:
     return y.to(contrib.dtype)
 
 
+def _gates(p, x):
+    return torch.softmax(x.float() @ p["router"], dim=-1)   # (T, E)
+
+
+def _top(gates, k: int):
+    """The top-k gates renormalised, their experts, and the share of picks
+    per expert."""
+    topw, tope = top_k(gates, k)                             # (T, K)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    f = _expert_counts(tope, gates.shape[-1]) / tope.numel()
+    return topw, tope, f
+
+
+def _aux(gates, f):
+    """Switch-style load-balancing loss."""
+    return gates.shape[-1] * torch.sum(f * gates.mean(dim=0))
+
+
 def _route(p, x, mcfg):
     """Common router: top-k gates renormalised, plus Switch-style aux loss."""
-    logits = x.float() @ p["router"]                         # (T, E)
-    gates = torch.softmax(logits, dim=-1)
-    topw, tope = top_k(gates, mcfg.top_k)                    # (T, K)
-    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
-    E = gates.shape[-1]
-    f = _expert_counts(tope, E) / tope.numel()
-    P = gates.mean(dim=0)
-    aux = E * torch.sum(f * P)
-    return topw, tope, aux
+    gates = _gates(p, x)
+    topw, tope, f = _top(gates, mcfg.top_k)
+    return topw, tope, _aux(gates, f)
 
 
 def _experts_ffn(p, xe):
@@ -126,20 +153,26 @@ def _experts_ffn(p, xe):
 def moe_ffn(p, x, cfg, mcfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) flat tokens -> (y, aux_loss). Dispatch per mcfg.dispatch_impl."""
     impl = mcfg.dispatch_impl
-    if impl == "onehot":
-        y, aux = _moe_onehot(p, x, cfg, mcfg)
-    elif impl == "coo":
-        y, aux = _moe_coo(p, x, cfg, mcfg)
-    elif impl == "bsr":
-        y, aux = _moe_bsr(p, x, cfg, mcfg)
+    mesh = dtensor_mesh(x)
+    if mesh is not None:
+        y, aux = _moe_sharded(p, x, cfg, mcfg, mesh)
     elif impl == "grouped":
         y, aux = _moe_grouped(p, x, cfg, mcfg)
     else:
-        y, aux = _moe_sort(p, x, cfg, mcfg)
+        y, aux = _moe_flat(p, x, mcfg)
     if "shared" in p:
         from .layers import apply_mlp
         y = y + apply_mlp(p["shared"], x)
-    return y, aux
+    return logical_constraint(y, ("batch", None)), aux
+
+
+def _moe_flat(p, x, mcfg):
+    """One routing over every token, then the lane of ``mcfg.dispatch_impl``
+    ('sort' for 'grouped' with one group)."""
+    E, K = mcfg.n_experts, mcfg.top_k
+    C = _capacity(x.shape[0], K, E, mcfg.capacity_factor)
+    topw, tope, aux = _route(p, x, mcfg)
+    return _lane(mcfg.dispatch_impl)(p["experts"], x, tope, topw, E, C), aux
 
 
 # ----------------------------------------------------------- grouped path ----
@@ -148,7 +181,6 @@ def _num_groups(mcfg, T):
     """Groups = DP degree (pod x data) of the ambient mesh, else 1."""
     if getattr(mcfg, "n_groups", 0):
         return mcfg.n_groups
-    from repro_torch.distributed.sharding import axis_sizes, current_mesh
     mesh = current_mesh()
     if mesh is None:
         return 1
@@ -167,12 +199,12 @@ def _moe_grouped(p, x, cfg, mcfg):
     E, K = mcfg.n_experts, mcfg.top_k
     G = _num_groups(mcfg, T)
     if G == 1:
-        return _moe_sort(p, x, cfg, mcfg)
+        return _moe_flat(p, x, mcfg)
     Tg = T // G
     C = _capacity(Tg, K, E, mcfg.capacity_factor)
     dev = x.device
 
-    x3 = logical_constraint(x.reshape(G, Tg, D), ("batch", None, None))
+    x3 = logical_constraint(split_dim(x, 0, (G, Tg)), ("batch", None, None))
     logits = x3.float() @ p["router"]                        # (G, Tg, E)
     gates = torch.softmax(logits, dim=-1)
     topw, tope = top_k(gates, K)                             # (G, Tg, K)
@@ -207,8 +239,21 @@ def _experts_ffn_grouped(p, xe):
 
 # ------------------------------------------------------------- sort path ----
 
-def _dispatch_indices(tope, topw, T, E, K, C):
-    """Shared routing -> slot assignment. Returns (slot, tok, w, keep) flat."""
+class Part(NamedTuple):
+    """The slots one rank computes: experts ``[e0, e0 + E)`` and capacity
+    positions ``[c0, c0 + C)`` of each."""
+
+    e0: int
+    E: int
+    c0: int
+    C: int
+
+
+def _dispatch_indices(tope, topw, T, E, K, C, part: Optional[Part] = None):
+    """Shared routing -> slot assignment. Returns (slot, tok, w, keep) flat.
+    With ``part`` only its slots are kept, numbered ``e * part.C + pos``
+    from its first expert and position (``part.E * part.C`` for every
+    other entry)."""
     dev = tope.device
     e_flat = tope.reshape(-1)                                # (T*K,)
     t_flat = torch.arange(T, device=dev)[:, None].expand(T, K).reshape(-1)
@@ -218,24 +263,28 @@ def _dispatch_indices(tope, topw, T, E, K, C):
     # position within the expert's segment = index - first occurrence of e_s
     pos = torch.arange(T * K, device=dev) - torch.searchsorted(e_s, e_s, side="left")
     keep = pos < C
+    if part is not None:
+        e_s, pos = e_s - part.e0, pos - part.c0
+        keep &= (e_s >= 0) & (e_s < part.E) & (pos >= 0) & (pos < part.C)
+        E, C = part.E, part.C
     slot = torch.where(keep, e_s * C + pos, torch.full((), E * C, device=dev))
     return slot, t_s, w_s, keep
 
 
-def _moe_sort(p, x, cfg, mcfg):
+def _sort_lane(experts, x, tope, topw, E, C, part=None):
+    """The 'sort' lane's dispatch, expert FFN and combine of the slots of
+    ``part`` (all of them by default)."""
     T, D = x.shape
-    E, K = mcfg.n_experts, mcfg.top_k
-    C = _capacity(T, K, E, mcfg.capacity_factor)
-    topw, tope, aux = _route(p, x, mcfg)
-    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C)
-
+    K = tope.shape[-1]
+    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C, part)
+    E, C = (part.E, part.C) if part is not None else (E, C)
     xe = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
     xe[slot] = x[t_s]
     xe = xe[: E * C].reshape(E, C, D)
     xe = logical_constraint(xe, ("experts", "expert_cap", None))
-    h = _experts_ffn(p["experts"], xe)
+    h = _experts_ffn(experts, xe)
     h = logical_constraint(h, ("experts", "expert_cap", None))
-    return _combine_entries(h, slot, t_s, w_s, keep, T, K).to(x.dtype), aux
+    return _combine_entries(h, slot, t_s, w_s, keep, T, K).to(x.dtype)
 
 
 def _combine_entries(h, slot, t_s, w_s, keep, T, K):
@@ -250,22 +299,21 @@ def _combine_entries(h, slot, t_s, w_s, keep, T, K):
 
 # ----------------------------------------------------------- onehot path ----
 
-def _moe_onehot(p, x, cfg, mcfg):
+def _onehot_lane(experts, x, tope, topw, E, C, part=None):
     """GShard-style dense dispatch (vendor path; O(T*E*C*D))."""
     T, D = x.shape
-    E, K = mcfg.n_experts, mcfg.top_k
-    C = _capacity(T, K, E, mcfg.capacity_factor)
-    topw, tope, aux = _route(p, x, mcfg)
-    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C)
+    K = tope.shape[-1]
+    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C, part)
+    E, C = (part.E, part.C) if part is not None else (E, C)
     dev = x.device
     disp = torch.zeros((T, E * C + 1), dtype=x.dtype, device=dev)
     disp[t_s, slot] = keep.to(x.dtype)
     comb = torch.zeros((T, E * C + 1), dtype=torch.float32, device=dev)
     comb[t_s, slot] = torch.where(keep, w_s, torch.zeros((), device=dev))
     xe = torch.einsum("ts,td->sd", disp[:, : E * C], x).reshape(E, C, D)
-    h = _experts_ffn(p["experts"], xe).reshape(E * C, D)
+    h = _experts_ffn(experts, xe).reshape(E * C, D)
     y = torch.einsum("ts,sd->td", comb[:, : E * C].to(h.dtype), h)
-    return y.to(x.dtype), aux
+    return y.to(x.dtype)
 
 
 # -------------------------------------------------------------- coo path ----
@@ -290,24 +338,22 @@ def coo_combine(slot, t_s, w_s, keep, T, E, C, dtype):
     return COO(t_s.to(torch.int32), slot.to(torch.int32), w, (T, E * C + 1))
 
 
-def _moe_coo(p, x, cfg, mcfg):
+def _coo_lane(experts, x, tope, topw, E, C, part=None):
     """Dispatch/combine as COO SpMM through ``SparseOperator``, so the
     ambient policy picks the kernel backend."""
     from repro_torch.core.operator import SparseOperator
 
     T, D = x.shape
-    E, K = mcfg.n_experts, mcfg.top_k
-    C = _capacity(T, K, E, mcfg.capacity_factor)
-    topw, tope, aux = _route(p, x, mcfg)
-    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C)
-
+    K = tope.shape[-1]
+    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C, part)
+    E, C = (part.E, part.C) if part is not None else (E, C)
     P_disp = coo_dispatch(slot, t_s, keep, T, E, C, x.dtype)
     xe = (SparseOperator(P_disp) @ x).reshape(E, C, D)
-    h = _experts_ffn(p["experts"], xe).reshape(E * C, D)
+    h = _experts_ffn(experts, xe).reshape(E * C, D)
     P_comb = coo_combine(slot, t_s, w_s, keep, T, E, C, h.dtype)
     h_pad = torch.cat([h, torch.zeros((1, D), dtype=h.dtype, device=h.device)])
     y = SparseOperator(P_comb) @ h_pad
-    return y.to(x.dtype), aux
+    return y.to(x.dtype)
 
 
 # -------------------------------------------------------------- bsr path ----
@@ -355,22 +401,96 @@ def bsr_combine(slot, tope, w_s, keep, T, E, C, dtype):
     return BSR(bcols, blocks, (T, E * C + 1))
 
 
-def _moe_bsr(p, x, cfg, mcfg):
+def _bsr_lane(experts, x, tope, topw, E, C, part=None):
     """Dispatch/combine as BSR SpMM through ``SparseOperator``: the same
     slot assignment as 'sort'/'coo', the containers laid out on the device
     from the routing indices."""
     from repro_torch.core.operator import SparseOperator
 
     T, D = x.shape
-    E, K = mcfg.n_experts, mcfg.top_k
-    C = _capacity(T, K, E, mcfg.capacity_factor)
-    topw, tope, aux = _route(p, x, mcfg)
-    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C)
-
+    K = tope.shape[-1]
+    slot, t_s, w_s, keep = _dispatch_indices(tope, topw, T, E, K, C, part)
+    E, C = (part.E, part.C) if part is not None else (E, C)
     P_disp = bsr_dispatch(slot, t_s, keep, T, E, C, x.dtype)
     xe = (SparseOperator(P_disp) @ x).reshape(E, C, D)
-    h = _experts_ffn(p["experts"], xe).reshape(E * C, D)
+    h = _experts_ffn(experts, xe).reshape(E * C, D)
     P_comb = bsr_combine(slot, tope, w_s, keep, T, E, C, h.dtype)
     h_pad = torch.cat([h, torch.zeros((1, D), dtype=h.dtype, device=h.device)])
     y = SparseOperator(P_comb) @ h_pad
-    return y.to(x.dtype), aux
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------- on a device mesh ----
+
+def _lane(impl: str):
+    """The lane of a ``dispatch_impl`` ('sort' for 'grouped', run once a
+    group, and for any other name)."""
+    return {"onehot": _onehot_lane, "coo": _coo_lane, "bsr": _bsr_lane}.get(impl, _sort_lane)
+
+
+def _entry_axes(spec, d: int) -> Tuple[str, ...]:
+    e = spec[d] if d < len(spec) else None
+    return () if e is None else (e if isinstance(e, tuple) else (e,))
+
+
+def _coord(mesh, axes) -> int:
+    """This rank's chunk index along ``axes`` (major first)."""
+    sizes, i = axis_sizes(mesh), 0
+    for a in axes:
+        i = i * sizes[a] + mesh.get_local_rank(a)
+    return i
+
+
+def _moe_sharded(p, x, cfg, mcfg, mesh):
+    """The MoE on DTensors, expert-parallel (see the module docstring).
+
+    The router and the aux loss run on DTensors. One ``local_map`` region
+    takes the gates and the tokens whole (gathered over every axis) and the
+    expert weights split along the expert dim over the ``experts`` axes,
+    and gives this rank's part of the combine (its experts, its capacity
+    chunk) as a partial sum over the ``experts`` and ``expert_cap`` axes,
+    with the picks per expert for the aux loss. The gradients of the gates,
+    the tokens and the weights come back partial over those axes too.
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    T, D = x.shape
+    E, K = mcfg.n_experts, mcfg.top_k
+    impl = mcfg.dispatch_impl
+    G = _num_groups(mcfg, T) if impl == "grouped" else 1
+    C = _capacity(T // G, K, E, mcfg.capacity_factor)
+    sizes = axis_sizes(mesh)
+    spec = spec_for((E, C, D), ("experts", "expert_cap", None), mesh)
+    e_axes, c_axes = _entry_axes(spec, 0), _entry_axes(spec, 1)
+    El = E // math.prod(sizes[a] for a in e_axes)
+    if (El * C // math.prod(sizes[a] for a in c_axes)) % BSR_BLOCK:
+        c_axes = ()     # a capacity chunk is a whole number of 8-row blocks
+    Cl = C // math.prod(sizes[a] for a in c_axes)
+    names = mesh.mesh_dim_names
+    split = set(e_axes) | set(c_axes)
+    whole = tuple(Replicate() for _ in names)
+    part_sum = tuple(Partial() if n in split else Replicate() for n in names)
+    w_in = tuple(Shard(0) if n in e_axes else Replicate() for n in names)
+    w_grad = tuple(Shard(0) if n in e_axes else Partial() if n in c_axes else Replicate()
+                   for n in names)
+
+    def region(gates, x, w_gate, w_up, w_down):
+        part = Part(_coord(mesh, e_axes) * El, El, _coord(mesh, c_axes) * Cl, Cl)
+        topw, tope, f = _top(gates, K)
+        lane, experts = _lane(impl), {"w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+        if G == 1:
+            return lane(experts, x, tope, topw, E, C, part), f
+        Tg = T // G
+        ys = [lane(experts, x[g * Tg:(g + 1) * Tg], tope[g * Tg:(g + 1) * Tg],
+                   topw[g * Tg:(g + 1) * Tg], E, C, part) for g in range(G)]
+        return torch.cat(ys), f
+
+    gates = _gates(p, x)
+    ex = p["experts"]
+    y, f = local_map(region, out_placements=(part_sum, whole),
+                     in_placements=(whole, whole, w_in, w_in, w_in),
+                     in_grad_placements=(part_sum, part_sum, w_grad, w_grad, w_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        gates, x, ex["w_gate"], ex["w_up"], ex["w_down"])
+    return y, _aux(gates, f)

@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import dtensor_mesh, local_region, merge_dims, split_dim
+
 from .layers import Init, dense_init
 
 
@@ -68,7 +70,7 @@ def _ddlerp(p, x, xx):
     xd = xx - x
     base = x + xd * p["mu_x"].to(x.dtype)
     z = torch.tanh(base @ p["ddl_w1"].to(x.dtype))          # (...,5*lora)
-    z = z.reshape(*z.shape[:-1], 5, -1)
+    z = split_dim(z, -1, (5, z.shape[-1] // 5))
     off = torch.einsum("...fl,fld->...fd", z, p["ddl_w2"].to(x.dtype))
     mix = p["mu"].to(x.dtype) + off                         # (...,5,D)
     return tuple(x + xd * mix[..., i, :] for i in range(5))  # r,w,k,v,g
@@ -81,6 +83,15 @@ def _wkv_step(S, r, k, v, w, u):
     y = torch.einsum("bhi,bhij->bhj", r, S + u[None, :, :, None] * kv)
     S = w[..., :, None] * S + kv
     return S, y
+
+
+def _wkv_scan(Sc, rf, kf, vf, w, u):
+    """The WKV recurrence over the sequence: (y (B,S,H,hd), final state)."""
+    ys = []
+    for t in range(rf.shape[1]):
+        Sc, y = _wkv_step(Sc, rf[:, t], kf[:, t], vf[:, t], w[:, t], u)
+        ys.append(y)
+    return torch.stack(ys, dim=1), Sc
 
 
 def _shifted(x, prev):
@@ -98,29 +109,33 @@ def rwkv_time_mix(p, x, cfg, state: Optional[RWKVState]):
     H, hd = _dims(cfg)
     xx = _shifted(x, state.tm_shift if state is not None else None)
     xr, xw, xk, xv, xg = _ddlerp(p, x, xx)
-    r = (xr @ p["tm_r"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (xk @ p["tm_k"].to(x.dtype)).reshape(B, S, H, hd)
-    v = (xv @ p["tm_v"].to(x.dtype)).reshape(B, S, H, hd)
+    r = split_dim(xr @ p["tm_r"].to(x.dtype), 2, (H, hd))
+    k = split_dim(xk @ p["tm_k"].to(x.dtype), 2, (H, hd))
+    v = split_dim(xv @ p["tm_v"].to(x.dtype), 2, (H, hd))
     g = F.silu(xg @ p["tm_g"].to(x.dtype))
     # data-dependent decay per channel
     wlog = p["w0"] + (torch.tanh(xw @ p["wd_w1"].to(x.dtype)).float()
                       @ p["wd_w2"].float())
-    w = torch.exp(-torch.exp(wlog)).reshape(B, S, H, hd)    # in (0,1)
+    w = split_dim(torch.exp(-torch.exp(wlog)), 2, (H, hd))  # in (0,1)
     u = p["bonus_u"]
 
     Sc = state.wkv if state is not None else torch.zeros(
         (B, H, hd, hd), dtype=torch.float32, device=x.device)
     rf, kf, vf = r.float(), k.float(), v.float()
-    ys = []
-    for t in range(S):
-        Sc, y = _wkv_step(Sc, rf[:, t], kf[:, t], vf[:, t], w[:, t], u)
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(B, S, H * hd)
+    mesh = dtensor_mesh(x)
+    if mesh is None:
+        y, Sc = _wkv_scan(Sc, rf, kf, vf, w, u)
+    else:   # the recurrence on each rank's batch rows and heads
+        seq = ("batch", None, "heads_out", None)
+        y, Sc = local_region(_wkv_scan, mesh, (Sc, rf, kf, vf, w, u),
+                             (("batch", "heads_out", None, None), seq, seq, seq, seq,
+                              ("heads_out", None)), outs=(1, 0))
+    y = merge_dims(y, 2)
     # per-head group norm (over hd within a head), population variance
-    yf = y.float().reshape(B, S, H, hd)
+    yf = split_dim(y.float(), 2, (H, hd))
     mu = yf.mean(-1, keepdim=True)
     var = yf.var(-1, keepdim=True, correction=0)
-    yf = ((yf - mu) * torch.rsqrt(var + 64e-5)).reshape(B, S, H * hd)
+    yf = merge_dims((yf - mu) * torch.rsqrt(var + 64e-5), 2)
     y = (yf * p["ln_x_w"] + p["ln_x_b"]).to(x.dtype)
     out = (y * g) @ p["tm_o"].to(x.dtype)
     return out, x[:, -1, :], Sc

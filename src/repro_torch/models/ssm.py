@@ -12,6 +12,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import dtensor_mesh, local_region
+
 from .layers import Init, dense_init
 
 
@@ -56,6 +58,15 @@ def _ssm_step(h, xt, dt, Bt, Ct, A):
     return h, y
 
 
+def _scan(h, xcf, dt, Bc, Cc, A):
+    """The recurrence over the sequence: (y (B,S,di) f32, final state)."""
+    ys = []
+    for t in range(xcf.shape[1]):
+        h, y = _ssm_step(h, xcf[:, t], dt[:, t], Bc[:, t], Cc[:, t], A)
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
+
+
 def _pre_scan(p, x, cfg, conv_ctx=None):
     """Shared projections; x: (B,S,D). Returns the scan inputs and the new
     conv window."""
@@ -82,18 +93,22 @@ def mamba_forward(p, x, cfg, state: Optional[MambaState] = None
                   ) -> Tuple[torch.Tensor, MambaState]:
     """Full-sequence forward. x: (B,S,D) -> (B,S,D), final state."""
     d_inner, _, d_state, _ = _dims(cfg)
-    B, S, _ = x.shape
+    B = x.shape[0]
     A = -torch.exp(p["A_log"])
     conv_ctx = state.conv if state is not None else None
     xc, z, dt, Bc, Cc, new_ctx = _pre_scan(p, x, cfg, conv_ctx)
     h = state.ssm if state is not None else torch.zeros(
         (B, d_inner, d_state), dtype=torch.float32, device=x.device)
     xcf = xc.float()
-    ys = []
-    for t in range(S):
-        h, y = _ssm_step(h, xcf[:, t], dt[:, t], Bc[:, t], Cc[:, t], A)
-        ys.append(y)
-    y = torch.stack(ys, dim=1).to(x.dtype)                  # (B,S,di)
+    mesh = dtensor_mesh(x)
+    if mesh is None:
+        y, h = _scan(h, xcf, dt, Bc, Cc, A)
+    else:   # the recurrence on each rank's batch rows and channels
+        seq, st = ("batch", None, "ffn_hidden"), ("batch", None, None)
+        y, h = local_region(_scan, mesh, (h, xcf, dt, Bc, Cc, A),
+                            (("batch", "ffn_hidden", None), seq, seq, st, st,
+                             ("ffn_hidden", None)), outs=(1, 0))
+    y = y.to(x.dtype)                                       # (B,S,di)
     y = y + xc * p["D"].to(x.dtype)
     y = y * F.silu(z)
     out = y @ p["out_proj"].to(x.dtype)

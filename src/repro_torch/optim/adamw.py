@@ -13,6 +13,16 @@ leaf by leaf and in chunks of ``CHUNK`` elements: at full width one expert
 leaf of qwen3-moe-235b-a22b is 128 x 4096 x 1536 f32 (3.22 GB), and a
 functional update would hold about six temporaries of that size per leaf.
 Here the temporaries are a chunk's. It returns the same (updated) trees.
+
+On DTensors (the model's sharding over a ``DeviceMesh``) the update runs on
+each leaf's local shard (``to_local()``), chunk by chunk as above, so no
+sharded leaf is flattened (which would redistribute it). A gradient in
+other placements than its moments (ZeRO-2's) is first redistributed to
+theirs, and a parameter kept in other placements than its master (ZeRO's
+bf16 parameters beside an FSDP master) is written back from the master
+through a redistribute. :func:`global_norm` sums every leaf's local
+squares and adds them over the ranks that hold distinct shards of it only
+(see there).
 """
 from __future__ import annotations
 
@@ -61,15 +71,26 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def init(params, keep_master: bool = False) -> AdamWState:
+def init(params, keep_master: bool = False, shardings=None) -> AdamWState:
     """Zero moments (f32) like ``params``, step 0 on their device, and the
-    f32 master when ``keep_master``."""
+    f32 master when ``keep_master``. DTensor params give DTensor moments and
+    master of their placements, or of ``shardings`` (``{path: placements}``,
+    the reference's FSDP optimizer rules) where given."""
     first = leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     master = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params) if keep_master \
         else None
-    return AdamWState(torch.zeros((), dtype=torch.int32, device=first.device),
-                      tree_map(zeros, params), tree_map(zeros, params), master)
+    state = AdamWState(torch.zeros((), dtype=torch.int32, device=first.device),
+                       tree_map(zeros, params), tree_map(zeros, params), master)
+    if shardings is None:
+        return state
+    from repro_torch.tree import map_with_path
+
+    def place(tree):
+        return map_with_path(lambda k, t: t.redistribute(t.device_mesh, shardings[k]), tree)
+
+    return AdamWState(state.step, place(state.m), place(state.v),
+                      place(master) if master is not None else None)
 
 
 def _square_sum(x: torch.Tensor) -> torch.Tensor:
@@ -79,11 +100,47 @@ def _square_sum(x: torch.Tensor) -> torch.Tensor:
     return sum(torch.sum(torch.square(c.to(torch.float32))) for c in flat.split(CHUNK))
 
 
+def _split_dims(t) -> tuple:
+    """The mesh dims of size > 1 over which a DTensor holds distinct shards
+    (``()`` for a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import is_shard
+
+    if not isinstance(t, DTensor):
+        return ()
+    mesh = t.device_mesh
+    return tuple(i for i, pl in enumerate(t.placements) if is_shard(pl) and mesh.size(i) > 1)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (a leaf above
-    ``CHUNK`` elements summed chunk by chunk)."""
+    ``CHUNK`` elements summed chunk by chunk).
+
+    On DTensors each leaf's local square sum is added, in leaf order, into
+    the running sum of the leaves split over the same mesh dims; each such
+    sum is then added over those dims only (one all-reduce each), so a
+    leaf replicated over a dim counts once, not once per rank. Where every
+    dim that splits a leaf has size 1 this is the one-device sum, bit for
+    bit. The result is a plain tensor, the same on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
     with torch.no_grad():
-        return torch.sqrt(sum(_square_sum(x) for x in leaves(tree)))
+        groups, mesh = {}, None
+        for x in leaves(tree):
+            dims = _split_dims(x)
+            if isinstance(x, DTensor):
+                mesh, x = x.device_mesh, x.to_local()
+            s = _square_sum(x)
+            groups[dims] = s if dims not in groups else groups[dims] + s
+        total = None
+        for dims, s in groups.items():
+            if dims:
+                s = DTensor.from_local(s, mesh, [Partial() if i in dims else Replicate()
+                                                 for i in range(mesh.ndim)], run_check=False)
+                s = s.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+            total = s if total is None else total + s
+        return torch.sqrt(total)
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -91,6 +148,33 @@ def _flat(t: torch.Tensor) -> torch.Tensor:
         raise ValueError("adamw.update: parameters, moments and masters must be contiguous "
                          "(they are updated in place)")
     return t.view(-1)
+
+
+def _locals(p, g, m, v, mp):
+    """The local shards the update runs on, and a function that writes a
+    parameter kept in other placements than its moments back into it."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(m, DTensor):
+        return p, g, m, v, mp, lambda: None
+    mesh, pl = m.device_mesh, m.placements
+    if g.placements != pl:
+        g = g.redistribute(mesh, pl)
+    if mp is not None and mp.placements != pl:
+        raise ValueError("adamw.update: the master and the moments differ in placements")
+    if p.placements == pl:
+        return p.to_local(), g.to_local(), m.to_local(), v.to_local(), \
+            mp.to_local() if mp is not None else None, lambda: None
+    # the parameter's shard lives elsewhere: update a copy in the moments'
+    # placements, then redistribute it into the parameter
+    work = DTensor.from_local(p.redistribute(mesh, pl).to_local().clone(), mesh, pl,
+                              run_check=False, shape=p.shape, stride=p.stride())
+
+    def put_back():
+        p.to_local().copy_(work.redistribute(p.device_mesh, p.placements).to_local())
+
+    return work.to_local(), g.to_local(), m.to_local(), v.to_local(), \
+        mp.to_local() if mp is not None else None, put_back
 
 
 def update(cfg: AdamWConfig, grads, state: AdamWState, params):
@@ -111,7 +195,9 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
         flat_mp = leaves(state.master) if state.master is not None else [None] * len(flat_p)
         if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v) == len(flat_mp):
             raise ValueError("adamw.update: params, grads and state differ in structure")
-        for p, g, m, v, mp in zip(flat_p, flat_g, flat_m, flat_v, flat_mp):
+        for p_, g, m, v, mp in zip(flat_p, flat_g, flat_m, flat_v, flat_mp):
+            # DTensors: every operand on the moments' placements, locally
+            p, g, m, v, mp, put_back = _locals(p_, g, m, v, mp)
             pf, gf, mf, vf = _flat(p), g.reshape(-1), _flat(m), _flat(v)
             mpf = _flat(mp) if mp is not None else None
             own = mpf is None and p.dtype is torch.float32  # the parameter is its master
@@ -137,5 +223,6 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
                 mpc.sub_(d.mul_(lr))
                 if not own:
                     pf[sl].copy_(mpc)
+            put_back()
         return params, AdamWState(step, state.m, state.v, state.master), \
             {"grad_norm": gnorm, "lr": lr}

@@ -91,6 +91,17 @@ class CollectiveStats:
     def corrected_wire(self, loop_multiplier: int) -> int:
         return self.entry_wire + self.body_wire * loop_multiplier
 
+    def add_scaled(self, coef: int, other: "CollectiveStats") -> None:
+        """``self += coef * other``, kind by kind (whole numbers)."""
+        for kind, b in other.bytes_by_kind.items():
+            self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + coef * b
+        for kind, n in other.count_by_kind.items():
+            self.count_by_kind[kind] = self.count_by_kind.get(kind, 0) + coef * n
+        self.entry_bytes += coef * other.entry_bytes
+        self.body_bytes += coef * other.body_bytes
+        self.entry_wire += coef * other.entry_wire
+        self.body_wire += coef * other.body_wire
+
     def add(self, kind: str, operand_bytes: int, result_bytes: int, body: bool) -> None:
         wire = _wire_estimate(kind, operand_bytes, result_bytes)
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + operand_bytes
@@ -141,6 +152,14 @@ class CountingMode(TorchDispatchMode):
     """Counts the FLOPs, bytes and collectives of everything dispatched
     while it is active, into ``self.counts``.
 
+    An op on DTensors is handed on to DTensor (the mode answers
+    ``NotImplemented``), so the mode sees what DTensor runs for it: the
+    local ops and every collective of a redistribute, implicit or not, on
+    the local shards (per-device bytes). With ``collectives_only`` it
+    counts those collectives and nothing else: DTensor's sharding
+    propagation runs ops of its own (on global shapes, on a cache miss),
+    which would pollute FLOPs and bytes.
+
     Example:
         >>> a, b = torch.empty(64, 32, device="meta"), torch.empty(32, 16, device="meta")
         >>> with CountingMode() as c:
@@ -149,13 +168,14 @@ class CountingMode(TorchDispatchMode):
         (65536, 14336)
     """
 
-    def __init__(self):
+    def __init__(self, collectives_only: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
         self._flops = flop_registry
         self.counts = Counts()
         self._body = 0
+        self._collectives_only = collectives_only
 
     @contextlib.contextmanager
     def body(self):
@@ -168,13 +188,18 @@ class CountingMode(TorchDispatchMode):
             self._body -= 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         c = self.counts
-        c.ops += 1
         packet = func._overloadpacket
-        if packet in self._flops:
-            c.flops += int(self._flops[packet](*args, **kwargs, out_val=out))
+        if not self._collectives_only:
+            c.ops += 1
+            if packet in self._flops:
+                c.flops += int(self._flops[packet](*args, **kwargs, out_val=out))
         if func.namespace == "_c10d_functional":
             name = packet.__name__
             if name == "wait_tensor":
@@ -186,7 +211,7 @@ class CountingMode(TorchDispatchMode):
                 result = sum(tensor_bytes(t) for t in tree_leaves(out)
                              if isinstance(t, torch.Tensor))
                 c.collectives.add(kind, operand, result, self._body > 0)
-        if not func.is_view:
+        if not func.is_view and not self._collectives_only:
             c.bytes_accessed += sum(tensor_bytes(t) for t in tree_leaves((args, kwargs, out))
                                     if isinstance(t, torch.Tensor))
         return out

@@ -2,8 +2,15 @@
 port of ``repro.train.trainer``.
 
 Drives ``make_train_step`` on one device (default the card; ``"cpu"`` for
-the host). Failure injection (``fail_at``) exercises the Supervisor restart
-path for real: the failed step raises, the Supervisor restores the latest
+the host), or on a ``DeviceMesh`` (``mesh=``, as the reference's jit with
+``params_shardings``): params drawn on every rank and kept as DTensors of
+their placements, the AdamW moments (and master) in the same placements,
+every step on batches split over the batch axes, under
+``sharding_context(mesh)``. ``save`` gathers each leaf on every rank and
+rank 0 writes; ``restore`` puts the leaves back with the current mesh's
+placements (``CheckpointManager.restore_sharded``). Failure injection
+(``fail_at``) exercises the Supervisor restart path for real: the failed
+step raises, the Supervisor restores the latest
 checkpoint and replays data from the cursor, so the loss curves with and
 without the failure match (``tests/test_torch_train.py``; on the card
 ``tests/test_torch_train_cuda.py`` and ``chip_smoke.py`` phase 15).
@@ -38,6 +45,7 @@ from repro_torch.models import build_model
 from repro_torch.optim import adamw
 from repro_torch.resilience.monitor import StragglerMonitor, Supervisor
 from repro_torch.train.steps import make_train_step
+from repro_torch.distributed.sharding import params_shardings, sharding_context
 from repro_torch.tree import tree_map
 
 
@@ -75,13 +83,13 @@ def deterministic(device: torch.device):
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  ocfg: Optional[adamw.AdamWConfig] = None, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("Trainer: no mesh in the port yet; the model's sharding "
-                                      "over several cards is ROADMAP item 9")
         self.cfg = cfg
         self.tcfg = tcfg
         self.ocfg = ocfg or adamw.AdamWConfig(total_steps=tcfg.n_steps)
-        self.mesh = None
+        self.mesh = mesh
+        if mesh is not None:    # the mesh's device type decides (one card a rank)
+            device = "cpu" if mesh.device_type == "cpu" else \
+                torch.device("cuda", torch.cuda.current_device())
         self.device = resolve_device(device)
         if self.device.type == "cuda" and not os.environ.get("CUBLAS_WORKSPACE_CONFIG"):
             warnings.warn("Trainer: CUBLAS_WORKSPACE_CONFIG is unset, so cuBLAS may not repeat "
@@ -90,15 +98,26 @@ class Trainer:
                           stacklevel=2)
         self.model = build_model(cfg, device=self.device)
         self.data = SyntheticTokens(
-            cfg.vocab, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed,
+            cfg.vocab, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed, mesh=mesh,
             frontend=cfg.frontend, frontend_tokens=cfg.frontend_tokens,
             d_model=cfg.d_model, device=self.device)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, tcfg.keep_last) if tcfg.ckpt_dir else None
         self.straggler = StragglerMonitor()
         self.history: List[Dict[str, float]] = []
         self._step = make_train_step(self.model, self.ocfg, tcfg.microbatches)
-        params = self.model.init(tcfg.seed)
+        self.shardings = None
+        if mesh is not None:
+            self.shardings = params_shardings(self._template()[0], mesh)
+        params = self.model.init(tcfg.seed, mesh=mesh, shardings=self.shardings)
         self.state = (params, adamw.init(params, self.ocfg.keep_master))
+
+    def _template(self):
+        """The params and AdamW state's shapes, on the ``meta`` device."""
+        pshapes = build_model(self.cfg, device="meta").init()
+        return pshapes, adamw.init(pshapes, self.ocfg.keep_master)
+
+    def _mesh_ctx(self):
+        return sharding_context(self.mesh) if self.mesh is not None else contextlib.nullcontext()
 
     # ------------------------------------------------------- persistence --
 
@@ -114,16 +133,24 @@ class Trainer:
     def restore(self):
         assert self.ckpt is not None
         self.ckpt.wait()
+        if self.mesh is not None:   # rank 0's write is done before any rank reads
+            import torch.distributed as dist
+
+            dist.barrier()
         step = self.ckpt.latest_step()
         if step is None:
             return self.state, 0
         man = self.ckpt.manifest(step)
         assert man["config_hash"] == config_hash(self.cfg), "checkpoint/config mismatch"
         # the template's shapes from the meta device: nothing allocated
-        pshapes = build_model(self.cfg, device="meta").init()
-        oshapes = adamw.init(pshapes, self.ocfg.keep_master)
-        tree = self.ckpt.restore({"params": pshapes, "opt": oshapes}, step)
-        tree = tree_map(lambda t: t.to(self.device), tree)
+        pshapes, oshapes = self._template()
+        template = {"params": pshapes, "opt": oshapes}
+        if self.mesh is None:
+            tree = tree_map(lambda t: t.to(self.device), self.ckpt.restore(template, step))
+        else:
+            placed = {f"{part}/{k}": v for k, v in self.shardings.items()
+                      for part in ("params", "opt/m", "opt/v", "opt/master")}
+            tree = self.ckpt.restore_sharded(template, placed, step, mesh=self.mesh)
         self.data.resume(DataState.from_dict(man["data_state"]))
         self.state = (tree["params"], tree["opt"])
         return self.state, step
@@ -165,9 +192,9 @@ class Trainer:
             checkpoint_every=tcfg.checkpoint_every,
             straggler=self.straggler,
         )
-        with deterministic(self.device):
+        with deterministic(self.device), self._mesh_ctx():
             self.state, end = sup.run(self.state, start, tcfg.n_steps)
-        if self.ckpt is not None:
-            self.save(end)
-            self.ckpt.wait()
+            if self.ckpt is not None:
+                self.save(end)
+                self.ckpt.wait()
         return self.history

@@ -7,9 +7,12 @@ back from their raw 2-byte records), and one written by the port restores
 into the reference (f32 and int leaves: a port bf16 leaf is its uint16
 bits, which the reference reads as such). Twins of
 ``tests/test_checkpoint.py``'s roundtrip, retention, no-tmp-dirs, async and
-shape-mismatch tests. Data: ``SyntheticTokens.batch_at`` gives the
-reference's arrays bit for bit for every frontend, and so does a resumed
-stream.
+shape-mismatch tests, and of its ``test_elastic_restore_across_mesh_shapes``
+(saved from a (4,) mesh of four ``gloo`` ranks, restored onto (2, 2) with
+``("data", "model")`` placements: equal values; a batch split over the
+mesh by ``SyntheticTokens(mesh=)`` too). Data: ``SyntheticTokens.batch_at``
+gives the reference's arrays bit for bit for every frontend, and so does a
+resumed stream.
 """
 import dataclasses
 import pathlib
@@ -183,16 +186,51 @@ def test_async_save_snapshots_before_returning(tmp_path):
     assert torch.equal(cm.restore(_tree())["a"], want)
 
 
+ELASTIC = r'''
+def body(rank, world, tmp):
+    import numpy as np
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.mesh import device_mesh
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh_a = device_mesh(("data",), (4,), device="cpu")
+    full = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    x = distribute_tensor(full, mesh_a, [Shard(0)], src_data_rank=None)
+    cm = CheckpointManager(os.path.join(tmp, "ckpt"))
+    cm.save(3, {"w": x})                      # every rank gathers, rank 0 writes
+    dist.barrier()
+    # elastic: new mesh shape (2, 2), another partitioning
+    mesh_b = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    got = cm.restore_sharded({"w": torch.empty(8, 8, device="meta")},
+                             {"w": (Shard(0), Shard(1))}, mesh=mesh_b)["w"]
+    r, c = mesh_b.get_local_rank("data"), mesh_b.get_local_rank("model")
+    batch = SyntheticTokens(64, 8, 4, seed=1, mesh=mesh_b, device="cpu")
+    b = batch._put(batch.batch_at(0))["tokens"]
+    whole = torch.from_numpy(batch.batch_at(0)["tokens"])
+    return {"equal": bool(torch.equal(got.full_tensor(), full)),
+            "placements": [type(p).__name__ for p in got.placements],
+            "local": bool(torch.equal(got.to_local(), full[4 * r:4 * r + 4, 4 * c:4 * c + 4])),
+            "batch": [type(p).__name__ for p in b.placements],
+            "batch_local": bool(torch.equal(b.to_local(), whole[2 * r:2 * r + 2]))}
+'''
+
+
+def test_elastic_restore_across_mesh_shapes(tmp_path):
+    """Save sharded over four ranks, restore onto a 2x2 mesh: the file
+    holds the full logical array, so resharding costs nothing."""
+    from test_torch_sharding import run_ranks
+
+    out = run_ranks(ELASTIC, tmp_path)
+    assert out == {"equal": True, "placements": ["Shard", "Shard"], "local": True,
+                   "batch": ["Shard", "Replicate"], "batch_local": True}
+
+
 def test_shape_mismatch_rejected(tmp_path):
     cm = CheckpointManager(tmp_path)
     cm.save(1, {"x": torch.ones((4,))})
     with pytest.raises(ValueError):
         cm.restore({"x": torch.ones((5,))})
-
-
-def test_restore_sharded_waits_for_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        CheckpointManager(tmp_path).restore_sharded({}, {})
 
 
 @pytest.mark.parametrize("frontend", ["none", "vision", "audio"])
@@ -218,11 +256,6 @@ def test_resumed_stream_is_the_references():
             assert np.array_equal(a[k].numpy(), np.asarray(b[k]))
     assert ours.state == DataState(10) and ref.state.to_dict() == {"step": 10}
     assert DataState.from_dict(ours.state.to_dict()) == ours.state
-
-
-def test_pipeline_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        SyntheticTokens(256, 8, 2, mesh=object(), device="cpu")
 
 
 def test_dataclass_roundtrip():

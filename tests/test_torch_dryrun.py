@@ -8,14 +8,18 @@ subprocess (~15 s) that hands its results over as JSON.
 
 ``build_cell`` on small configs (llama3.2-1b and qwen3-moe-235b-a22b at
 their smoke widths, 2 layers) traces on the ``meta`` device: status OK,
-the reference's JSON keys, the collective entries and the temporaries null
-with their reasons, and the counted FLOPs within 2% of the analytic ones
-for both families (at these widths attention's full S^2, which both
-count, dominates: the counted/analytic ratios read 0.996-1.000; the
-prefill_32k cells, 0.998 and 0.9975, take 16-18 s each and are left to
-``python -m repro_torch.launch.dryrun``). The counts assembled from one to
-three layers of each group (and from three short sequences for the
-recurrent models) equal a trace of the whole step.
+the reference's JSON keys, the temporaries null with their reasons, a
+numeric collective term with its link, and the counted FLOPs within 2% of
+the analytic ones for both families (at these widths attention's full
+S^2, which both count, dominates: the counted/analytic ratios read
+0.996-1.000; the prefill_32k cells, 0.998 and 0.9975, take 16-18 s each and
+are left to ``python -m repro_torch.launch.dryrun``). The counts assembled
+from one to three layers of each group (and from three short sequences for
+the recurrent models) equal a trace of the whole step; so do the
+collectives assembled from traces on the production ``DeviceMesh`` (count
+and bytes by kind). One MLP layer's all-reduce bytes equal a count by hand
+from the rules. Every trace on a ``DeviceMesh`` runs in one subprocess
+(the ``"fake"`` process group is process-global), handed back as JSON.
 """
 import json
 
@@ -189,20 +193,81 @@ REF_ROOFLINE_KEYS = {"flops_per_device", "hbm_bytes_per_device", "collective_byt
 FLOPS_RTOL = {"dense": 0.02, "moe": 0.02}
 
 
-@pytest.mark.parametrize("arch,shape_name", [
-    ("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k"),
-    ("qwen3-moe-235b-a22b", "train_4k"), ("qwen3-moe-235b-a22b", "decode_32k"),
-])
-def test_build_cell_on_meta(arch, shape_name):
+SMOKE_CELLS = [("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k"),
+               ("qwen3-moe-235b-a22b", "train_4k"), ("qwen3-moe-235b-a22b", "decode_32k")]
+
+MESH_CODE = r"""
+import json
+from repro_torch.configs import ShapeCell, get_config, get_smoke_config
+from repro_torch.distributed.sharding import (distribute, logical_constraint, named_sharding,
+                                              params_shardings, sharding_context)
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import mesh_scope
+from repro_torch.models.layers import Init, apply_mlp, init_mlp
+from repro_torch.roofline.analysis import CountingMode
+import torch
+
+def stats(c):
+    return {"count": c.collectives.count_by_kind, "bytes": c.collectives.bytes_by_kind}
+
+out = {"cells": {}}
+for arch, shape in SMOKE_CELLS:
+    out["cells"][f"{arch}|{shape}"] = dryrun.build_cell(arch, shape, False,
+                                                        cfg=get_smoke_config(arch))
+llama = get_smoke_config("llama3.2-1b")
+out["cells"]["fsdp"] = dryrun.build_cell("llama3.2-1b", "train_4k", False,
+                                         cfg=llama.replace(fsdp=True))
+out["cells"]["rwkv"] = dryrun.build_cell("rwkv6-7b", "train_4k", False,
+                                         cfg=get_smoke_config("rwkv6-7b"))
+out["cells"]["multi"] = dryrun.build_cell("qwen3-moe-235b-a22b", "train_4k", True,
+                                          cfg=get_smoke_config("qwen3-moe-235b-a22b"))
+for kind, n in (("prefill", 4), ("train", 5)):
+    cfg = llama.replace(n_layers=n)
+    shape = ShapeCell(f"{kind}_small", 64, 32, kind)
+    got, _ = dryrun._step_counts(cfg, shape, None, False)
+    with mesh_scope(("data", "model"), (16, 16), "meta") as mesh:
+        whole = dryrun._trace_step(cfg, shape, mesh)
+    out[f"depth_{kind}"] = [stats(got), stats(whole)]
+# the enc-dec model: two layer groups, each fitted on its own
+cfg = get_smoke_config("whisper-base").replace(n_layers=5, encoder_layers=5)
+shape = ShapeCell("train_small", 64, 32, "train")
+got, _ = dryrun._step_counts(cfg, shape, None, False)
+with mesh_scope(("data", "model"), (16, 16), "meta") as mesh:
+    whole = dryrun._trace_step(cfg, shape, mesh)
+out["depth_encdec_train"] = [stats(got), stats(whole)]
+cfg = get_config("llama3.2-1b")
+with mesh_scope(("data", "model"), (16, 16), "meta") as mesh:
+    p = {"mlp": init_mlp(Init(None, "meta"), cfg.d_model, cfg.d_ff)}
+    p = distribute(p, mesh, params_shardings(p, mesh))
+    x = torch.empty(256, 128, cfg.d_model, dtype=torch.bfloat16, device="meta")
+    x = distribute({"x": x}, mesh, {"x": named_sharding(x.shape, ("batch", None, None), mesh)})
+    with sharding_context(mesh), CountingMode(collectives_only=True) as mode:
+        logical_constraint(apply_mlp(p["mlp"], x["x"]), ("batch", None, None))
+    out["mlp"] = stats(mode.counts)
+    out["mlp_placements"] = [str(p["mlp"][k].placements) for k in ("w_gate", "w_up", "w_down")]
+print("JSON" + json.dumps(out))
+""".replace("SMOKE_CELLS", repr(SMOKE_CELLS))
+
+
+@pytest.fixture(scope="module")
+def on_mesh():
+    return json.loads(run_py(MESH_CODE, timeout=900).split("JSON", 1)[1])
+
+
+@pytest.mark.parametrize("arch,shape_name", SMOKE_CELLS)
+def test_build_cell_on_meta(arch, shape_name, on_mesh):
     cfg = get_smoke_config(arch)
     assert cfg.n_layers == 2
-    out = dryrun.build_cell(arch, shape_name, multi_pod=False, cfg=cfg)
+    out = on_mesh["cells"][f"{arch}|{shape_name}"]
     assert out["status"] == "OK"
     assert REF_OK_KEYS <= set(out)
     r = out["roofline"]
     assert set(r) == REF_ROOFLINE_KEYS
-    assert r["collective_bytes_per_device"] is None and r["t_collective_s"] is None
-    assert r["bottleneck"] in ("compute", "memory") and out["collective_reason"]
+    assert r["collective_bytes_per_device"] > 0 and r["t_collective_s"] > 0
+    assert sum(r["collective_counts"].values()) > 0
+    assert r["collective_bytes_per_device"] == sum(r["collective_bytes_by_kind"].values())
+    assert r["bottleneck"] in ("compute", "memory", "collective")
+    assert out["collective_reason"] is None and out["collective_link"]["rate_bytes_per_s"] == 450e9
     mem = out["memory_analysis"]
     assert mem["temp_size_in_bytes"] is None and mem["null_reasons"]["temp_size_in_bytes"]
     assert mem["argument_size_in_bytes"] > 0 and mem["output_size_in_bytes"] > 0
@@ -213,13 +278,13 @@ def test_build_cell_on_meta(arch, shape_name):
     json.dumps(out)
 
 
-def test_fsdp_shards_the_weights_over_data():
-    cfg = get_smoke_config("llama3.2-1b")
-    a = dryrun.build_cell("llama3.2-1b", "train_4k", False, cfg=cfg)
-    b = dryrun.build_cell("llama3.2-1b", "train_4k", False, cfg=cfg.replace(fsdp=True))
+def test_fsdp_shards_the_weights_over_data(on_mesh):
+    a = on_mesh["cells"]["llama3.2-1b|train_4k"]
+    b = on_mesh["cells"]["fsdp"]
     assert b["memory_analysis"]["argument_size_in_bytes"] < \
         a["memory_analysis"]["argument_size_in_bytes"]
     assert b["counted"] == a["counted"]
+    assert b["roofline"]["collective_counts"] != a["roofline"]["collective_counts"]
 
 
 def test_coo_lane_fails_on_meta():
@@ -244,12 +309,43 @@ def test_sequence_fit_is_exact_for_a_polynomial():
                                                         11 * 4096 + 2, 4096)
 
 
-def test_recurrent_cell_traces_short_sequences():
-    cfg = get_smoke_config("rwkv6-7b")
-    out = dryrun.build_cell("rwkv6-7b", "train_4k", False, cfg=cfg)
+def test_recurrent_cell_traces_short_sequences(on_mesh):
+    out = on_mesh["cells"]["rwkv"]
     assert out["status"] == "OK"
     assert out["traced"]["seq_lens"] == [8, 16, 24] and out["traced"]["seq_fit"] == "quadratic"
     assert out["counted_over_analytic_flops"] > 0
+    assert out["roofline"]["t_collective_s"] > 0
+
+
+def test_multi_pod_cell_has_a_collective_term(on_mesh):
+    out = on_mesh["cells"]["multi"]
+    assert out["status"] == "OK" and out["chips"] == 512 and out["mesh"] == "multi"
+    assert out["roofline"]["t_collective_s"] > 0
+    single = on_mesh["cells"]["qwen3-moe-235b-a22b|train_4k"]
+    assert out["counted"] == single["counted"]     # FLOPs from the one-device trace
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train", "encdec_train"])
+def test_assembled_collectives_equal_a_whole_trace(on_mesh, kind):
+    """Collectives of two to three layers extended to four (prefill,
+    linear), or of two to four extended to five (train, quadratic; the
+    enc-dec model's decoder and encoder each so), equal a trace of the
+    whole step on the mesh, count and bytes kind by kind."""
+    got, whole = on_mesh[f"depth_{kind}"]
+    assert got == whole and sum(whole["count"].values()) > 0
+
+
+def test_dense_mlp_all_reduce_by_hand(on_mesh):
+    """llama3.2-1b's MLP on the (16, 16) mesh, tokens (256, 128) split over
+    data: w_gate and w_up are column-parallel and w_down row-parallel over
+    model (the rules' ffn_hidden), so the output is a partial sum over model
+    and its constraint to (batch, None, None) all-reduces each rank's shard
+    once: (256 / 16) x 128 tokens x 2048 x 2 bytes (bf16) = 8,388,608
+    bytes, and nothing else moves."""
+    assert on_mesh["mlp_placements"] == ["(Replicate(), Shard(dim=1))"] * 2 + \
+        ["(Replicate(), Shard(dim=0))"]
+    assert on_mesh["mlp"] == {"count": {"all-reduce": 1},
+                              "bytes": {"all-reduce": (256 // 16) * 128 * 2048 * 2}}
 
 
 def _deeper(cfg):

@@ -170,11 +170,6 @@ def test_microbatch_equivalence():
         np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), atol=2e-5)
 
 
-def test_train_step_refuses_grad_shardings():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        make_train_step(None, adamw.AdamWConfig(), grad_shardings={})
-
-
 # ------------------------------------------- bsr_spmm's autograd function ----
 
 @pytest.fixture

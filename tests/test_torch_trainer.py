@@ -53,11 +53,6 @@ def test_loss_decreases():
     assert last < first - 0.05, (first, last)
 
 
-def test_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        Trainer(get_smoke_config(ARCH), TrainerConfig(), mesh=object(), device="cpu")
-
-
 def test_resume_across_packages(tmp_path):
     from repro.configs import get_smoke_config as jget_smoke
     from repro.optim import adamw as jadamw
