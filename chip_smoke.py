@@ -65,7 +65,14 @@ Phases, one or more lines each, each ending with its seconds:
      output on any key, every cuda candidate timed in the main race, no race
      that lists an error, and ``scs_spmv``, ``dia_spmv``, ``ell_spmv``,
      ``ell_spmv_tiled``, ``coo_spmv`` and ``scoo_spmv_tiled`` launched. Every
-     race (the main one and each level's) is printed with its skips;
+     race (the main one and each level's) is printed with its skips. Both
+     timed solves (csr/plain and tuned) are captured in one CUDA graph each
+     and timed by 3 replays beside 3 eager solves, each eager one run with
+     PyTorch's sync debug mode at "error" (a host read in a warm solve fails
+     the run); a line for each prints both medians, the capture and
+     instantiation seconds, the graph's nodes and the kernel launches counted
+     in the capture (the graph's launches a solve). Every replay must give
+     the eager solve's ``x`` and ``rs`` bit for bit (``graph_equal``);
   5. the path that takes the tiled DIA kernel, counted on its own the same
      way: a column-limited operator (``max_resident_cols=1<<18``) tuned over
      the cuda kernels and solved with CG, which must agree with csr/plain CG
@@ -88,7 +95,9 @@ Phases, one or more lines each, each ending with its seconds:
      ``tune(mode="predict")`` on the same matrix, which launches no kernel;
   9. ``run_hpcg(104, 104, 104, iters=50, depth=4, tune_mode="predict")``:
      phase 3 ranked by the zero-run selector's ``"cuda"`` table, no race;
-     ``valid`` and ``bitwise``, its level picks and t_opt;
+     ``valid`` and ``bitwise``, its level picks and t_opt, and phase 4's
+     graph lines and ``graph_equal`` with one eager solve and one timed
+     replay (after a warm one);
  10. the serving path (``repro_torch.serve``) at tenants of 2^20 rows, four
      runs each counted on its own: **hot** (one banded tenant, 512 requests
      flushed every 64 through ``ServeEngine(capacity=8, max_batch=32,
@@ -119,9 +128,11 @@ Phases, one or more lines each, each ending with its seconds:
      ``PartMesh.on("cuda", parts=4)``, two runs each counted on its own:
      **dist** (a) ``run_hpcg_distributed`` with depth clamped to 3 by
      ``distributable_depth``, 50 iterations, tol 1e-6, every part and every
-     level tuned over csr/dia/ell/coo x plain/cuda, its timed phase cut to
-     one repetition (printed as ``[dist cut]``); it requires ``valid``,
-     ``bitwise`` and ``rel_res <= 1e-6`` and prints pcg_iters, t_ref, t_opt,
+     level tuned over csr/dia/ell/coo x plain/cuda, its timed phase (captured
+     as phase 4's, on the four parts of one card) cut to one eager
+     repetition (printed as ``[dist cut]``); it requires ``valid``,
+     ``bitwise``, ``graph_equal`` and ``rel_res <= 1e-6`` and prints
+     pcg_iters, t_ref, t_opt, the graph lines,
      each tuned operator's per-part choices and race tables, and for every
      part the key the race picked beside the key dispatch runs
      (``DistributedOperator.dispatched``); after that run, every tuned
@@ -364,7 +375,8 @@ SERVE_SUMMARY_KEYS = ("requests", "batches", "admissions", "latency_p50_s", "lat
 
 #: The distributed path: HPCG 104^3 over four parts on one card, the
 #: per-part race's keys (the stackable formats on both backends), the timed
-#: phase's repetitions (cut from 3 to keep the smoke inside its limit), and
+#: phase's eager repetitions (cut from 3 to keep the smoke inside its limit;
+#: the captured solve replays 3 times), and
 #: pairs fixed on every distributed level (``distributable_depth(104, 104,
 #: 104, 4)`` is 3: 13^3 does not split evenly in four): the paper's two,
 #: and DIA on the rectangular remote windows, where the race puts it.
@@ -1034,20 +1046,15 @@ def phase_kernels(results: dict, block) -> tuple:
 
 def counters() -> dict:
     """Every kernel wrapper by name."""
-    from repro_torch.kernels.bsr_spmm import bsr_sddmm, bsr_spmm, bsr_spmm_t
-    from repro_torch.kernels.coo_spmv import coo_spmv, scoo_spmv, scoo_spmv_tiled
-    from repro_torch.kernels.dia_spmv import dia_spmv, dia_spmv_tiled
-    from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_tiled
-    from repro_torch.kernels.sell_spmv import scs_spmv
+    from repro_torch.kernels import wrappers
 
-    return {"scs_spmv": scs_spmv, "dia_spmv": dia_spmv, "dia_spmv_tiled": dia_spmv_tiled,
-            "ell_spmv": ell_spmv, "ell_spmv_tiled": ell_spmv_tiled, "coo_spmv": coo_spmv,
-            "scoo_spmv_tiled": scoo_spmv_tiled, "scoo_spmv": scoo_spmv, "bsr_spmm": bsr_spmm,
-            "bsr_spmm_t": bsr_spmm_t, "bsr_sddmm": bsr_sddmm}
+    return wrappers()
 
 
 def launch_counts() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
+    from repro_torch.kernels import launch_counts as counts
+
+    return counts()
 
 
 def dia_split(by_shape) -> dict:
@@ -1130,6 +1137,23 @@ def check_bsr_guarded(label: str, skipped) -> None:
     for impl in ("plain", "cuda"):
         check(any(sk[:2] == ("bsr", impl) and sk[2].startswith("block_fill=")
                   for sk in skipped), f"{label}: bsr/{impl} not skipped by the block-fill guard")
+
+
+def graph_lines(res, label: str) -> dict:
+    """The captured timed solves of an HPCG result: a line for the pair and
+    one a graph (capture and instantiation seconds, nodes, the launches
+    counted in the capture: the graph's kernel launches a solve). Fails
+    unless both were captured and every replay gave the eager bits."""
+    check(res.graph, f"{label}: the timed solves were not captured in a CUDA graph")
+    check(res.graph_equal, f"{label}: a replay's x or rs differs from the eager solve's")
+    out = phase(f"{label} graph", t_ref_s=res.ref_time_s, t_opt_s=res.opt_time_s,
+                t_ref_eager_s=res.ref_eager_s, t_opt_eager_s=res.opt_eager_s,
+                graph_equal=res.graph_equal)
+    for name, st in res.graphs.items():
+        out[name] = phase(f"{label} graph {name}", capture_s=round(st["capture_s"], 3),
+                          instantiate_s=round(st["instantiate_s"], 3), nodes=st["nodes"],
+                          launches=json.dumps(st["launches"]))
+    return out
 
 
 def check_hpcg(res, label: str) -> None:
@@ -1668,13 +1692,13 @@ def phase_dist_hpcg(results: dict):
     from repro_torch.core import PartMesh
 
     g = GRID
-    print(f"[dist cut] timed reps 3 -> {DIST_REPS} (each rep two 50-iteration distributed "
-          f"solves)", flush=True)
+    print(f"[dist cut] eager timed reps 3 -> {DIST_REPS} (each rep two 50-iteration "
+          f"distributed solves; the graphs replay 3 times)", flush=True)
     tunes = []
     with recorded_tunes(tunes):
         res = run_hpcg_distributed(PartMesh.on("cuda", parts=DIST_PARTS), g, g, g, iters=50,
-                                   reps=DIST_REPS, candidates=DIST_CANDIDATES, tol=1e-6,
-                                   tune_levels=True, device="cuda")
+                                   reps=3, eager_reps=DIST_REPS, candidates=DIST_CANDIDATES,
+                                   tol=1e-6, tune_levels=True, device="cuda")
     check(res.bitwise, f"dist HPCG {g}^3: rowblock csr/plain differs from serial csr/plain")
     check(res.rel_res <= 1e-6, f"dist HPCG {g}^3: rel_res {res.rel_res} > 1e-6 after "
           f"{res.pcg_iters} iterations")
@@ -1692,8 +1716,9 @@ def phase_dist_hpcg(results: dict):
     results["dist_hpcg"] = phase(
         f"dist hpcg {g}^3", parts=DIST_PARTS, valid=res.valid, bitwise=res.bitwise,
         rel_err=res.rel_err, pcg_iters=res.pcg_iters, rel_res=res.rel_res,
-        t_ref_s=res.ref_time_s, t_opt_s=res.opt_time_s, reps=DIST_REPS,
+        t_ref_s=res.ref_time_s, t_opt_s=res.opt_time_s, eager_reps=DIST_REPS,
         chosen=repr(res.chosen), levels=repr(res.mg_levels))
+    results["dist_hpcg"]["graph"] = graph_lines(res, f"dist hpcg {g}^3")
     results["dist_hpcg"]["tunes"] = tuned
     return res, [op for op, _ in tunes]
 
@@ -3168,6 +3193,7 @@ def main() -> int:
         t_ref_s=res.ref_time_s, t_opt_s=res.opt_time_s,
         launches=json.dumps(launches_hpcg), table=json.dumps(res.table),
         skipped=json.dumps(res.skipped))
+    results["hpcg"]["graph"] = graph_lines(res, f"hpcg {g}^3")
     lap("4 hpcg104")
 
     # ---------------------------------------------------------------- 5
@@ -3209,7 +3235,8 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 9
     resp, launches_pred, _ = counted(f"hpcg {g}^3 predict", lambda: run_hpcg(
-        g, g, g, iters=50, depth=4, tune_mode="predict", device="cuda"))
+        g, g, g, iters=50, depth=4, tune_mode="predict", device="cuda", reps=1,
+        eager_reps=1))
     check(resp.valid and resp.bitwise,
           f"HPCG {g}^3 predict: valid={resp.valid} bitwise={resp.bitwise}")
     results["hpcg_predict"] = phase(
@@ -3217,6 +3244,7 @@ def main() -> int:
         pcg_iters=resp.pcg_iters, rel_res=resp.rel_res, chosen=resp.chosen,
         levels=repr(resp.mg_levels), t_ref_s=resp.ref_time_s, t_opt_s=resp.opt_time_s,
         launches=json.dumps(launches_pred))
+    results["hpcg_predict"]["graph"] = graph_lines(resp, f"hpcg {g}^3 predict")
     lap("9 hpcg104 predict")
 
     # --------------------------------------------------------------- 10

@@ -1,6 +1,6 @@
 """Where the time of a tuned HPCG solve goes on the PyTorch/CUDA port.
 
-  python examples/hpcg_torch.py                        # HPCG 104^3, 5 traced PCG iterations
+  python examples/hpcg_torch.py                        # HPCG 104^3, 5 PCG iterations, eager and captured
   python examples/hpcg_torch.py --grid 32 --iters 10
   python examples/hpcg_torch.py --parts 4              # distributed over four parts of the card
 
@@ -10,7 +10,10 @@ iterations without the profiler and counts the SpMV kernel launches they
 make, then traces the same N iterations with ``torch.profiler`` and prints
 the device time by kernel and the share of the wall time the device was
 busy (sum of device-side kernel times over the traced wall time; kernels
-run on one stream and do not overlap). With ``--parts N`` the pipeline is
+run on one stream and do not overlap). Then it captures the same solve in
+one CUDA graph (``CapturedSolve``, as ``run_hpcg`` times it), prints the
+capture and instantiation seconds and the graph's nodes, checks that a
+replay gives the eager bits, and times and traces one replay the same way. With ``--parts N`` the pipeline is
 ``run_hpcg_distributed``'s: the operator tuned per part
 (``tune_partitions``) and the V-cycle distributed and tuned per part and
 level (``distribute_vcycle``) over csr/dia/ell/coo x plain/cuda, on
@@ -36,7 +39,7 @@ from repro_torch.kernels.dia_spmv import dia_spmv, dia_spmv_tiled  # noqa: E402
 from repro_torch.kernels.ell_spmv import ell_spmv  # noqa: E402
 from repro_torch.kernels.sell_spmv import scs_spmv  # noqa: E402
 from repro_torch.solvers import (  # noqa: E402
-    build_mg, distributable_depth, distribute_vcycle, pcg_solve)
+    CapturedSolve, build_mg, distributable_depth, distribute_vcycle, pcg_solve)
 
 CANDIDATES = [("csr", "plain"), ("csr", "cuda"), ("sell", "plain"),
               ("sell", "cuda"), ("dia", "plain"), ("dia", "cuda")]
@@ -63,9 +66,6 @@ def tuned_pipeline(A_sp, g: int, depth: int, parts: int, dev):
 
 
 def profile_pcg(g: int, iters: int, depth: int, parts: int) -> None:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     dev = torch.device("cuda")
     A_sp = M.fdm27(g, g, g)
     b = torch.from_numpy((A_sp @ np.ones(A_sp.shape[0])).astype(np.float32)).to(dev)
@@ -83,10 +83,10 @@ def profile_pcg(g: int, iters: int, depth: int, parts: int) -> None:
         calls["vcycle"] += 1
         return mg(r)
 
-    def solve():
-        return pcg_solve(op, b, iters, precond=precond)
+    def solve(rhs=b):
+        return pcg_solve(op, rhs, iters, precond=precond)
 
-    solve()
+    x_eager, _ = solve()
     torch.cuda.synchronize(dev)
     for fn in KERNELS.values():
         fn.launches = 0
@@ -98,9 +98,31 @@ def profile_pcg(g: int, iters: int, depth: int, parts: int) -> None:
     launches = {name: fn.launches for name, fn in KERNELS.items()}
     print(f"{iters} PCG iterations: {wall * 1e3:.3f} ms unprofiled; operator SpMVs "
           f"{calls['operator']}, V-cycles {calls['vcycle']}, kernel launches {launches}")
+    trace("eager", solve, dev)
+
+    captured = CapturedSolve(solve, b)
+    st = captured.stats()
+    x_graph, _ = captured(b)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    captured(b)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    print(f"graph: capture {st['capture_s']:.3f} s, instantiate {st['instantiate_s']:.3f} s, "
+          f"{st['nodes']} nodes, kernel launches {st['launches']}; replay "
+          f"{wall * 1e3:.3f} ms unprofiled, eager bits {torch.equal(x_graph, x_eager)}")
+    trace("replay", lambda: captured(b), dev)
+
+
+def trace(label: str, run, dev) -> None:
+    """Trace one ``run()`` with ``torch.profiler``: the device-busy share of
+    the traced wall and the device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve()
+        run()
         torch.cuda.synchronize(dev)
         traced = time.perf_counter() - t0
     # device-side entries only: an aten op's own entry repeats the device
@@ -111,7 +133,7 @@ def profile_pcg(g: int, iters: int, depth: int, parts: int) -> None:
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     busy = sum(dev_us(e) for e in events) / 1e6
-    print(f"traced wall {traced * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
+    print(f"{label}: traced wall {traced * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
           f"({100 * busy / traced:.1f}% of the traced wall)")
     top = sorted(events, key=dev_us, reverse=True)[:12]
     for e in top:

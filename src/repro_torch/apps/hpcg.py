@@ -9,7 +9,11 @@ multigrid level; (4) validation — the optimised pipeline forced
 onto the csr/plain candidates must reproduce the reference run bit for bit,
 and the tuned run must converge to ``tol`` and agree with the reference;
 (5) timed runs — fixed-iteration PCG, so the op counts match across
-implementations. ``run_hpcg_distributed`` runs the same five phases over a
+implementations. On a CUDA device each timed solve is captured once in a
+CUDA graph and timed by its replays (``graph=True``, the default), as the
+reference times its ``jax.jit``-compiled solve; the eager loop is timed
+beside it, and every replay must give the eager solve's bits
+(``graph_equal``). ``run_hpcg_distributed`` runs the same five phases over a
 mesh of parts (``repro.apps.hpcg.run_hpcg_distributed``): every operator,
 each multigrid level and the SymGS color sweeps included, is a
 ``DistributedOperator`` with halo-exchange SpMV, and validation also demands
@@ -17,9 +21,10 @@ that the distributed csr/plain SpMV equal the single-device one bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +32,9 @@ import torch
 from repro_torch.core import DispatchKey, as_operator, autotune_spmv, resolve_device
 from repro_torch.core import matrices as M
 from repro_torch.core.errors import SolverDivergenceError
-from repro_torch.solvers import build_mg, cg, cg_solve, diagnose_cg, pcg_solve  # noqa: F401
+from repro_torch.solvers import (  # noqa: F401
+    CapturedSolve, build_mg, cg, cg_solve, diagnose_cg, pcg_solve,
+)
 
 REFERENCE_CANDIDATES = (DispatchKey("csr", "plain"),)
 
@@ -50,6 +57,11 @@ class HPCGResult:
     bitwise: bool = True      # optimised machinery on csr/plain == reference
     mg_levels: str = ""       # per-level (format, backend) choices
     skipped: list = field(default_factory=list)  # the main tune's skipped keys
+    graph: bool = False       # the timed solves are the replays of a CUDA graph
+    ref_eager_s: float = 0.0  # the eager loop's median (ref_time_s without a graph)
+    opt_eager_s: float = 0.0
+    graph_equal: bool = False  # every replay gave the eager solve's x and rs bits
+    graphs: Dict = field(default_factory=dict)  # "ref"/"opt": CapturedSolve.stats()
 
 
 def _sync(device: torch.device) -> None:
@@ -67,6 +79,74 @@ def _time(fn, *args, reps=3, device):
         _sync(device)
         ts.append(time.perf_counter() - t0)
     return float(np.median(ts))
+
+
+class _Timed(NamedTuple):
+    seconds: float        # the replay's median with a graph, else the eager loop's
+    eager_s: float        # the eager loop's median
+    equal: bool           # every replay gave the eager bits (False without a graph)
+    stats: Dict           # CapturedSolve.stats(), {} without a graph
+
+
+@contextlib.contextmanager
+def _no_host_reads(device: torch.device):
+    """Every synchronizing call on ``device`` raises inside (PyTorch's sync
+    debug mode): a warm solve that a graph can capture reads nothing."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _time_solve(fn, b, *, reps: int, eager_reps: int, graph: bool, device) -> _Timed:
+    """Time the fixed-iteration solve ``fn(b) -> (x, rs)``.
+
+    Without a graph: the eager loop's median over ``reps`` after a warm
+    call. With one: :class:`CapturedSolve` (its warm-up is the warm call),
+    then ``eager_reps`` eager solves, each with no host read allowed, then
+    one warm replay and ``reps`` timed ones, each held to the last eager
+    solve's ``x`` and ``rs`` bit for bit.
+    """
+    if not graph:
+        t = _time(fn, b, reps=reps, device=device)
+        return _Timed(t, t, False, {})
+    if eager_reps < 1:
+        raise ValueError(f"eager_reps={eager_reps}: the replays are held to an eager solve")
+    solve = CapturedSolve(fn, b)
+    ts = []
+    for _ in range(eager_reps):
+        t0 = time.perf_counter()
+        with _no_host_reads(device):
+            x_e, rs_e = fn(b)
+        _sync(device)
+        ts.append(time.perf_counter() - t0)
+    outs = [solve(b)]
+    _sync(device)
+    tg = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        outs.append(solve(b))
+        _sync(device)
+        tg.append(time.perf_counter() - t0)
+    equal = all(torch.equal(x, x_e) and torch.equal(rs, rs_e) for x, rs in outs)
+    return _Timed(float(np.median(tg)), float(np.median(ts)), equal, solve.stats())
+
+
+def _check_graph(graph: bool, timed: bool, devices) -> None:
+    """A captured timed solve needs its operands on one CUDA device."""
+    if not (graph and timed):
+        return
+    devs = set(devices)
+    if any(d.type != "cuda" for d in devs):
+        raise ValueError(f"graph=True captures the timed solves in a CUDA graph and needs "
+                         f"a CUDA device, got {sorted(map(str, devs))}; pass graph=False "
+                         f"to time the eager loop")
+    if len(devs) > 1:
+        raise ValueError(f"graph=True captures one device's stream; the mesh spans "
+                         f"{sorted(map(str, devs))}. A capture across cards is not "
+                         f"implemented: pass graph=False to time the eager loop")
 
 
 def _guard_phase(info, phase: str, *, tol, maxiter):
@@ -90,7 +170,8 @@ def _solver_pair(A_op, mg, iters, tol):
 
 def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
              verbose=True, precond=True, tol=1e-6, depth=4,
-             timed=True, tune_mode="run", device="cuda") -> HPCGResult:
+             timed=True, tune_mode="run", device="cuda", graph=True,
+             eager_reps=None) -> HPCGResult:
     """Serial HPCG phases 1-5 on ``device`` (default ``"cuda"``).
 
     ``timed=False`` runs phases 1-4 only and reports zero times.
@@ -98,10 +179,16 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
     multigrid level) for the zero-run selector, on the cost table of
     ``device``: setup runs no candidate kernel, and validation is the same,
     so a bad prediction fails a check rather than passing silently.
+    ``graph=True`` times each fixed-iteration solve by the replays of one
+    CUDA graph (``reps`` of them) and the eager loop beside it
+    (``eager_reps``, default ``reps``); it needs a CUDA device and raises
+    elsewhere, as it raises when a capture fails. ``graph=False`` times the
+    eager loop alone.
     """
     if tune_mode not in ("run", "predict"):
         raise ValueError(f"tune_mode {tune_mode!r}: expected 'run' or 'predict'")
     dev = resolve_device(device)
+    _check_graph(graph, timed, (dev,))
     # Phase 1: problem setup (stencil + multigrid hierarchy)
     A_sp = M.fdm27(nx, ny, nz)
     n = A_sp.shape[0]
@@ -145,29 +232,53 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
     valid = bitwise and rel < 1e-3 and float(opt.rel_res) <= tol
 
     # Phase 5: timed runs (fixed iteration count => identical op mix)
-    if timed:
-        t_ref = _time(ref_timed, b, reps=reps, device=dev)
-        t_opt = _time(opt_timed, b, reps=reps, device=dev)
-        speedup = t_ref / t_opt
-    else:
-        t_ref = t_opt = 0.0
-        speedup = 0.0
-
     res = HPCGResult(
-        (nx, ny, nz), n, iters, t_ref, t_opt, speedup,
+        (nx, ny, nz), n, iters, 0.0, 0.0, 0.0,
         chosen, valid, rel, tune_table,
         precond=precond, pcg_iters=int(opt.iters), rel_res=float(opt.rel_res),
         bitwise=bitwise, mg_levels=mg_opt.describe() if mg_opt else "",
         skipped=skipped)
+    if timed:
+        _timed_phase(res, ref_timed, opt_timed, b, reps=reps, eager_reps=eager_reps,
+                     graph=graph, device=dev)
     if verbose:
         kind = "pcg" if precond else "cg"
-        print(f"HPCG {nx}x{ny}x{nz} n={n} on {dev}: ref(csr/plain)={t_ref*1e3:.1f}ms "
-              f"opt({res.chosen})={t_opt*1e3:.1f}ms speedup={res.speedup:.2f}x "
+        print(f"HPCG {nx}x{ny}x{nz} n={n} on {dev}: ref(csr/plain)={res.ref_time_s*1e3:.1f}ms "
+              f"opt({res.chosen})={res.opt_time_s*1e3:.1f}ms speedup={res.speedup:.2f}x "
               f"{kind}_iters={res.pcg_iters} rel_res={res.rel_res:.2e} "
               f"valid={valid} bitwise={bitwise} rel={rel:.2e}")
+        _print_graph(res)
         if res.mg_levels:
             print(f"  levels: {res.mg_levels}")
     return res
+
+
+def _timed_phase(res: HPCGResult, ref_timed, opt_timed, b, *, reps, eager_reps, graph,
+                 device) -> None:
+    """Phase 5 into ``res``: the reference and the tuned fixed-iteration
+    solves, each timed by :func:`_time_solve`."""
+    eager_reps = reps if eager_reps is None else eager_reps
+    ref = _time_solve(ref_timed, b, reps=reps, eager_reps=eager_reps, graph=graph,
+                      device=device)
+    opt = _time_solve(opt_timed, b, reps=reps, eager_reps=eager_reps, graph=graph,
+                      device=device)
+    res.ref_time_s, res.opt_time_s = ref.seconds, opt.seconds
+    res.speedup = ref.seconds / opt.seconds
+    res.graph = graph
+    res.ref_eager_s, res.opt_eager_s = ref.eager_s, opt.eager_s
+    res.graph_equal = ref.equal and opt.equal
+    res.graphs = {"ref": ref.stats, "opt": opt.stats} if graph else {}
+
+
+def _print_graph(res: HPCGResult) -> None:
+    if not res.graph:
+        return
+    print(f"  eager: ref={res.ref_eager_s*1e3:.1f}ms opt={res.opt_eager_s*1e3:.1f}ms "
+          f"graph_equal={res.graph_equal}")
+    for name, st in res.graphs.items():
+        print(f"  graph {name}: capture={st['capture_s']:.3f}s "
+              f"instantiate={st['instantiate_s']:.3f}s nodes={st['nodes']} "
+              f"launches={st['launches']}")
 
 
 def default_mesh(axis: str = "data", device="cuda", parts=None):
@@ -188,7 +299,8 @@ def default_mesh(axis: str = "data", device="cuda", parts=None):
 def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
                          candidates=None, verbose=True, precond=True,
                          tol=1e-6, depth=4, timed=True, axis="data",
-                         tune_levels=False, device="cuda") -> HPCGResult:
+                         tune_levels=False, device="cuda", graph=True,
+                         eager_reps=None) -> HPCGResult:
     """Distributed HPCG — the full pipeline over a mesh of parts.
 
     Rows (matrix, multigrid levels) are partitioned over ``mesh[axis]``;
@@ -209,14 +321,18 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
          exactly; (b) *tolerance*: the tuned distributed PCG must converge
          to ``tol`` and agree with the single-device solution.
       5. *timed* — fixed-iteration distributed PCG, reference split
-         (csr/csr) vs tuned formats, identical op mix.
+         (csr/csr) vs tuned formats, identical op mix; captured in a CUDA
+         graph as :func:`run_hpcg` captures it, which needs every part on
+         one CUDA device.
 
     Args:
         mesh: a ``PartMesh`` (default: :func:`default_mesh` on ``device``).
         nx, ny, nz: stencil grid; ``nx*ny*nz`` must be divisible by the
             part count.
-        iters, reps, candidates, precond, tol, depth, timed: as
-            :func:`run_hpcg`; ``depth`` is clamped to what partitions evenly.
+        iters, reps, candidates, precond, tol, depth, timed, graph,
+            eager_reps: as :func:`run_hpcg`; ``depth`` is clamped to what
+            partitions evenly. ``graph=True`` on a mesh of several devices
+            raises.
         tune_levels: per-partition tune of every MG level (slower setup).
         device: where ``default_mesh`` puts the parts when ``mesh`` is None.
 
@@ -234,6 +350,7 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
         mesh = default_mesh(axis, device)
     nparts = mesh_parts(mesh, axis)
     home = mesh.home
+    _check_graph(graph, timed, (home, *mesh.devices))
 
     # Phase 1: problem setup
     A_sp = M.fdm27(nx, ny, nz)
@@ -272,29 +389,25 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
     valid = bitwise and rel < 1e-3 and float(opt.rel_res) <= tol
 
     # Phase 5: timed fixed-iteration runs (identical op mix)
-    if timed:
-        t_ref = _time(lambda b: pcg_solve(lambda p: D_ref @ p, b, iters, precond=mg_dist),
-                      b_d, reps=reps, device=home)
-        t_opt = _time(lambda b: pcg_solve(lambda p: D_opt @ p, b, iters, precond=mg_dist),
-                      b_d, reps=reps, device=home)
-        speedup = t_ref / t_opt
-    else:
-        t_ref = t_opt = speedup = 0.0
-
     flat_table = {f"p{p}/{part}": {f"{f}/{i}": t for (f, i), t in tbl.items()}
                   for (p, part), tbl in table.items()}
     res = HPCGResult(
-        (nx, ny, nz), n, iters, t_ref, t_opt, speedup,
+        (nx, ny, nz), n, iters, 0.0, 0.0, 0.0,
         D_opt.describe(dispatched=True), valid, rel, flat_table,
         precond=precond, pcg_iters=int(opt.iters), rel_res=float(opt.rel_res),
         bitwise=bitwise, mg_levels=mg_dist.describe() if mg_dist else "")
+    if timed:
+        _timed_phase(res, lambda b: pcg_solve(lambda p: D_ref @ p, b, iters, precond=mg_dist),
+                     lambda b: pcg_solve(lambda p: D_opt @ p, b, iters, precond=mg_dist),
+                     b_d, reps=reps, eager_reps=eager_reps, graph=graph, device=home)
     if verbose:
         kind = "pcg" if precond else "cg"
         print(f"HPCG-dist {nx}x{ny}x{nz} n={n} parts={nparts} on {home}: "
-              f"ref={t_ref*1e3:.1f}ms opt={t_opt*1e3:.1f}ms "
-              f"speedup={speedup:.2f}x {kind}_iters={res.pcg_iters} "
+              f"ref={res.ref_time_s*1e3:.1f}ms opt={res.opt_time_s*1e3:.1f}ms "
+              f"speedup={res.speedup:.2f}x {kind}_iters={res.pcg_iters} "
               f"rel_res={res.rel_res:.2e} valid={valid} bitwise={bitwise} "
               f"rel={rel:.2e}")
+        _print_graph(res)
         print(f"  per-part: {res.chosen}")
         if res.mg_levels:
             print(f"  levels: {res.mg_levels}")

@@ -22,6 +22,10 @@ The plain kernels reduce without float atomics: csr and coo sum each row's
 products with ``torch.segment_reduce`` over the row pointer, sell with the
 same over its lanes. On a CUDA device ``index_add_`` would add in an order
 that changes from run to run, and HPCG's bitwise tier compares two runs.
+What a plain kernel reads from the device (csr's logical nnz, coo's row
+order, segment_reduce's check of its segments) it reads on its first call
+for a container and keeps, so a warm solve reads nothing and can be
+captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -384,6 +388,33 @@ def _csr_logical_nnz(A: CSR) -> int:
     return n
 
 
+def _segment_sum(A, prod: torch.Tensor, **segments) -> torch.Tensor:
+    """``torch.segment_reduce(prod, "sum", **segments)`` over ``A``'s
+    segments: checked on the first call for a container, unchecked after.
+    The check reads the device, which a solve captured in a CUDA graph may
+    not do; the sums are the same."""
+    checked = A.__dict__.get("_segments_checked", False)
+    y = torch.segment_reduce(prod, "sum", unsafe=checked, **segments)
+    if not checked:
+        object.__setattr__(A, "_segments_checked", True)
+    return y
+
+
+def _coo_plain_rows(A: COO):
+    """``(col, val, offsets)``: ``A``'s entries in row order (their stable
+    row sort where the rows go down somewhere) and each row's segment
+    bounds (pad sentinels lie past the last). Kept in ``A.cache``, so the
+    order flag is read from the device once a container."""
+    got = A.cache.get("plain_rows")
+    if got is None:
+        from repro_torch.kernels.coo_spmv import row_sorted
+
+        row, col, val, _ = row_sorted(A.row, A.col, A.val)
+        bounds = torch.arange(A.shape[0] + 1, dtype=row.dtype, device=row.device)
+        got = A.cache["plain_rows"] = (col, val, torch.searchsorted(row, bounds))
+    return got
+
+
 @register_spmv("coo", "plain")
 def coo_spmv_plain(A: COO, x):
     """Algorithm 1: y[ai[i]] += av[i] * x[aj[i]], as a segment sum over the
@@ -391,14 +422,8 @@ def coo_spmv_plain(A: COO, x):
     any order: unsorted rows are summed through their stable row sort, so
     one row's entries still add in entry order, as the reference's
     scatter-add does."""
-    from repro_torch.kernels.coo_spmv import row_sorted
-
-    nrows = A.shape[0]
-    row, col, val, _ = row_sorted(A.row, A.col, A.val)
-    prod = val * x[col.long()]
-    bounds = torch.arange(nrows + 1, dtype=row.dtype, device=row.device)
-    offsets = torch.searchsorted(row, bounds)
-    return torch.segment_reduce(prod, "sum", offsets=offsets)
+    col, val, offsets = _coo_plain_rows(A)
+    return _segment_sum(A, val * x[col.long()], offsets=offsets)
 
 
 @register_spmv("csr", "plain")
@@ -406,7 +431,7 @@ def csr_spmv_plain(A: CSR, x):
     """Algorithm 2: each row's products summed over its indptr segment."""
     nnz = _csr_logical_nnz(A)
     prod = A.data[:nnz] * x[A.indices[:nnz].long()]
-    return torch.segment_reduce(prod, "sum", offsets=A.indptr)
+    return _segment_sum(A, prod, offsets=A.indptr)
 
 
 @register_spmv("dia", "plain")
@@ -464,7 +489,7 @@ def sell_spmv_plain(A: SELL, x):
     valid = idx >= 0
     prod = A.data[order] * x[torch.where(valid, idx, 0).long()]
     prod = torch.where(valid, prod, _zero(prod.dtype, prod.device))
-    yp = torch.segment_reduce(prod, "sum", lengths=lengths)
+    yp = _segment_sum(A, prod, lengths=lengths)
     y = torch.zeros((nrows + 1,), dtype=yp.dtype, device=yp.device)
     y[A.perm.long().clamp(max=nrows)] = yp
     return y[:nrows]

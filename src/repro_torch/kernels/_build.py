@@ -52,6 +52,7 @@ _SIGNATURES = {
                              _LL, _I, _P),
     "repro_scs_spmv_chunked": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _LL, _LL, _LL, _I, _I, _P),
+    "repro_graph_nodes": (_P, ctypes.POINTER(_LL)),
 }
 
 

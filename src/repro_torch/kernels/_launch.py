@@ -1,6 +1,9 @@
-"""Checks every CUDA wrapper makes before handing pointers to a kernel, and
-the run bounds the sorted-stream kernels read."""
+"""Checks every CUDA wrapper makes before handing pointers to a kernel, the
+run bounds the sorted-stream kernels read, and the node count of a captured
+CUDA graph."""
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -71,3 +74,14 @@ def current_stream(device: torch.device) -> int:
     """The raw handle of PyTorch's current stream on ``device`` (a CUDA
     device with its index), without building a ``torch.cuda.Stream``."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def graph_nodes(graph: int) -> int:
+    """The node count of a captured ``cudaGraph_t`` (``CUDAGraph.raw_cuda_graph()``
+    of a graph captured with ``keep_graph=True``, before or after instantiation)."""
+    from ._build import library
+
+    lib = library()
+    n = ctypes.c_longlong(0)
+    lib.call("repro_graph_nodes", graph, ctypes.byref(n))
+    return int(n.value)

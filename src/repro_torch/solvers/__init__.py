@@ -1,6 +1,7 @@
 """repro_torch.solvers — the HPCG solve pipeline as SparseOperator clients.
 
-    cg     : fixed-iteration + tolerance-stopping (preconditioned) CG
+    cg     : fixed-iteration + tolerance-stopping (preconditioned) CG, and
+             the fixed-iteration solve captured in one CUDA graph
     symgs  : symmetric Gauss-Seidel smoother (reference triangular sweeps
              and the multicolor masked-SpMV schedule)
     mg     : geometric multigrid V-cycle over re-discretised 27-point
@@ -8,7 +9,7 @@
              distributed form over a mesh of parts (``distribute_vcycle``)
 """
 from .cg import (
-    CGDiagnostics, CGInfo, as_matvec, axpy, cg, cg_guarded, cg_solve,
+    CapturedSolve, CGDiagnostics, CGInfo, as_matvec, axpy, cg, cg_guarded, cg_solve,
     diagnose_cg, pcg_solve, pdot, pnorm,
 )
 from .symgs import SymGS, greedy_coloring
@@ -18,7 +19,7 @@ from .mg import (
 )
 
 __all__ = [
-    "CGDiagnostics", "CGInfo", "as_matvec", "axpy", "cg", "cg_guarded",
+    "CapturedSolve", "CGDiagnostics", "CGInfo", "as_matvec", "axpy", "cg", "cg_guarded",
     "cg_solve", "diagnose_cg", "pcg_solve", "pdot", "pnorm",
     "SymGS", "greedy_coloring",
     "MGLevel", "VCycle", "build_mg", "coarsenable", "distributable_depth",

@@ -12,11 +12,16 @@ JAX's ``fori_loop``/``while_loop`` become Python loops: PyTorch runs
 eagerly, so ``cg`` reads the residual norm on the host once per iteration
 to decide whether to stop. Every reduction is deterministic (``torch.dot``,
 ``vector_norm``), so two runs of the same solve agree bit for bit.
+
+The reference compiles its fixed-iteration solve with ``jax.jit`` into one
+program; :class:`CapturedSolve` is the port's form of that: the whole solve
+captured once in a CUDA graph and replayed as one launch.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+import time
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -77,6 +82,90 @@ def pcg_solve(spmv_fn: Callable, b: torch.Tensor, iters: int,
         p = axpy(rz_new / _floor(rz), p, z)
         rz = rz_new
     return x, pdot(r, r)
+
+
+class CapturedSolve:
+    """A fixed-iteration solve ``fn(b) -> (x, rs)`` captured in one CUDA
+    graph: the counterpart of the reference's ``jax.jit(lambda b:
+    pcg_solve(...))``, whose ``fori_loop``, V-cycle and color sweeps are
+    one compiled program.
+
+    Construction runs ``fn`` once eagerly on a side stream (the warm-up,
+    where every first-call cache is built and the host may read the device:
+    the kernel library, the checked containers, row lists, tile indices,
+    work lists, sorted COO rows), then captures one more call under
+    ``torch.no_grad()`` into a ``torch.cuda.CUDAGraph`` with a static
+    ``b``, ``x`` and ``rs``, and instantiates it. A host read inside ``fn``
+    makes the capture raise; nothing runs eagerly in its place. A call
+    copies ``b`` into the static input, replays the graph and returns
+    clones of ``x`` and ``rs``: the graph holds the eager solve's kernels in
+    its order, so a replay gives the eager solve's bits.
+
+    Python runs only at the warm-up and the capture: launch counters and
+    the health registry count those two, never a replay.
+
+    Attributes:
+        capture_s: seconds of the capture (``fn``'s Python run included).
+        instantiate_s: seconds of ``cudaGraphInstantiate``.
+        nodes: the graph's node count (kernels, copies, memsets).
+        launches: each kernel wrapper's launches during the capture, the
+            graph's hand-written kernel launches a solve.
+
+    Raises:
+        ValueError: ``b`` is not on a CUDA device (the eager loop is the
+            caller's choice, never a stand-in).
+        RuntimeError: the capture failed (a host read, an operation a
+            capture does not take).
+    """
+
+    def __init__(self, fn: Callable, b: torch.Tensor):
+        if b.device.type != "cuda":
+            raise ValueError(f"CapturedSolve captures a CUDA graph and needs b on a CUDA "
+                             f"device, got {b.device}; call the solve eagerly instead")
+        from repro_torch.kernels import graph_nodes, launch_counts
+
+        dev = b.device
+        self.b = b.detach().clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.no_grad(), torch.cuda.stream(side):
+            fn(self.b)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        caller = torch.cuda.current_stream(dev)
+        t0 = time.perf_counter()
+        try:
+            with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+                self.x, self.rs = fn(self.b)
+        except RuntimeError as e:
+            # a failed capture_end leaves the capture stream current
+            torch.cuda.set_stream(caller)
+            raise RuntimeError(f"capturing the solve in a CUDA graph failed: "
+                               f"{type(e).__name__}: {e}") from e
+        self.capture_s = time.perf_counter() - t0
+        after = launch_counts()
+        self.launches: Dict[str, int] = {k: after[k] - before[k] for k in after
+                                         if after[k] != before[k]}
+        self.nodes = graph_nodes(graph.raw_cuda_graph())
+        t0 = time.perf_counter()
+        graph.instantiate()
+        self.instantiate_s = time.perf_counter() - t0
+        self.graph = graph
+
+    def __call__(self, b: torch.Tensor):
+        """``(x, rs)`` for ``b`` (shape, dtype and device of the captured one)."""
+        if b.shape != self.b.shape or b.dtype != self.b.dtype or b.device != self.b.device:
+            raise ValueError(f"CapturedSolve was captured for b {tuple(self.b.shape)} "
+                             f"{self.b.dtype} on {self.b.device}, got {tuple(b.shape)} "
+                             f"{b.dtype} on {b.device}")
+        self.b.copy_(b)
+        self.graph.replay()
+        return self.x.clone(), self.rs.clone()
+
+    def stats(self) -> dict:
+        return {"capture_s": self.capture_s, "instantiate_s": self.instantiate_s,
+                "nodes": self.nodes, "launches": dict(self.launches)}
 
 
 class CGInfo(NamedTuple):

@@ -139,7 +139,8 @@ def test_run_hpcg_16cubed_slice(jax_pcg_16):
 
 def test_run_hpcg_unpreconditioned_and_guards():
     res = run_hpcg(6, 6, 6, iters=60, timed=True, reps=1, device="cpu", verbose=False,
-                   precond=False, candidates=[("csr", "plain"), ("dia", "cuda")])
+                   precond=False, candidates=[("csr", "plain"), ("dia", "cuda")],
+                   graph=False)
     assert res.bitwise and res.valid and res.ref_time_s > 0
     with pytest.raises(ValueError, match="tune_mode"):
         run_hpcg(4, 4, 4, device="cpu", tune_mode="guess")
