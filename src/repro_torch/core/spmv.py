@@ -404,12 +404,14 @@ def _coo_plain_rows(A: COO):
     """``(col, val, offsets)``: ``A``'s entries in row order (their stable
     row sort where the rows go down somewhere) and each row's segment
     bounds (pad sentinels lie past the last). Kept in ``A.cache``, so the
-    order flag is read from the device once a container."""
+    order flag is read from the device once a container (never where the
+    container is marked ``UNSORTED``: the sort is then always taken)."""
     got = A.cache.get("plain_rows")
     if got is None:
-        from repro_torch.kernels.coo_spmv import row_sorted
+        from repro_torch.kernels.coo_spmv import UNSORTED, row_sorted
 
-        row, col, val, _ = row_sorted(A.row, A.col, A.val)
+        check = not A.cache.get(UNSORTED, False)
+        row, col, val, _ = row_sorted(A.row, A.col, A.val, check)
         bounds = torch.arange(A.shape[0] + 1, dtype=row.dtype, device=row.device)
         got = A.cache["plain_rows"] = (col, val, torch.searchsorted(row, bounds))
     return got

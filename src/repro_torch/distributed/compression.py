@@ -38,7 +38,11 @@ def _quant(x: torch.Tensor, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tenso
     xp = torch.zeros((npad,), dtype=x.dtype, device=x.device)
     xp[:n] = x
     xp = xp.reshape(-1, chunk)
-    scale = torch.amax(torch.abs(xp), dim=1, keepdim=True) / 127.0
+    # by a device tensor: ATen's CUDA division by a host scalar multiplies by
+    # its reciprocal, whose rounding gave the card other scales (and codes)
+    # than the host's true division, the reference's
+    scale = torch.amax(torch.abs(xp), dim=1, keepdim=True) / torch.full((), 127.0,
+                                                                       device=x.device)
     # torch.round, as jnp.round, rounds half to even
     q = torch.clamp(torch.round(xp / torch.clamp(scale, min=1e-12)), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)

@@ -46,13 +46,23 @@ from ._launch import (check_cuda_operands, checked_x, current_stream, index_code
 MAX_SLICE_ROWS = 3072
 
 
-def row_sorted(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor):
+#: The key of a COO container's ``cache`` that marks its rows as not known
+#: to be in order: the full-window launch and the plain dispatch then take
+#: the stable row sort without reading the order from the device. The MoE
+#: ``coo`` lane marks its containers, new every decode step, which a CUDA
+#: graph's capture may not read; the stable sort of rows already in order
+#: is the identity, so a marked container gives the unmarked one's bits.
+UNSORTED = "rows_unsorted"
+
+
+def row_sorted(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor, check: bool = True):
     """``(row, col, val, perm)``: the arrays as they are, ``perm`` ``None``,
     where ``row`` is non-decreasing (every sentinel ``>= nrows`` then lies
     at the tail); else permuted by ``perm``, the stable sort of ``row``, so
     entries of one row keep their entry order, the order in which the
-    reference's scatter adds them. Reads one flag from the device."""
-    if row.shape[0] < 2 or bool((row[1:] >= row[:-1]).all()):
+    reference's scatter adds them. Reads one flag from the device, unless
+    ``check`` is false: then the sort is always taken."""
+    if check and (row.shape[0] < 2 or bool((row[1:] >= row[:-1]).all())):
         return row, col, val, None
     perm = torch.argsort(row, stable=True)
     return row[perm], col[perm], val[perm], perm
@@ -94,18 +104,21 @@ class _Rows(NamedTuple):
     entry: object
 
 
-def _rows(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor, nrows: int) -> _Rows:
+def _rows(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor, nrows: int,
+          check: bool = True) -> _Rows:
     """Check COO arrays on the card in full (raise on what the kernel does
     not take), put them in row order where they are not (one stable sort,
-    on the device), find their segment starts and keep what the launches
-    need. Counts its read of the order flag in ``coo_spmv.order_checks``."""
+    on the device; always, without ``check``), find their segment starts
+    and keep what the launches need. Counts its read of the order flag in
+    ``coo_spmv.order_checks``."""
     for name, t in (("row", row), ("col", col)):
         if t.dtype is not torch.int32 or t.shape != val.shape:
             raise ValueError(f"coo_spmv: {name} must be int32 of shape {tuple(val.shape)}")
     check_cuda_operands("coo_spmv", row, col, val)
     code = value_code("coo_spmv", val.dtype)
-    row, col, val, perm = row_sorted(row, col, val)
-    coo_spmv.order_checks += 1
+    row, col, val, perm = row_sorted(row, col, val, check)
+    if check:
+        coo_spmv.order_checks += 1
     row_start = segment_starts(row, nrows)
     from ._build import library
 
@@ -147,13 +160,15 @@ coo_spmv.order_checks = 0
 def coo_spmv_from_container(A, x: torch.Tensor) -> torch.Tensor:
     """Dispatch-table adapter: :func:`coo_spmv` on a COO container. The
     first call on the card checks ``A``'s arrays in full, sorts them by
-    row where they are not, finds their segment starts and keeps all of it
-    in ``A.cache``; later calls check only ``x``."""
+    row where they are not (always where ``A.cache`` holds
+    :data:`UNSORTED`), finds their segment starts and keeps all of it in
+    ``A.cache``; later calls check only ``x``."""
     r = A.cache.get("rows")
     if r is None:
         if A.val.device.type == "cpu":
             return coo_spmv_plain(A.row, A.col, A.val, x, A.shape[0])
-        r = A.cache["rows"] = _rows(A.row, A.col, A.val, A.shape[0])
+        r = A.cache["rows"] = _rows(A.row, A.col, A.val, A.shape[0],
+                                    check=not A.cache.get(UNSORTED, False))
     return _launch_rows(r, x)
 
 

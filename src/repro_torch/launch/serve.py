@@ -11,15 +11,19 @@ Sparse serving, selected by ``--traffic``:
 LM serving (the reference's flags, plus the port's):
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --smoke \
-      --batch 4 --prompt-len 32 --gen 32 --device cpu
+      --batch 4 --prompt-len 32 --gen 32 --device cpu --no-graph
   python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --layers 4 \
       --dispatch-impl bsr
-  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke --device cpu --no-graph
 
 ``--layers`` cuts the model's depth (Jamba's in whole periods) and ``--dispatch-impl`` picks the MoE
 lane; the sparse products run under ``use_backend("cuda")`` (the
 hand-written kernels on the card, their plain versions on host tensors).
-Runs on the card unless ``--device cpu``. The LM loop
+Runs on the card unless ``--device cpu``. ``--graph`` (the default) serves
+the prompt and every generated token through one captured decode step
+(``repro_torch.serve.CapturedDecode``), as the reference serves them
+through one jitted, donated step; it needs the card, so the host takes
+``--no-graph``, the eager step. The LM loop
 reports through ``repro_torch.serve.stats``: one request per generated
 token batch, so its p50/p99 ms/token come from the same percentiles as
 the sparse engine's latencies.
@@ -37,7 +41,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import resolve_device, use_backend
 from repro_torch.models import build_model
-from repro_torch.serve import ServeEngine, TrafficSpec, run_traffic
+from repro_torch.serve import CapturedDecode, ServeEngine, TrafficSpec, run_traffic
 from repro_torch.serve.stats import BatchRecord, RequestRecord, ServeStats
 
 
@@ -84,10 +88,18 @@ def serve_lm(args, params=None, logits_out: Optional[List[torch.Tensor]] = None)
     device from a generator seeded with ``--seed``, every weight but the
     router kept in the activation dtype, the values the reference's
     per-use casts give). Each step's logits are appended to ``logits_out``
-    where a list is given. Returns the tokens (prompt and generated), the
-    timings, the model and its params."""
+    where a list is given. With ``args.graph`` (default on) every step is a
+    replay of one :class:`CapturedDecode`, captured before the prompt;
+    without it the eager step. Returns the tokens (prompt and generated),
+    the timings, the graph's stats (``None`` without one), the model and
+    its params."""
     cfg = lm_config(args)
     dev = resolve_device(args.device)
+    graph = getattr(args, "graph", True)
+    if graph and dev.type != "cuda":
+        raise ValueError(f"graph=True serves through a decode step captured in a CUDA graph "
+                         f"and needs a CUDA device, got {dev}; pass --no-graph (graph=False) "
+                         f"to serve with the eager step")
     model = build_model(cfg, dev)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
@@ -105,10 +117,17 @@ def serve_lm(args, params=None, logits_out: Optional[List[torch.Tensor]] = None)
 
     with use_backend("cuda"):
         caches = model.init_caches(B, smax)
+        if graph:
+            step = captured = CapturedDecode(model, params, caches, B)
+        else:
+            captured = None
+
+            def step(tok, pos):
+                return model.decode_step(params, tok, caches, pos)[0]
         t0 = time.perf_counter()
         logits = None
         for t in range(S):
-            logits, caches = model.decode_step(params, tokens[:, t:t + 1], caches, prefix + t)
+            logits = step(tokens[:, t:t + 1], prefix + t)
             if logits_out is not None:
                 logits_out.append(logits)
         sync()
@@ -122,7 +141,7 @@ def serve_lm(args, params=None, logits_out: Optional[List[torch.Tensor]] = None)
         for g in range(G):
             t_step = time.perf_counter()
             fed.append(tok[:, 0])
-            logits, caches = model.decode_step(params, tok, caches, prefix + S + g)
+            logits = step(tok, prefix + S + g)
             if logits_out is not None:
                 logits_out.append(logits)
             tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
@@ -143,10 +162,16 @@ def serve_lm(args, params=None, logits_out: Optional[List[torch.Tensor]] = None)
     print(f"prompt phase: {t_prefill*1e3:.0f}ms; decode: {t_gen*1e3:.0f}ms "
           f"({toks_s:.1f} tok/s, {1e3*t_gen/G:.1f} ms/token, "
           f"p50={p50*1e3:.1f} p99={p99*1e3:.1f} ms/step)")
+    if captured is not None:
+        st = captured.stats()
+        print(f"decode graph: capture={st['capture_s']:.3f}s "
+              f"instantiate={st['instantiate_s']:.3f}s nodes={st['nodes']} "
+              f"launches a step={st['launches']}")
     print("sample continuation (batch 0):", [int(o) for o in generated[0, :16]])
     return {"cfg": cfg, "model": model, "params": params, "prompt": tokens.cpu(),
             "fed": torch.stack(fed, dim=1).cpu(), "generated": generated, "prompt_s": t_prefill,
-            "decode_s": t_gen, "tok_s": toks_s, "p50_s": p50, "p99_s": p99, "stats": stats}
+            "decode_s": t_gen, "tok_s": toks_s, "p50_s": p50, "p99_s": p99, "stats": stats,
+            "graph": None if captured is None else captured.stats()}
 
 
 def main(argv=None):
@@ -160,6 +185,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to this many layers (0: the config's)")
+    ap.add_argument("--graph", action=argparse.BooleanOptionalAction, default=True,
+                    help="serve every step through one decode step captured in a CUDA "
+                         "graph (default; needs the card: --no-graph on the host)")
     ap.add_argument("--dispatch-impl", default=None,
                     choices=["sort", "onehot", "coo", "bsr", "grouped"],
                     help="the MoE dispatch lane (default: the config's)")

@@ -157,8 +157,9 @@ def _sharded_core(core, q, k, v, mesh):
 
 def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     """q: (B,1,Hq,hd); k_cache: (B,Smax,Hkv,hd); v_cache: (B,Smax,Hkv,hdv);
-    pos: current index. Attends to cache[0..pos] inclusive (the cache
-    already holds this step)."""
+    pos: current index, an int or a 0-dim integer tensor on q's device.
+    Attends to cache[0..pos] inclusive (the cache already holds this
+    step)."""
     B, _, Hq, hd = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     hdv = v_cache.shape[-1]
@@ -192,14 +193,33 @@ def attention_prefill(p, x, cfg, positions) -> Tuple[torch.Tensor, KVCache]:
     return o.reshape(B, S, -1) @ p["wo"].to(x.dtype), KVCache(k, v)
 
 
-def attention_decode(p, x, cfg, cache: KVCache, pos: int) -> Tuple[torch.Tensor, KVCache]:
-    """x: (B,1,D); cache pre-allocated to Smax; pos: write index. The
+def decode_positions(pos, B: int, device) -> torch.Tensor:
+    """The decode step's ``(B, 1)`` int32 positions: ``pos`` (an int, or a
+    0-dim integer tensor on ``device``) for every batch row."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(torch.int32).expand(B, 1)
+    return torch.full((B, 1), pos, dtype=torch.int32, device=device)
+
+
+def write_slot(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write the step's ``new`` ``(B, 1, ...)`` into ``cache`` ``(B, Smax,
+    ...)`` at sequence index ``pos``, in place. A tensor ``pos`` goes
+    through ``index_copy_`` on the device: indexing with it would read it
+    on the host, which a CUDA graph's capture does not take."""
+    if isinstance(pos, torch.Tensor):
+        cache.index_copy_(1, pos.reshape(1).long(), new.to(cache.dtype))
+    else:
+        cache[:, pos] = new[:, 0].to(cache.dtype)
+
+
+def attention_decode(p, x, cfg, cache: KVCache, pos) -> Tuple[torch.Tensor, KVCache]:
+    """x: (B,1,D); cache pre-allocated to Smax; pos: write index, an int or
+    a 0-dim integer tensor on x's device (the reference traces it). The
     cache is written in place (the reference donates it to the step)."""
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
+    q, k, v = _project_qkv(p, x, cfg, decode_positions(pos, B, x.device))
+    write_slot(cache.k, k, pos)
+    write_slot(cache.v, v, pos)
     o = decode_attention(q, cache.k, cache.v, pos)
     return o.reshape(B, 1, -1) @ p["wo"].to(x.dtype), cache
 

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.distributed.sharding import merge_dims, split_dim
 
-from .attention import NEG_INF, chunked_attention
+from .attention import NEG_INF, chunked_attention, decode_positions, write_slot
 from .layers import Init, apply_rope, dense_init, rmsnorm
 
 
@@ -80,17 +80,18 @@ def mla_prefill(p, x, cfg, positions) -> Tuple[torch.Tensor, MLACache]:
     return out, MLACache(c_kv, k_pe)
 
 
-def mla_decode(p, x, cfg, cache: MLACache, pos: int) -> Tuple[torch.Tensor, MLACache]:
+def mla_decode(p, x, cfg, cache: MLACache, pos) -> Tuple[torch.Tensor, MLACache]:
     """Absorbed form: scores against the latent cache directly. x: (B,1,D);
-    the step's latent is written into ``cache`` in place at ``pos``."""
+    the step's latent is written into ``cache`` in place at ``pos`` (an int
+    or a 0-dim integer tensor on x's device)."""
     m = cfg.mla
     B = x.shape[0]
     H = cfg.n_heads
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    positions = decode_positions(pos, B, x.device)
     q_nope, q_pe = _project_q(p, x, cfg, positions)         # (B,1,H,*)
     c_new, kpe_new = _project_kv_latent(p, x, cfg, positions)
-    cache.c_kv[:, pos] = c_new[:, 0].to(cache.c_kv.dtype)
-    cache.k_pe[:, pos] = kpe_new[:, 0].to(cache.k_pe.dtype)
+    write_slot(cache.c_kv, c_new, pos)
+    write_slot(cache.k_pe, kpe_new, pos)
     c_kv, k_pe = cache
 
     wkv_b = split_dim(p["wkv_b"].to(x.dtype), 1, (H, m.nope_head_dim + m.v_head_dim))

@@ -7,7 +7,10 @@ are stacked along a leading layer axis (``params["groups"][g]``, every leaf
 that axis; here a Python loop walks it, one layer at a time, and the decode
 step writes each layer's cache slice in place (the reference donates the
 caches to the step): attention and MLA write their slot at ``pos``, and the
-state a Mamba or RWKV layer returns is copied into its slice.
+state a Mamba or RWKV layer returns is copied into its slice. ``pos`` is an
+int or, as the reference traces it, a 0-dim integer tensor on the device,
+so one captured step serves every position
+(``repro_torch.serve.CapturedDecode``).
 
   dense/vlm       : [attn+mlp] x L
   moe (qwen3)     : [attn+moe] x L
@@ -339,6 +342,14 @@ def layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def reset_caches(caches) -> None:
+    """Zero every leaf of ``caches`` in place (the state ``init_caches``
+    gives), so the same buffers serve a new batch of requests: a captured
+    decode step keeps their addresses."""
+    for t in tree_leaves(caches):
+        t.zero_()
+
+
 def write_back(dst, src) -> None:
     """Copy a layer's returned cache ``src`` into its slice ``dst`` in place,
     leaf by leaf (a leaf the step already wrote in place is skipped)."""
@@ -505,10 +516,11 @@ class LM:
         x = rmsnorm(x, params["norm_f"].to(x.dtype), cfg.norm_eps)
         return self._head(params, x[:, -1:])[:, 0], caches, S
 
-    def decode_step(self, params, token, caches, pos: int):
-        """token: (B,1) int; pos: write index into caches. The caches are
-        updated in place: each layer's returned cache is written back into
-        its slice, so the next step sees this one's state."""
+    def decode_step(self, params, token, caches, pos):
+        """token: (B,1) int; pos: write index into caches, an int or a 0-dim
+        integer tensor on the model's device. The caches are updated in
+        place: each layer's returned cache is written back into its slice,
+        so the next step sees this one's state."""
         cfg = self.cfg
         x = self._embed(params, token)
         ctx = {}
@@ -665,9 +677,10 @@ class EncDecLM:
         x = self._norm(x, params["norm_f"])
         return x[:, -1] @ params["lm_head"].to(x.dtype), _stack(per_layer), S
 
-    def decode_step(self, params, token, caches, pos: int):
+    def decode_step(self, params, token, caches, pos):
         """token: (B,1) int; pos: write index into the self-attention caches
-        (written in place); the cross caches are read only."""
+        (written in place), an int or a 0-dim integer tensor on the model's
+        device; the cross caches are read only."""
         cfg = self.cfg
         x = self._embed(params, token)
         for i in range(cfg.n_layers):
@@ -691,6 +704,29 @@ class EncDecLM:
                                 torch.zeros(shape, dtype=dtype, device=self.device))
 
         return DecCache(kv(seq), kv(enc_len))
+
+
+def cache_positions(caches):
+    """The positions ``caches`` hold for the decode step (``Smax`` of their
+    self-attention or MLA caches), or ``None`` where the model keeps no
+    per-position cache (RWKV-6's state only)."""
+    if isinstance(caches, DecCache):
+        return caches.self_kv.k.shape[2]
+
+    def find(tree):
+        if isinstance(tree, attn.KVCache):
+            return tree.k.shape[2]
+        if isinstance(tree, mla_mod.MLACache):
+            return tree.c_kv.shape[2]
+        subtrees = tree.values() if isinstance(tree, dict) else tree
+        if isinstance(tree, (dict, list, tuple)):
+            for t in subtrees:
+                n = find(t)
+                if n is not None:
+                    return n
+        return None
+
+    return find(caches)
 
 
 def _shardings(model, mesh, shardings, weight_dtype):

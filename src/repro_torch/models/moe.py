@@ -322,20 +322,31 @@ def coo_dispatch(slot, t_s, keep, T, E, C, dtype):
     """P_disp (E*C, T): row ``slot`` (``E*C`` for a dropped entry, a
     sentinel past the last row) and column ``t_s`` of every routed entry,
     value 1 (0 when dropped). Its rows interleave the sentinels with the
-    kept slots, in the reference's entry order."""
+    kept slots, in the reference's entry order, so the container is marked
+    ``UNSORTED``: its products take the stable row sort without reading the
+    order from the device."""
     from repro_torch.core.formats import COO
 
-    return COO(slot.to(torch.int32), t_s.to(torch.int32), keep.to(dtype), (E * C, T))
+    return _unsorted(COO(slot.to(torch.int32), t_s.to(torch.int32), keep.to(dtype), (E * C, T)))
 
 
 def coo_combine(slot, t_s, w_s, keep, T, E, C, dtype):
     """P_comb (T, E*C+1) = (P*w)^T: rows are tokens in expert order (not
-    sorted), columns slots; a dropped entry weighs 0 against the pad
-    column ``E*C``."""
+    sorted, so the container is marked ``UNSORTED``), columns slots; a
+    dropped entry weighs 0 against the pad column ``E*C``."""
     from repro_torch.core.formats import COO
 
     w = torch.where(keep, w_s, torch.zeros((), device=w_s.device)).to(dtype)
-    return COO(t_s.to(torch.int32), slot.to(torch.int32), w, (T, E * C + 1))
+    return _unsorted(COO(t_s.to(torch.int32), slot.to(torch.int32), w, (T, E * C + 1)))
+
+
+def _unsorted(P):
+    """``P`` marked as a COO whose rows may go down: the kernels sort it
+    without reading the device, so a captured decode step can hold it."""
+    from repro_torch.kernels.coo_spmv import UNSORTED
+
+    P.cache[UNSORTED] = True
+    return P
 
 
 def _coo_lane(experts, x, tope, topw, E, C, part=None):

@@ -7,6 +7,8 @@ tiles (``batcher``), admitted into the ``SpmvWorkspace`` LRU warm pool with
 zero-run tuning on first sight, and served with per-request/per-batch
 accounting (``stats``). ``traffic`` generates the seeded request mixes;
 ``python -m repro_torch.launch.serve --traffic hot`` drives one on the card.
+``CapturedDecode`` is the LM decode step captured in one CUDA graph, as
+``launch/serve.py``'s LM loop serves it on the card.
 """
 from .batcher import (
     BIT_STABLE_BACKENDS,
@@ -15,12 +17,14 @@ from .batcher import (
     coalescible,
     plan_batches,
 )
+from .captured import CapturedDecode
 from .engine import ServeEngine, ServeError, Ticket
 from .stats import BatchRecord, RequestRecord, ServeStats
 from .traffic import MIXES, TrafficGenerator, TrafficSpec, matrix_pool, run_traffic
 
 __all__ = [
     "BIT_STABLE_BACKENDS", "ServeRequest", "Tile", "coalescible", "plan_batches",
+    "CapturedDecode",
     "ServeEngine", "ServeError", "Ticket",
     "BatchRecord", "RequestRecord", "ServeStats",
     "MIXES", "TrafficGenerator", "TrafficSpec", "matrix_pool", "run_traffic",

@@ -20,8 +20,7 @@ captured once in a CUDA graph and replayed as one launch.
 from __future__ import annotations
 
 import math
-import time
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -90,12 +89,12 @@ class CapturedSolve:
     pcg_solve(...))``, whose ``fori_loop``, V-cycle and color sweeps are
     one compiled program.
 
-    Construction runs ``fn`` once eagerly on a side stream (the warm-up,
-    where every first-call cache is built and the host may read the device:
-    the kernel library, the checked containers, row lists, tile indices,
-    work lists, sorted COO rows), then captures one more call under
-    ``torch.no_grad()`` into a ``torch.cuda.CUDAGraph`` with a static
-    ``b``, ``x`` and ``rs``, and instantiates it. A host read inside ``fn``
+    Construction goes through :func:`repro_torch.capture.capture`: ``fn``
+    runs once eagerly on a side stream (the warm-up, where every
+    first-call cache is built and the host may read the device: the
+    kernel library, the checked containers, row lists, tile indices, work
+    lists, sorted COO rows), then one more call is captured with a static
+    ``b``, ``x`` and ``rs``, and instantiated. A host read inside ``fn``
     makes the capture raise; nothing runs eagerly in its place. A call
     copies ``b`` into the static input, replays the graph and returns
     clones of ``x`` and ``rs``: the graph holds the eager solve's kernels in
@@ -122,36 +121,13 @@ class CapturedSolve:
         if b.device.type != "cuda":
             raise ValueError(f"CapturedSolve captures a CUDA graph and needs b on a CUDA "
                              f"device, got {b.device}; call the solve eagerly instead")
-        from repro_torch.kernels import graph_nodes, launch_counts
+        from repro_torch.capture import capture
 
-        dev = b.device
         self.b = b.detach().clone()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.no_grad(), torch.cuda.stream(side):
-            fn(self.b)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        caller = torch.cuda.current_stream(dev)
-        t0 = time.perf_counter()
-        try:
-            with torch.no_grad(), torch.cuda.graph(graph, stream=side):
-                self.x, self.rs = fn(self.b)
-        except RuntimeError as e:
-            # a failed capture_end leaves the capture stream current
-            torch.cuda.set_stream(caller)
-            raise RuntimeError(f"capturing the solve in a CUDA graph failed: "
-                               f"{type(e).__name__}: {e}") from e
-        self.capture_s = time.perf_counter() - t0
-        after = launch_counts()
-        self.launches: Dict[str, int] = {k: after[k] - before[k] for k in after
-                                         if after[k] != before[k]}
-        self.nodes = graph_nodes(graph.raw_cuda_graph())
-        t0 = time.perf_counter()
-        graph.instantiate()
-        self.instantiate_s = time.perf_counter() - t0
-        self.graph = graph
+        self._captured = cap = capture(lambda: fn(self.b), b.device, "the solve")
+        self.graph, (self.x, self.rs) = cap.graph, cap.out
+        self.capture_s, self.instantiate_s = cap.capture_s, cap.instantiate_s
+        self.nodes, self.launches = cap.nodes, cap.launches
 
     def __call__(self, b: torch.Tensor):
         """``(x, rs)`` for ``b`` (shape, dtype and device of the captured one)."""
@@ -164,8 +140,7 @@ class CapturedSolve:
         return self.x.clone(), self.rs.clone()
 
     def stats(self) -> dict:
-        return {"capture_s": self.capture_s, "instantiate_s": self.instantiate_s,
-                "nodes": self.nodes, "launches": dict(self.launches)}
+        return self._captured.stats()
 
 
 class CGInfo(NamedTuple):

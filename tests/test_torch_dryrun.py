@@ -288,14 +288,22 @@ def test_fsdp_shards_the_weights_over_data(on_mesh):
 
 
 def test_coo_lane_fails_on_meta():
-    """The ``coo`` MoE lane reads its container's order check back to the
-    host, which a ``meta`` tensor refuses: its cell records FAIL."""
+    """The ``coo`` MoE lane once read its containers' row order back to the
+    host, which a ``meta`` tensor refuses. Its containers now come marked
+    ``UNSORTED`` and are sorted without that read (the read a CUDA graph's
+    capture refuses too), so its cell traces on ``meta`` as the other
+    lanes' do, while the order check on ``meta`` rows still refuses."""
     import dataclasses
+
+    from repro_torch.kernels.coo_spmv import row_sorted
 
     cfg = get_smoke_config("qwen3-moe-235b-a22b")
     cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_impl="coo"))
+    out = dryrun.build_cell("qwen3-moe-235b-a22b", "decode_32k", False, cfg=cfg)
+    assert out["status"] == "OK"
+    rows = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(Exception, match="meta"):
-        dryrun.build_cell("qwen3-moe-235b-a22b", "decode_32k", False, cfg=cfg)
+        row_sorted(rows, rows, torch.zeros(4, device="meta"))
 
 
 def test_sequence_fit_is_exact_for_a_polynomial():

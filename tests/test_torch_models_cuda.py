@@ -158,7 +158,7 @@ def test_new_families_serve_on_card(cuda, arch, impl):
     from repro_torch.launch import serve as tserve
 
     args = types.SimpleNamespace(arch=arch, smoke=True, batch=2, prompt_len=5, gen=4, seed=1,
-                                 layers=0, dispatch_impl=impl, device="cpu")
+                                 layers=0, dispatch_impl=impl, device="cpu", graph=False)
     get = tserve.get_smoke_config
     tserve.get_smoke_config = lambda a: get_smoke_config(a).replace(dtype="float32")
     try:

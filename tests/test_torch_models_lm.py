@@ -215,7 +215,7 @@ def _serve_lm_against_reference(monkeypatch, capsys, arch):
                 if ln.startswith("sample continuation")]
     args = types.SimpleNamespace(arch=arch, smoke=True, batch=2, prompt_len=6,
                                  gen=5, seed=2, layers=0, dispatch_impl=None,
-                                 device="cpu")
+                                 device="cpu", graph=False)
     cfg = tserve.lm_config(args)
     jm = jbuild(jget_smoke(args.arch).replace(dtype="float32"))
     params = jm.init(jax.random.PRNGKey(2))
@@ -244,7 +244,8 @@ def test_serve_main_selects_the_lm_loop(capsys):
     from repro_torch.launch.serve import main
 
     main(["--arch", "qwen3-moe-235b-a22b", "--smoke", "--batch", "2", "--prompt-len", "4",
-          "--gen", "3", "--dispatch-impl", "bsr", "--layers", "1", "--device", "cpu"])
+          "--gen", "3", "--dispatch-impl", "bsr", "--layers", "1", "--device", "cpu",
+          "--no-graph"])
     out = capsys.readouterr().out
     assert "arch=qwen3-moe-smoke layers=1 B=2 prompt=4 gen=3 device=cpu" in out
     assert "tok/s" in out and "sample continuation" in out
