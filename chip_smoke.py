@@ -102,9 +102,12 @@ Phases, one or more lines each, each ending with its seconds:
      runs each counted on its own: **hot** (one banded tenant, 512 requests
      flushed every 64 through ``ServeEngine(capacity=8, max_batch=32,
      tune_mode="predict")``: one admission, 16 coalesced tiles of 32),
-     **churn** (16 tenants of the four archetypes against 8 slots, 68
-     requests, cut from 128: a window of 64 admits each tenant once and one
-     of 4 brings evicted tenants back, re-tuned; then one admission of a
+     **churn** (10 tenants of the four archetypes against 8 slots, cut
+     from 16, and 68 requests, cut from 128: a window of 64 admits each
+     tenant once and one of 4 brings an evicted tenant back, re-tuned;
+     healthy tiles replay the engine's captured lanes, and a ``[serve
+     graph]`` line holds hot against an eager window of 64 requests over
+     the same warm pool; then one admission of a
      tenant of each predicted key timed by stage), **dynamic** (``mutable``
      on the hot tenant, 1% of its rows
      gain an entry off its band, ``ov @ x`` against the merged matrix in f64,
@@ -364,15 +367,18 @@ BLOCK_NF = 128
 #: tenant whose delta the full-window ``coo_spmv`` takes (``max_onehot_rows``).
 SERVE_N = 1 << 20
 SERVE_CAPACITY, SERVE_MAX_BATCH, SERVE_FLUSH_EVERY = 8, 32, 64
-SERVE_CHURN_TENANTS = 16
+SERVE_CHURN_TENANTS = 10
 SERVE_REQUESTS = {"hot": 512, "churn": 68}
-#: Why churn sends 68 requests, not 128: a window of 64 admits each of the
-#: 16 tenants once, and a second window of 4 brings evicted tenants back
-#: (20 admissions: 18 misses, 2 of them re-tunes, and 2 hits); 128 requests
-#: make 32 admissions and took 261.8 s, and 72 (24 admissions) left the
-#: whole smoke at 1162.6 s of its 1200 (NVIDIA H100 80GB HBM3, 700.00 W).
-SERVE_CHURN_CUT = ("churn requests cut 128 -> 68 (a window of 64 and one of 4: "
-                   "20 admissions with 2 re-tuned readmissions, not 32)")
+#: Why churn sends 68 requests, not 128: a window of 64 admits each tenant
+#: once, and a second window of 4 brings an evicted tenant back; 128
+#: requests over 16 tenants make 32 admissions and took 261.8 s, and 72 (24
+#: admissions) left the whole smoke at 1162.6 s of its 1200. Why 10
+#: tenants, not 16: each 2^20-row admission takes ~10 s of host work, and
+#: 16 tenants' 20 admissions took 181.8-229.9 s, the smoke 1136.2 s in its
+#: slowest run; 10 tenants make 14 admissions (11 misses, one of them a
+#: re-tuned readmission, and 3 hits). NVIDIA H100 80GB HBM3, 700.00 W.
+SERVE_CHURN_CUT = ("churn cut to 10 tenants (from 16) and 68 requests (from 128): a window "
+                   "of 64 and one of 4, 14 admissions with a re-tuned readmission, not 32")
 SERVE_REPLAY_N = 4096
 SMALL_TENANT = 8192
 #: The summary fields a serving phase prints (``launch/serve.py``'s, and the
@@ -1353,11 +1359,13 @@ def serve_traffic(eng, spec, num: int):
     return summ, served, keys
 
 
-def check_served(label: str, served, eng) -> float:
+def check_served(label: str, served, eng) -> tuple:
     """Every ticket served; each ``y`` within rtol 2e-4 of its tenant's
     csr/plain on the card; each coalesced row equal to ``op @ x`` of the
     operator the warm pool admitted for it, bit for bit. Returns the max
-    abs error."""
+    abs error and ``graph_equal``: every row, coalesced or not, the eager
+    ``op @ x``'s bits (the captured lanes' rows where the engine replayed
+    them)."""
     import torch
 
     from repro_torch.core import as_operator
@@ -1365,6 +1373,7 @@ def check_served(label: str, served, eng) -> float:
 
     plain = {}
     err = 0.0
+    equal = True
     for name, rhs, t in served:
         check(t.ok, f"serve {label}: request {t.rid} on {name} failed: {t.error}")
         fp = t.record.fingerprint
@@ -1375,21 +1384,22 @@ def check_served(label: str, served, eng) -> float:
         y = t.result()
         err = max(err, within(f"serve {label}: {name} request {t.rid} against csr/plain",
                               y, plain[fp] @ x))
+        same = bool(torch.equal(y, eng.workspace.admitted[fp] @ x))
         if t.record.coalesced:
-            check(bool(torch.equal(y, eng.workspace.admitted[fp] @ x)),
-                  f"serve {label}: coalesced row of request {t.rid} != op @ x")
-    return err
+            check(same, f"serve {label}: coalesced row of request {t.rid} != op @ x")
+        equal = equal and same
+    return err, equal
 
 
 def admission_stages(name: str, mat) -> dict:
-    """One 2^20-row admission's host seconds by stage, each ended by a
-    synchronize: the fingerprint, the CSR build with its ``"scs"`` plan on
-    the host and then to the card (the copy is the difference), the
+    """One 2^20-row admission's host seconds by stage, each timed on its
+    own and ended by a synchronize: the fingerprint, the CSR build with its
+    ``"scs"`` plan on the host, the copy of that container to the card, the
     features and the prediction, and the conversion to the predicted format
-    (``tune(mode="predict")`` less the prediction)."""
+    (the ``asformat`` calls inside ``tune(mode="predict")``)."""
     import torch
 
-    from repro_torch.core import as_operator, select
+    from repro_torch.core import SparseOperator, as_operator, select
     from repro_torch.core.registry import SpmvWorkspace
 
     def timed(fn):
@@ -1398,16 +1408,31 @@ def admission_stages(name: str, mat) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    def converted(op):
+        spent = []
+        asformat = SparseOperator.asformat
+
+        def timed_asformat(self, *a, **kw):
+            out, dt = timed(lambda: asformat(self, *a, **kw))
+            spent.append(dt)
+            return out
+
+        SparseOperator.asformat = timed_asformat
+        try:
+            return op.tune(mode="predict"), sum(spent)
+        finally:
+            SparseOperator.asformat = asformat
+
     _, fp_s = timed(lambda: SpmvWorkspace.fingerprint(mat))
-    _, host_s = timed(lambda: as_operator(mat, "csr", device="cpu"))
-    op, card_s = timed(lambda: as_operator(mat, "csr", device="cuda"))
+    host, host_s = timed(lambda: as_operator(mat, "csr", device="cpu"))
+    op, copy_s = timed(lambda: SparseOperator(host.container.to("cuda"), host.policy))
     pred, predict_s = timed(lambda: select.predict(op.container, platform="cuda"))
-    tuned, tune_s = timed(lambda: op.tune(mode="predict"))
-    return phase(f"serve admission {name}", fingerprint_s=round(fp_s, 3),
-                 csr_host_s=round(host_s, 3), csr_to_card_s=round(card_s - host_s, 3),
-                 features_predict_s=round(predict_s, 3),
-                 convert_s=round(tune_s - predict_s, 3),
-                 total_s=round(fp_s + card_s + tune_s, 3),
+    tuned, convert_s = converted(op)
+    stages = dict(fingerprint_s=fp_s, csr_host_s=host_s, csr_to_card_s=copy_s,
+                  features_predict_s=predict_s, convert_s=convert_s)
+    check(min(stages.values()) >= 0, f"serve admission {name}: a stage below zero: {stages}")
+    return phase(f"serve admission {name}", **{k: round(v, 3) for k, v in stages.items()},
+                 total_s=round(sum(stages.values()), 3),
                  key=f"{tuned.format}/{tuned.policy.backends[0]}")
 
 
@@ -1440,10 +1465,164 @@ def replay_on_host(label: str, spec, num: int, out: dict) -> dict:
     return want
 
 
-def phase_serve(results: dict) -> dict:
+def clocked(eng) -> dict:
+    """Seconds the engine's ``submit`` and admissions take, on its clock,
+    summed from now on (wraps the two methods on the instance)."""
+    spent = {"submit": 0.0, "admission": 0.0}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t0 = eng.clock()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += eng.clock() - t0
+        return timed
+
+    eng.submit = wrap("submit", eng.submit)
+    eng._admit_guarded = wrap("admission", eng._admit_guarded)
+    return spent
+
+
+def tile_times(eng, first: int = 0) -> dict:
+    """p50 and p99 of the engine's tile ``exec_s`` from tile ``first`` on."""
+    from repro_torch.serve.stats import _percentile
+
+    ts = sorted(b.exec_s for b in eng.stats.batches[first:])
+    return {"tiles": len(ts), "p50_s": _percentile(ts, 50), "p99_s": _percentile(ts, 99)}
+
+
+def tile_peak(fn) -> int:
+    """Device bytes ``fn()`` allocates at its peak above what was
+    allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - m0
+
+
+def tile_trace(fn, reps: int = 10, lead: int = 20) -> dict:
+    """Device time of one ``fn()`` by kernel, from ``torch.profiler``: the
+    device records that start inside a marked range of ``reps`` calls (after
+    ``lead`` calls, since a trace can lose its first milliseconds, as
+    :func:`kernel_ms` says), per call; and the events' median ms of a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mark = KERNEL_MS_MARKS[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            fn()
+        torch.cuda.synchronize()
+        with record_function(mark):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    span = [e.time_range for e in events if e.device_type == DeviceType.CPU and e.name == mark][0]
+    by_name = {}
+    for e in events:
+        if (e.device_type != DeviceType.CPU and e.name != mark
+                and span.start <= e.time_range.start <= span.end):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / reps, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"busy_ms": sum(ms for ms, _ in by_name.values()),
+            "records": sum(n for _, n in by_name.values()) / reps,
+            "top5": [(name[:80], round(ms, 4), n // reps) for name, (ms, n) in top],
+            "events_ms": cuda_ms(fn, 5)}
+
+
+def serve_tile_probe(op, lane, xs) -> dict:
+    """One hot tile two ways on the same rhs: eager (``torch.stack`` and
+    ``batched_matvec``) and through the captured lane (copy-in, replay,
+    clone): each one's device time by kernel (:func:`tile_trace`) and peak
+    bytes, and the bytes a lane of this width holds (a fresh capture, then
+    dropped)."""
+    import torch
+
+    from repro_torch.serve import CapturedLane
+
+    def eager():
+        return op.batched_matvec(torch.stack(xs))
+
+    out = {"trace": {"eager": tile_trace(eager), "captured": tile_trace(lambda: lane(xs))},
+           "peak": {"eager": tile_peak(eager), "captured": tile_peak(lambda: lane(xs))}}
+    # reserved: the static buffers and the graph's private pool, with the
+    # allocator's cached free blocks (the warm-up's among them) released
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    fresh = CapturedLane(op, "mm", len(xs), xs[0].dtype)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["lane_bytes"] = {"allocated": torch.cuda.memory_allocated() - a0,
+                         "reserved": torch.cuda.memory_reserved() - r0}
+    del fresh
+    for name, tr in out["trace"].items():
+        phase(f"serve tile trace {name}", busy_ms=round(tr["busy_ms"], 4),
+              events_ms=round(tr["events_ms"], 4), device_records=tr["records"],
+              top5=json.dumps(tr["top5"]))
+    return out
+
+
+def serve_graph_line(hot, eager, served, eager_served, spent: dict, peaks: dict,
+                     smi: str) -> dict:
+    """Hot's captured lanes against the eager window over the same
+    workspace: the lanes' counters, launches a tile, tile ``exec_s``,
+    ``graph_equal`` (every eager result the captured one bit for bit),
+    peak memory (each run's, one tile's, and what a lane holds), one tile
+    traced each way, and where the captured run's wall time went."""
+    import torch
+
+    g = hot.graph_stats()
+    fp = served[0][2].record.fingerprint
+    lanes = hot.workspace.lanes(fp, hot.workspace.admitted[fp])
+    launches = {f"{lane}{k}": cap.launches for (lane, k, _, _), cap in lanes.items()}
+    op = hot.workspace.admitted[fp]
+    mm = [cap for (lane, k, _, _), cap in lanes.items() if lane == "mm" and k == SERVE_MAX_BATCH]
+    check(len(mm) == 1, f"serve graph: no mm lane of {SERVE_MAX_BATCH} beside the hot tenant")
+    probe = serve_tile_probe(op, mm[0], [torch.from_numpy(x).to(op.device)
+                                         for _, x, _ in served[:SERVE_MAX_BATCH]])
+    import numpy as np
+
+    equal = len(served) == len(eager_served) and all(
+        a == b and np.array_equal(x, y) and torch.equal(t.result(), e.result())
+        for (a, x, t), (b, y, e) in zip(served, eager_served))
+    execution = sum(b.exec_s for b in hot.stats.batches)
+    split = dict(spent, execution=execution,
+                 rest=hot.wall_s - spent["submit"] - spent["admission"] - execution)
+    out = phase("serve graph", captures=g["captures"], replays=g["replays"],
+                capture_s=round(g["capture_s"], 4), instantiate_s=round(g["instantiate_s"], 4),
+                nodes=g["nodes"], live=g["live"], launches_a_tile=json.dumps(launches),
+                exec_captured=json.dumps(tile_times(hot)),
+                exec_eager=json.dumps(tile_times(eager)),
+                graph_equal=equal, compared=len(eager_served),
+                peak_bytes=json.dumps(peaks), tile_peak_bytes=json.dumps(probe["peak"]),
+                lane_bytes=json.dumps(probe["lane_bytes"]),
+                tile_busy_ms=json.dumps({k: round(v["busy_ms"], 4)
+                                         for k, v in probe["trace"].items()}),
+                wall_split_s=json.dumps(split), card=smi)
+    check(g["replays"] > 0 and g["captures"] >= 1, f"serve graph: hot replayed nothing: {g}")
+    check(equal, "serve graph: a captured result differs from the eager window's")
+    return out
+
+
+def phase_serve(results: dict, smi: str = "") -> dict:
     """Phase 10: the serving path at 2^20-row tenants — hot, churn, a
     dynamic tenant and an armed kernel fault, each counted on its own.
-    Returns the launches of the four runs summed (the ``serve`` path)."""
+    Healthy tiles replay the engine's captured lanes; hot's first window
+    runs again eagerly on a second engine over the same warm pool for the
+    ``[serve graph]`` line. Returns the launches of the four runs summed
+    (the ``serve`` path)."""
     import numpy as np
     import torch
 
@@ -1467,26 +1646,44 @@ def phase_serve(results: dict) -> dict:
     # for the whole chaos phase (the default cooldown is 50 ms)
     hot = ServeEngine(workspace=recording_pool(), max_batch=SERVE_MAX_BATCH,
                       tune_mode="predict", health=HealthRegistry(cooldown_s=3600.0))
+    check(hot.graph, "serve hot: the engine on the card does not replay captured lanes")
     spec = TrafficSpec(mix="hot", n=n, seed=0)
+    spent = clocked(hot)
+    peaks = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     (summ, served, keys), launches, _ = counted("serve hot", lambda: serve_traffic(
         hot, spec, SERVE_REQUESTS["hot"]))
     t_hot = time.perf_counter() - t0
+    peaks[f"captured_{SERVE_REQUESTS['hot']}"] = torch.cuda.max_memory_allocated() - m0
     add(launches)
     check_healthy("hot", summ)
     check(summ["coalesced_fraction"] == 1.0 and summ["batch_size_max"] == SERVE_MAX_BATCH,
           f"serve hot: tiles did not coalesce to {SERVE_MAX_BATCH}")
     replay = replay_on_host("hot", spec, SERVE_REQUESTS["hot"], summ)
-    err = check_served("hot", served, hot)
+    err, equal = check_served("hot", served, hot)
+    check(equal, "serve hot: a captured row differs from the eager op @ x")
     out["hot"] = serve_line("hot", hot, summ, keys, launches, t_hot, requests_sent=len(served),
-                            max_abs_err=err, host_replay=json.dumps(replay))
+                            max_abs_err=err, host_replay=json.dumps(replay), graph_equal=equal)
+    # the first window again, eager, on a second engine over the same pool
+    eager = ServeEngine(workspace=hot.workspace, max_batch=SERVE_MAX_BATCH,
+                        tune_mode="predict", graph=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    _, eager_served, _ = serve_traffic(eager, spec, SERVE_FLUSH_EVERY)
+    peaks[f"eager_{SERVE_FLUSH_EVERY}"] = torch.cuda.max_memory_allocated() - m0
+    out["graph"] = serve_graph_line(hot, eager, served[:SERVE_FLUSH_EVERY], eager_served,
+                                    spent, peaks, smi)
     hot_name, hot_fp = served[0][0], served[0][2].record.fingerprint
     hot_matrix = hot._matrices[hot_fp]
-    del served
+    del served, eager_served, eager
     torch.cuda.empty_cache()
 
-    # churn: 16 tenants against 8 slots; a 64-request window admits each
-    # once, and the second window's 8 requests bring evicted tenants back
+    # churn: 10 tenants against 8 slots; a 64-request window admits each
+    # once, and the second window's 4 requests bring an evicted tenant back
     print(f"[serve cut] {SERVE_CHURN_CUT}", flush=True)
     churn = ServeEngine(workspace=recording_pool(), max_batch=SERVE_MAX_BATCH,
                         tune_mode="predict")
@@ -1501,10 +1698,15 @@ def phase_serve(results: dict) -> dict:
           and summ["tunes"] == summ["workspace"]["misses"],
           f"serve churn: no evicted tenant was re-tuned on readmission: {summ['workspace']}")
     replay = replay_on_host("churn", spec, SERVE_REQUESTS["churn"], summ)
-    err = check_served("churn", served, churn)
+    err, equal = check_served("churn", served, churn)
+    g = churn.graph_stats()
+    # every admission serves a tile, so it captures at least one lane
+    check(equal and g["captures"] >= summ["workspace"]["misses"] and g["replays"] > 0,
+          f"serve churn: graph_equal={equal}, lanes {g}, {summ['workspace']}")
     out["churn"] = serve_line("churn", churn, summ, keys, launches, t_churn,
                               requests_sent=len(served), max_abs_err=err,
-                              host_replay=json.dumps(replay))
+                              host_replay=json.dumps(replay), graph_equal=equal,
+                              graph=json.dumps(g))
     # one admission by stage, for a tenant of each predicted key
     stage_of = {}
     for name, _, t in served:
@@ -1529,9 +1731,14 @@ def phase_serve(results: dict) -> dict:
         err_ov = within("dynamic: ov @ x against the merged matrix in f64", y,
                         torch.from_numpy(merged @ x.double().cpu().numpy()))
         drift = ov.drift()
+        live = hot.graph_stats()["live"]
         res = hot.refresh(ov)
         check(res.retuned and drift.score > DEFAULT_DRIFT_THRESHOLD,
               f"dynamic: refresh did not re-tune (drift {drift})")
+        released = live - hot.graph_stats()["live"]
+        check(live > 0 and hot.graph_stats()["live"] == 0,
+              f"dynamic: refresh kept the old fingerprint's lanes ({live} before)")
+        replays = hot.graph_stats()["replays"]
         plain = as_operator(to_csr(merged, plan=False, device="cuda")).using("plain")
         tickets = []
         for _ in range(64):
@@ -1539,11 +1746,18 @@ def phase_serve(results: dict) -> dict:
             tickets.append((xr, hot.submit(res.fingerprint_after, xr)))
         hot.flush()
         err_served = 0.0
+        equal = True
         for xr, t in tickets:
             check(t.ok, f"dynamic: request {t.rid} failed: {t.error}")
+            x = torch.from_numpy(xr).cuda()
             err_served = max(err_served, within(
                 "dynamic: a request under fingerprint_after against csr/plain",
-                t.result(), plain @ torch.from_numpy(xr).cuda()))
+                t.result(), plain @ x))
+            equal = equal and bool(torch.equal(t.result(), res.operator @ x))
+        replayed = hot.graph_stats()["replays"] - replays
+        check(equal and replayed > 0,
+              f"dynamic: the refreshed tenant did not serve captured ({replayed} replays, "
+              f"graph_equal={equal})")
         # the same lane on the tenant whose delta the full-window coo_spmv takes
         small = M.banded(SMALL_TENANT, 3, seed=10)
         sov = as_operator(small, device="cuda").tune(mode="predict").mutable()
@@ -1561,7 +1775,8 @@ def phase_serve(results: dict) -> dict:
                     key_after="/".join(res.key_after), reselected=res.reselected,
                     max_abs_err_overlay=err_ov, max_abs_err_served=err_served,
                     small_delta_key=f"{small_key.format}/{small_key.backend}",
-                    small_max_abs_err=err_small)
+                    small_max_abs_err=err_small, lanes_released=released,
+                    replays=replayed, graph_equal=equal)
 
     t0 = time.perf_counter()
     dyn, launches, _ = counted("serve dynamic", dynamic)
@@ -1581,6 +1796,7 @@ def phase_serve(results: dict) -> dict:
         plain = hot_op.with_policy(hot_op.policy.preferring("plain"))
         rng = np.random.default_rng(6)
         before = hot.summary()
+        lanes_before = hot.graph_stats()
         plan = FaultPlan([FaultSpec("kernel", key=(fmt, "cuda"), times=3)])
         with plan:
             sent = []
@@ -1589,6 +1805,10 @@ def phase_serve(results: dict) -> dict:
                 sent.append((xr, hot.submit(hot_matrix, xr)))
             hot.flush()
         after = hot.summary()
+        lanes_after = hot.graph_stats()
+        # armed, then quarantined: the reference's eager rule
+        check(all(lanes_after[k] == lanes_before[k] for k in ("captures", "replays")),
+              f"chaos: lanes ran under the plan: {lanes_before} -> {lanes_after}")
         check(hot.health.quarantined(DispatchKey(fmt, "cuda")),
               f"chaos: {fmt}/cuda was not quarantined")
         degraded = 0
@@ -1601,6 +1821,7 @@ def phase_serve(results: dict) -> dict:
                       f"chaos: degraded request {t.rid} != the plain lane bit for bit")
         return dict(**own_latency([t for _, t in sent]), key=f"{fmt}/cuda",
                     fired=plan.fired("kernel"), served_off_cuda=degraded,
+                    replays_in_phase=lanes_after["replays"] - lanes_before["replays"],
                     **{f"{k}_in_phase": after[k] - before[k] for k in (
                         "retries", "degraded_requests", "batch_splits", "errors")})
 
@@ -3366,7 +3587,7 @@ def main() -> int:
     lap("9 hpcg104 predict")
 
     # --------------------------------------------------------------- 10
-    launches_serve = phase_serve(results)
+    launches_serve = phase_serve(results, smi)
     lap("10 serve")
 
     # --------------------------------------------------------------- 11

@@ -13,14 +13,18 @@ fingerprint-keyed admission path, capacity evicts the least-recently served
 tenant, and :meth:`SpmvWorkspace.stats` exposes the hit/miss/eviction
 counters the serving stats report.
 
-There is no executable cache beside the operators: the reference keys a
-``jax.jit`` per (format, policy); here ``spmv`` calls dispatch directly.
+Beside each entry the pool keeps the serving engine's captured lanes
+(:meth:`SpmvWorkspace.lanes`, ``repro_torch.serve.lanes.CapturedLane``):
+where the reference's ``jax.jit`` cache keys a compiled lane on the
+operator's structure, a CUDA graph holds the entry's addresses, so its
+graphs live and die with the entry (LRU eviction, ``discard``, an
+``insert`` that replaces it). ``spmv`` calls dispatch directly.
 """
 from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +53,7 @@ class SpmvWorkspace:
                 f"(0 means cache nothing — every admission builds and is "
                 f"immediately evicted)")
         self._ops: "OrderedDict[str, SparseOperator]" = OrderedDict()
+        self._lanes: Dict[str, dict] = {}  # fingerprint -> its captured lanes
         self._max = max_entries
         self.hits = 0
         self.misses = 0
@@ -67,8 +72,26 @@ class SpmvWorkspace:
 
     def _evict_to(self, room: int) -> None:
         while len(self._ops) > max(0, self._max - room):
-            self._ops.popitem(last=False)  # least-recently-used first
+            fp, _ = self._ops.popitem(last=False)  # least-recently-used first
+            self._drop_lanes(fp)
             self.evictions += 1
+
+    def _drop_lanes(self, fingerprint: str) -> None:
+        lanes = self._lanes.pop(fingerprint, None)
+        if lanes:
+            lanes.clear()  # a caller still holding the dict holds no graph
+
+    def lanes(self, fingerprint: str, op: SparseOperator) -> dict:
+        """The captured lanes kept beside the entry ``fingerprint`` while it
+        holds ``op`` (keyed by the caller); a fresh dict the pool does not
+        keep when ``op`` is not the entry (evicted, replaced, never held)."""
+        if self._ops.get(fingerprint) is not op:
+            return {}
+        return self._lanes.setdefault(fingerprint, {})
+
+    def live_lanes(self) -> int:
+        """Captured lanes held beside the pool's entries."""
+        return sum(len(v) for v in self._lanes.values())
 
     @staticmethod
     def fingerprint(a) -> str:
@@ -151,7 +174,10 @@ class SpmvWorkspace:
     def insert(self, fingerprint: str, op: SparseOperator) -> None:
         """Place ``op`` at ``fingerprint`` as the most-recent entry, then
         evict down to capacity — no hit/miss counters (the serving layer's
-        re-admission path after a drift-driven refresh)."""
+        re-admission path after a drift-driven refresh). Replacing an entry
+        drops its captured lanes."""
+        if self._ops.get(fingerprint, op) is not op:
+            self._drop_lanes(fingerprint)
         self._ops[fingerprint] = op
         self._ops.move_to_end(fingerprint)
         self._evict_to(0)
@@ -159,7 +185,8 @@ class SpmvWorkspace:
     def discard(self, fingerprint: str) -> bool:
         """Drop ``fingerprint`` if present (not counted as an eviction: the
         entry is invalidated — e.g. its matrix mutated — not capacity-popped).
-        Returns whether it was present."""
+        Returns whether it was present. Its captured lanes go with it."""
+        self._drop_lanes(fingerprint)
         return self._ops.pop(fingerprint, None) is not None
 
     def get_matrix(self, a, fmt: str, **kw):

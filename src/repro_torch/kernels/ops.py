@@ -54,10 +54,13 @@ def _plan_ok(A, policy, kind: str) -> bool:
 
 def _dia_extent(A: DIA) -> int:
     """``max|offset|``: the bound ``to_dia`` records, else read from the
-    offsets."""
+    offsets once and kept in ``A.cache`` (a later call, such as one inside a
+    CUDA graph capture, reads nothing)."""
     if A.extent is not None:
         return int(A.extent)
-    return int(A.offsets.abs().max()) if A.offsets.numel() else 0
+    if "extent" not in A.cache:
+        A.cache["extent"] = int(A.offsets.abs().max()) if A.offsets.numel() else 0
+    return A.cache["extent"]
 
 
 def _dia_resident(A: DIA, policy) -> bool:

@@ -23,7 +23,11 @@ Runs on the card unless ``--device cpu``. ``--graph`` (the default) serves
 the prompt and every generated token through one captured decode step
 (``repro_torch.serve.CapturedDecode``), as the reference serves them
 through one jitted, donated step; it needs the card, so the host takes
-``--no-graph``, the eager step. The LM loop
+``--no-graph``, the eager step. With ``--traffic`` the engine serves
+healthy tiles through its captured lanes on the card
+(``repro_torch.serve.CapturedLane``, the reference's jitted ``_mv`` and
+``_mm``) and eagerly on the host; ``--no-graph`` makes the card eager too,
+and a line before the summary prints the lanes' counters. The LM loop
 reports through ``repro_torch.serve.stats``: one request per generated
 token batch, so its p50/p99 ms/token come from the same percentiles as
 the sparse engine's latencies.
@@ -48,11 +52,16 @@ from repro_torch.serve.stats import BatchRecord, RequestRecord, ServeStats
 def serve_traffic(args) -> dict:
     """The sparse request path: engine + seeded traffic mix -> summary."""
     engine = ServeEngine(capacity=args.capacity, max_batch=args.max_batch,
-                         tune_mode=args.tune_mode, device=args.device)
+                         tune_mode=args.tune_mode, device=args.device,
+                         graph=getattr(args, "graph", None))
     spec = TrafficSpec(mix=args.traffic, n=args.n,
                        n_matrices=args.tenants, seed=args.seed)
     out = run_traffic(engine, spec, args.requests,
                       flush_every=args.flush_every)
+    g = engine.graph_stats()
+    print(f"graph lanes: {'on' if engine.graph else 'off'} captures={g['captures']} "
+          f"replays={g['replays']} capture={g['capture_s']:.3f}s "
+          f"instantiate={g['instantiate_s']:.3f}s nodes={g['nodes']} live={g['live']}")
     print(f"mix={out['mix']} n={out['n']} tenants={out['n_matrices']} "
           f"requests={out['requests']} batches={out['batches']} device={args.device}")
     print(f"latency p50={out['latency_p50_s']*1e3:.2f}ms "
@@ -65,7 +74,7 @@ def serve_traffic(args) -> dict:
     print(f"batching: mean={out['batch_size_mean']:.1f} "
           f"max={out['batch_size_max']} "
           f"coalesced={out['coalesced_fraction']:.0%} of requests")
-    return out
+    return dict(out, graph=g)
 
 
 def lm_config(args):
@@ -95,7 +104,7 @@ def serve_lm(args, params=None, logits_out: Optional[List[torch.Tensor]] = None)
     its params."""
     cfg = lm_config(args)
     dev = resolve_device(args.device)
-    graph = getattr(args, "graph", True)
+    graph = getattr(args, "graph", True) is not False
     if graph and dev.type != "cuda":
         raise ValueError(f"graph=True serves through a decode step captured in a CUDA graph "
                          f"and needs a CUDA device, got {dev}; pass --no-graph (graph=False) "
@@ -185,9 +194,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to this many layers (0: the config's)")
-    ap.add_argument("--graph", action=argparse.BooleanOptionalAction, default=True,
+    ap.add_argument("--graph", action=argparse.BooleanOptionalAction, default=None,
                     help="serve every step through one decode step captured in a CUDA "
-                         "graph (default; needs the card: --no-graph on the host)")
+                         "graph, and a traffic mix's healthy tiles through captured lanes "
+                         "(default on the card; needs it: the LM loop takes --no-graph on "
+                         "the host, a traffic mix is eager there)")
     ap.add_argument("--dispatch-impl", default=None,
                     choices=["sort", "onehot", "coo", "bsr", "grouped"],
                     help="the MoE dispatch lane (default: the config's)")

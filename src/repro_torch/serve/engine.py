@@ -23,8 +23,30 @@ Request lifecycle::
            device time.
 
 The engine holds its tenants and right-hand sides on one ``device``
-(default ``"cuda"``; ``submit`` copies the rhs there once). Every tile runs
-eagerly: there is no jitted lane to switch off under faults.
+(default ``"cuda"``; ``submit`` copies the rhs there once).
+
+**Captured lanes** (``graph``, on by default on the card): the reference
+serves a healthy tile through two jitted lanes, ``jax.jit(lambda op, x:
+op @ x)`` and ``jax.jit(lambda op, xs: op.batched_matvec(xs))``; here each
+is a CUDA graph (:class:`~repro_torch.serve.lanes.CapturedLane`) captured
+on first use for one admitted operator, lane, width, rhs dtype and
+executed policy, kept beside the operator in the warm pool and dropped
+with it. A tile copies its right-hand sides into the graph's static
+input, replays and clones the output; every replay gives the eager tile's
+bits. As the reference does, a tile runs **eagerly** while a fault plan is
+armed, ``check_finite`` is on, or any key is quarantined (a fault fired at
+capture time would be baked into the graph, and probe and recovery
+accounting need the per-call dispatch path); a per-request retry, which
+follows a planted fault, is eager too. Dispatch's Python
+(``record_success``, the kernel wrappers' launch counters, a plan's
+sites) runs at a lane's warm-up and capture, never at a replay, as it
+runs once under the reference's trace. Each rhs is checked before it
+reaches a static buffer: one that is not a ``(ncols,)`` vector resolves
+its own request to ``kind="input"`` and splits its tile. A capture that
+fails resolves the tile's requests to ``kind="execution"``; nothing is
+served eagerly in its place. ``graph_stats()`` counts captures, replays,
+their seconds, nodes and live graphs (kept out of ``summary()``, whose
+keys are the reference's). ``graph=False`` serves every tile eagerly.
 
 **Degraded serving**: a flush never lets a fault take the batch down.
 Failures resolve the affected tickets to a structured :class:`ServeError`
@@ -83,6 +105,7 @@ from repro_torch.core.spmv import DispatchKey, select_spmv
 from repro_torch.resilience.monitor import RestartPolicy
 
 from .batcher import ServeRequest, Tile, coalescible, plan_batches
+from .lanes import CapturedLane
 from .stats import BatchRecord, RequestRecord, ServeStats
 
 
@@ -215,6 +238,9 @@ class ServeEngine:
         sleep: optional ``sleep_fn`` for real backoff.
         device: where tenants built from scipy/dense input and every rhs
             live (default ``"cuda"``; raises without a card).
+        graph: serve healthy tiles through captured lanes (see the module
+            docstring). ``None``: on a CUDA ``device``, eager on the host;
+            ``True`` on a host ``device`` raises ``ValueError``.
     """
 
     def __init__(self, *, capacity: int = 32,
@@ -231,10 +257,21 @@ class ServeEngine:
                  admission_retries: int = 2,
                  admission_backoff_s: float = 0.0,
                  sleep=None,
-                 device="cuda"):
+                 device="cuda",
+                 graph: Optional[bool] = None):
         from repro_torch.core.dynamic import DEFAULT_DRIFT_THRESHOLD
 
         self.device = resolve_device(device)
+        if graph is None:
+            graph = self.device.type == "cuda"
+        elif graph and self.device.type != "cuda":
+            raise ValueError(f"graph=True serves through lanes captured in CUDA graphs and "
+                             f"needs a CUDA device, got {self.device}; pass graph=False to "
+                             f"serve every tile eagerly")
+        #: healthy tiles replay captured lanes (False: every tile eager)
+        self.graph = bool(graph)
+        self._graphs = {"captures": 0, "replays": 0, "capture_s": 0.0,
+                        "instantiate_s": 0.0, "nodes": 0}
         self.drift_threshold = (DEFAULT_DRIFT_THRESHOLD
                                 if drift_threshold is None
                                 else float(drift_threshold))
@@ -424,6 +461,56 @@ class ServeEngine:
         self._failed_on_card.add(DispatchKey(op.format, "cuda"))
         return True
 
+    @staticmethod
+    def _served_rhs(op: SparseOperator, rhs) -> torch.Tensor:
+        """``rhs`` on the operator's device, checked as the eager lane checks
+        it (``_operand``, then ``batched_matvec``'s ndim and columns) before
+        it reaches a lane's static buffer."""
+        x = op._operand(rhs)
+        if x.ndim != 1 or x.shape[0] != op.shape[1]:
+            raise SparseInputError(
+                f"rhs of shape {tuple(x.shape)} against a {op.format} operator of shape "
+                f"{tuple(op.shape)}: a served rhs is a ({op.shape[1]},) vector")
+        return x
+
+    def _replay(self, op: SparseOperator, fp: str, lane: str,
+                xs: List[torch.Tensor]) -> torch.Tensor:
+        """``xs`` through the operator's captured ``lane``, capturing it on
+        first use (kept beside the warm-pool entry ``fp``)."""
+        dtype = xs[0].dtype
+        for x in xs[1:]:
+            dtype = torch.promote_types(dtype, x.dtype)
+        lanes = self.workspace.lanes(fp, op)
+        key = (lane, len(xs), dtype, op._effective_policy())
+        captured = lanes.get(key)
+        if captured is None:
+            captured = CapturedLane(op, lane, len(xs), dtype)
+            lanes[key] = captured
+            g = self._graphs
+            g["captures"] += 1
+            g["capture_s"] += captured.capture_s
+            g["instantiate_s"] += captured.instantiate_s
+            g["nodes"] += captured.nodes
+        y = captured(xs)
+        self._graphs["replays"] += 1
+        return y
+
+    def _serve_captured(self, op: SparseOperator, fp: str, req: ServeRequest
+                        ) -> Tuple[Optional[torch.Tensor], int, Optional[tuple]]:
+        """One request through the captured ``mv`` lane: a malformed rhs is
+        ``kind="input"``, any other failure ``kind="execution"`` (no retry:
+        an eager retry would stand in for the lane)."""
+        fired = _fired()
+        try:
+            x = self._served_rhs(op, req.rhs)
+        except SparseInputError as e:
+            return None, 0, ("input", e)
+        try:
+            return _sync(self._replay(op, fp, "mv", [x])), 0, None
+        except Exception as e:
+            self._real_card_failure(op, op._effective_policy(), fired)
+            return None, 0, ("execution", e)
+
     def _serve_one(self, op: SparseOperator, req: ServeRequest
                    ) -> Tuple[Optional[torch.Tensor], int, Optional[tuple]]:
         """One request with bounded retry-with-degradation; returns
@@ -476,13 +563,20 @@ class ServeEngine:
             if selected != base_pol.backends[0]:
                 degraded = True
                 exec_op = op.with_policy(base_pol.preferring(selected))
+        # the reference's rule: the jitted (here captured) lanes serve the
+        # healthy steady state only
+        eager = (not self.graph or _health.fault_plan() is not None
+                 or base_pol.check_finite or self.health.any_quarantined())
         coalesce = len(live) > 1 and coalescible(exec_op)
         results: Optional[List[tuple]] = None
         if coalesce:
             fired = _fired()
             try:
-                xs = torch.stack([r.rhs for r in live])
-                ys = _sync(exec_op.batched_matvec(xs))
+                if eager:
+                    ys = _sync(exec_op.batched_matvec(torch.stack([r.rhs for r in live])))
+                else:
+                    xs = [self._served_rhs(exec_op, r.rhs) for r in live]
+                    ys = _sync(self._replay(exec_op, tile.fingerprint, "mm", xs))
                 if base_pol.check_finite and not bool(torch.isfinite(ys).all()):
                     raise KernelExecutionError(
                         "coalesced tile produced non-finite rows")
@@ -493,13 +587,16 @@ class ServeEngine:
                 self.stats.batch_splits += 1
                 coalesce = False
             except Exception as e:
-                if self._real_card_failure(exec_op, exec_op._effective_policy(), fired):
+                # a failed capture or replay is never served eagerly instead
+                if (self._real_card_failure(exec_op, exec_op._effective_policy(), fired)
+                        or not eager):
                     results = [(None, 0, ("execution", e))] * len(live)
                 else:
                     self.stats.batch_splits += 1
                     coalesce = False
         if results is None:
-            results = [self._serve_one(exec_op, r) for r in live]
+            results = [self._serve_one(exec_op, r) if eager
+                       else self._serve_captured(exec_op, tile.fingerprint, r) for r in live]
         t_done = self.clock()
         self._t_last_done = max(self._t_last_done, t_done)
         served = [(req, y, nretry) for req, (y, nretry, err) in zip(live, results)
@@ -632,6 +729,13 @@ class ServeEngine:
         if self._t_first_submit is None:
             return 0.0
         return max(0.0, self._t_last_done - self._t_first_submit)
+
+    def graph_stats(self) -> Dict:
+        """The captured lanes: ``captures`` and ``replays`` this engine made,
+        the captures' ``capture_s``, ``instantiate_s`` and ``nodes`` summed,
+        and the ``live`` lanes its warm pool holds (an engine that shares a
+        workspace shares its lanes)."""
+        return dict(self._graphs, live=self.workspace.live_lanes())
 
     def summary(self) -> Dict:
         """``ServeStats.summary`` over the engine's own wall clock, plus the
