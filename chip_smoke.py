@@ -67,7 +67,8 @@ Phases, one or more lines each, each ending with its seconds:
      ``ell_spmv_tiled``, ``coo_spmv`` and ``scoo_spmv_tiled`` launched. Every
      race (the main one and each level's) is printed with its skips. Both
      timed solves (csr/plain and tuned) are captured in one CUDA graph each
-     and timed by 3 replays beside 3 eager solves, each eager one run with
+     and timed by 3 replays beside one eager solve (cut from 3, as phases 9
+     and 11 have it, to keep the smoke inside its limit), run with
      PyTorch's sync debug mode at "error" (a host read in a warm solve fails
      the run); a line for each prints both medians, the capture and
      instantiation seconds, the graph's nodes and the kernel launches counted
@@ -224,10 +225,22 @@ Phases, one or more lines each, each ending with its seconds:
      ``TRAIN_STEPS`` steps of ``make_train_step``, counted as the train
      path (loss, grad_norm, lr and ms a step; p50, tokens/s, peak memory);
      (c) at smoke size, ``python -m repro_torch.launch.train --smoke
-     --dispatch-impl bsr --steps 12 --ckpt-every 4``, the ``Trainer``'s
-     run with a failure at step 10 against the run without one (steps 8,
-     9, 11 within 1e-6; the CLI's final loss the clean run's), and
-     ``examples/train_lm_torch.py --quick --inject-failure``;
+     --dispatch-impl bsr --steps 12 --ckpt-every 4`` (its step captured),
+     the ``Trainer``'s captured run with a failure at step 10 (``restore``
+     writes step 8's checkpoint into the graph's tensors) against the
+     captured run without one (steps 8, 9, 11 equal in bits; the CLI's
+     final loss the clean run's), the clean captured run against the
+     clean eager one (``graph=False``; every step's loss equal in bits),
+     and ``examples/train_lm_torch.py --quick --inject-failure``; (d) (b)'s
+     model, batch and seed through the ``Trainer`` on the card, whose step
+     is captured in one CUDA graph (``repro_torch.train.CapturedTrainStep``,
+     the reference's ``jax.jit(step_fn, donate_argnums=(0, 1))``): step 0
+     the warm-up and the capture, every later step a replay, each step's
+     loss and grad_norm equal to (b)'s in bits, counted as the
+     ``train_graph`` path; ms a step, the replays' p50 beside (b)'s,
+     capture and instantiation seconds, nodes, the hand-written kernel
+     launches a replay makes, peak allocated and reserved memory (the
+     graph's private pool included);
  16. the roofline, the dry run and the compressed all-reduce: (a) for each
      LM cell of phases 12-15, at that phase's own depth and shape, the
      analytic bound of ``repro_torch.roofline`` (the reference's
@@ -259,7 +272,8 @@ Phases, one or more lines each, each ending with its seconds:
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
 ``launches_<path>`` gives every path's count (``train``: phase 15b's
-steps; ``train_sharded``: phase 17's), and ``dia_spmv``'s
+steps; ``train_graph``: phase 15d's warm-up and capture, a replay runs
+uncounted; ``train_sharded``: phase 17's), and ``dia_spmv``'s
 ``launches_split`` its launches on the HPCG paths by level, masked or not,
 ``g^3/4`` for a part of a level on the distributed paths); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -336,9 +350,9 @@ REQUIRED_ON = {"scs_spmv": ("hpcg", "serve"), "dia_spmv": ("hpcg", "serve", "dis
                "ell_spmv_tiled": ("hpcg",),
                "coo_spmv": ("hpcg", "serve", "dist_pairs", "model"),
                "scoo_spmv_tiled": ("hpcg",), "scoo_spmv": ("scoo",),
-               "bsr_spmm": ("block", "model", "train", "train_sharded"),
-               "bsr_spmm_t": ("train", "train_sharded"),
-               "bsr_sddmm": ("train", "train_sharded")}
+               "bsr_spmm": ("block", "model", "train", "train_graph", "train_sharded"),
+               "bsr_spmm_t": ("train", "train_graph", "train_sharded"),
+               "bsr_sddmm": ("train", "train_graph", "train_sharded")}
 
 #: What a kernel's entry in the JSON line carries beyond the contract's keys:
 #: its other shapes (``bsr_spmm``'s SpMM and masked forms, ``scs_spmv`` off
@@ -3142,10 +3156,12 @@ def step_split(model, params, opt, batch) -> dict:
 
 def train_cli(results: dict) -> None:
     """Phase 15c at smoke size on the card: the launcher's CLI (12 steps,
-    checkpoints every 4); the trainer with the CLI's settings run without
-    a failure and with one at step 10 (restored from step 8's checkpoint):
-    losses at steps 8, 9 and 11 within the reference's 1e-6, and the CLI's
-    final loss the clean run's; then ``examples/train_lm_torch.py --quick
+    checkpoints every 4, its step captured); the trainer with the CLI's
+    settings, captured, run without a failure and with one at step 10
+    (restored in place from step 8's checkpoint, then replayed): losses at
+    steps 8, 9 and 11 equal in bits, the clean captured run's losses the
+    clean eager run's (``graph=False``) in bits, and the CLI's final loss
+    the clean run's; then ``examples/train_lm_torch.py --quick
     --inject-failure``."""
     import shutil
     import tempfile
@@ -3168,25 +3184,35 @@ def train_cli(results: dict) -> None:
         check(r.returncode == 0, f"train CLI failed:\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
         cli_final = [ln for ln in r.stdout.splitlines() if ln.startswith("final loss")]
         check(len(cli_final) == 1, f"train CLI printed no final loss:\n{r.stdout[-2000:]}")
+        check("graph=on" in r.stdout and "train graph:" in r.stdout,
+              f"train CLI did not train through its captured step:\n{r.stdout[-2000:]}")
         print(f"  [train cli] {cli_final[0]}", flush=True)
 
-        def run(name, fail_at=None):
+        def run(name, fail_at=None, graph=None):
             tcfg = TrainerConfig(n_steps=TRAIN_CLI_STEPS, ckpt_dir=os.path.join(tmp, name),
                                  checkpoint_every=4, log_every=100)
             tr = Trainer(train_config(smoke=True), tcfg,
-                         adamw.AdamWConfig(total_steps=TRAIN_CLI_STEPS), device=TRAIN_DEVICE)
+                         adamw.AdamWConfig(total_steps=TRAIN_CLI_STEPS), device=TRAIN_DEVICE,
+                         graph=graph)
             with use_backend("cuda"):
-                return tr.train(fail_at=fail_at)
+                hist = tr.train(fail_at=fail_at)
+            check(tr.graph is (graph is not False) and (tr.captured is not None) is tr.graph,
+                  f"train restart: the {name} run's step is not captured as asked ({graph})")
+            return hist
 
         before = bsr_sddmm.launches
+        h0 = run("eager", graph=False)
         h1, h2 = run("clean"), run("failed", fail_at=TRAIN_FAIL_AT)
         check(bsr_sddmm.launches > before, "train restart: the backward kernels did not run")
         l1 = [h["loss"] for h in h1]
+        check(l1 == [h["loss"] for h in h0],
+              f"train restart: the captured run's losses {l1} are not the eager run's "
+              f"{[h['loss'] for h in h0]}")
         l2 = {}
         for h in h2:
             l2[h["step"]] = h["loss"]
         diffs = {s: abs(l1[s] - l2[s]) for s in (8, 9, 11)}
-        check(all(d < 1e-6 for d in diffs.values()),
+        check(all(d == 0 for d in diffs.values()),
               f"train restart: losses after the failure differ from the clean run's: {diffs}")
         check([h["step"] for h in h2].count(8) == 2, "train restart: step 8 was not replayed")
         check(f"final loss: {l1[-1]:.4f}" in cli_final[0],
@@ -3204,8 +3230,80 @@ def train_cli(results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     results["train_restart"] = phase(
         "train cli and restart", arch=train_config(smoke=True).name, steps=TRAIN_CLI_STEPS,
-        fail_at=TRAIN_FAIL_AT, loss_diffs=json.dumps(diffs), cli_s=cli_s,
+        fail_at=TRAIN_FAIL_AT, loss_diffs=json.dumps(diffs), captured_equals_eager=True,
+        cli_s=cli_s,
         cli_final=repr(cli_final[0]), example_s=example_s, example=repr(summary))
+
+
+def train_captured(results: dict, smi: str) -> dict:
+    """Phase 15d: phase 15b's model, batch and seed through the ``Trainer``
+    on the card, ``graph=None``: step 0 is the warm-up of its
+    ``CapturedTrainStep`` and the capture, every later step a replay of
+    the graph (the reference's ``jax.jit(step_fn, donate_argnums=(0,
+    1))``). Each step's loss and grad_norm equal 15b's eager steps' in
+    bits. Counted as the ``train_graph`` path: the warm-up's and the
+    capture's launches (a replay runs in the graph, uncounted); the
+    graph's launches a step are the capture's. 15b's state is freed
+    first. Returns the path's launches."""
+    import torch
+
+    from repro_torch.core import use_backend
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    base = results["train"]
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    cfg = train_config()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainerConfig(n_steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ, seed=0, log_every=100),
+                 adamw.AdamWConfig(total_steps=TRAIN_STEPS), device=TRAIN_DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(tr.graph, "train graph: the Trainer on one card does not capture its step")
+
+    def steps():
+        with use_backend("cuda"):
+            return tr.train()
+
+    hist, launches, _ = counted("train_graph", steps)
+    peak = torch.cuda.max_memory_allocated()
+    reserved, peak_reserved = torch.cuda.memory_reserved(), torch.cuda.max_memory_reserved()
+    st = tr.captured.stats()
+    ms = [h["time_s"] * 1e3 for h in hist]
+    for h, m in zip(hist, ms):
+        phase(f"train graph step {h['step']}", loss=h["loss"], grad_norm=h["grad_norm"],
+              lr=h["lr"], step_ms=m,
+              note="warm-up and capture" if h["step"] == 0 else "replay")
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    want_l, want_g = json.loads(base["losses"]), json.loads(base["grad_norms"])
+    check(losses == want_l and gnorms == want_g,
+          f"train graph: losses {losses} / grad_norms {gnorms} are not the eager step's bits "
+          f"{want_l} / {want_g}")
+    for name in ("bsr_spmm", "bsr_spmm_t", "bsr_sddmm"):
+        check(launches[name] > 0 and st["launches"].get(name, 0) > 0,
+              f"{name} was not launched on the captured train path")
+    replays = sorted(ms[1:])
+    del tr, hist
+    torch.cuda.empty_cache()
+    results["train_graph"] = phase(
+        "train captured", smi=repr(smi), arch=cfg.name, layers=cfg.n_layers,
+        dispatch_impl=cfg.moe.dispatch_impl, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, allocated_before_gb=before_gb, init_s=init_s,
+        losses=json.dumps(losses), grad_norms=json.dumps(gnorms), bits_equal_eager=True,
+        step_ms=json.dumps([round(m, 3) for m in ms]), warm_up_and_capture_ms=ms[0],
+        replay_ms_p50=replays[len(replays) // 2], eager_step_ms_p50=base["step_ms_p50"],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (replays[len(replays) // 2] / 1e3),
+        capture_s=round(st["capture_s"], 4), instantiate_s=round(st["instantiate_s"], 4),
+        nodes=st["nodes"], launches_a_replay=json.dumps(st["launches"]),
+        launches_counted=json.dumps({k: launches[k] for k in
+                                     ("bsr_spmm", "bsr_spmm_t", "bsr_sddmm")}),
+        peak_allocated_gb=peak / 1e9, reserved_gb=reserved / 1e9,
+        peak_reserved_gb=peak_reserved / 1e9, eager_peak_memory_gb=base["peak_memory_gb"])
+    return launches
 
 
 def roofline_cells():
@@ -3449,11 +3547,13 @@ def sharded_round_trip(mesh) -> dict:
 def phase_train(results: dict, smi: str, block) -> tuple:
     """Phase 15: (a) the backward kernels at the training shapes, (b) the
     full-width training step, (c) the CLI and the trainer's restart at
-    smoke size. Returns the train path's launches and (a)'s kernel lines."""
+    smoke size, (d) the full-width step captured. Returns the train and
+    captured train paths' launches and (a)'s kernel lines."""
     kern = phase_train_kernels(results, block)
     launches = train_full_width(results, smi)
     train_cli(results)
-    return launches, kern
+    launches_graph = train_captured(results, smi)
+    return launches, launches_graph, kern
 
 
 def main() -> int:
@@ -3519,7 +3619,8 @@ def main() -> int:
     # ---------------------------------------------------------------- 4
     g = GRID
     res, launches_hpcg, races = counted(f"hpcg {g}^3", lambda: run_hpcg(
-        g, g, g, iters=50, depth=4, reps=3, candidates=CANDIDATES, device="cuda"))
+        g, g, g, iters=50, depth=4, reps=3, eager_reps=1, candidates=CANDIDATES,
+        device="cuda"))
     for r in races:
         if len(r.table) > 1:  # the validation races time csr/plain alone
             print_race(f"hpcg {g}^3", r)
@@ -3609,7 +3710,7 @@ def main() -> int:
         lap(f"{n} {cell.key}")
 
     # --------------------------------------------------------------- 15
-    launches_train, kern_train = phase_train(results, smi, block)
+    launches_train, launches_train_graph, kern_train = phase_train(results, smi, block)
     del block
     kern["bsr_spmm"].update(kern_train.pop("bsr_spmm"))
     kern.update(kern_train)
@@ -3630,7 +3731,7 @@ def main() -> int:
                "block": launches_block, "hpcg_predict": launches_pred,
                "serve": launches_serve, "dist": launches_dist, "dist_pairs": launches_pairs,
                "model": launches_model, "train": launches_train,
-               "train_sharded": launches_sharded}
+               "train_graph": launches_train_graph, "train_sharded": launches_sharded}
     for name, paths in REQUIRED_ON.items():
         for path in paths:
             check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")

@@ -6,7 +6,9 @@ tolerance and data replay; the counterpart of ``examples/train_lm.py``.
   PYTHONPATH=src python examples/train_lm_torch.py --quick --inject-failure
   PYTHONPATH=src python examples/train_lm_torch.py                       # ~107M, 300 steps
 
-Runs on the card unless ``--device cpu``. ``--spmv-backend`` is the
+Runs on the card unless ``--device cpu``; there every step after the
+first replays one captured CUDA graph, and ``--no-graph`` runs them
+eagerly (the host always does). ``--spmv-backend`` is the
 backend of the sparse products traced under the train step (MoE dispatch,
 sparsified layers); on the card only ``bsr_spmm`` has a backward kernel.
 ``CUBLAS_WORKSPACE_CONFIG`` is set, where unset, before the first product,
@@ -51,6 +53,8 @@ def main(argv=None):
                     help="ExecutionPolicy backend for sparse ops (MoE dispatch, "
                          "sparsified layers) under the train step")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--graph", action=argparse.BooleanOptionalAction, default=None,
+                    help="replay one captured train step (default on the card; needs it)")
     args = ap.parse_args(argv)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
@@ -62,10 +66,11 @@ def main(argv=None):
                          ckpt_dir=ckpt_dir, checkpoint_every=max(10, steps // 10),
                          log_every=max(1, steps // 20))
     tr = Trainer(cfg, tcfg, adamw.AdamWConfig(total_steps=steps, warmup_steps=steps // 20),
-                 device=args.device)
+                 device=args.device, graph=args.graph)
     n = sum(x.numel() for x in leaves(tr.state[0]))
     print(f"model={cfg.name} params={n/1e6:.1f}M steps={steps} "
-          f"tokens/step={args.batch * seq} device={tr.device}")
+          f"tokens/step={args.batch * seq} device={tr.device} "
+          f"graph={'on' if tr.graph else 'off'}")
     scope = use_backend(args.spmv_backend) if args.spmv_backend else contextlib.nullcontext()
     with scope:
         hist = tr.train(fail_at=steps * 2 // 3 if args.inject_failure else None)

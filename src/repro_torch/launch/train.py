@@ -25,6 +25,13 @@ multi`` are the production meshes, (16, 16) and (2, 16, 16), and need a
 world of 256 or 512 ranks. ``--mesh none`` (the default) trains on one
 device with no mesh.
 
+On one card with no mesh the step runs captured in one CUDA graph (the
+first step of the run is its warm-up, every later step a replay; see
+``repro_torch.train.CapturedTrainStep``), as the reference runs its jitted,
+donated step; ``--no-graph`` runs every step eagerly. ``--device cpu``
+and a mesh train eagerly, and ``--graph`` raises there. The start-up line
+says which.
+
 ``main`` sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` where the environment has
 none, before the first product, so that cuBLAS takes its deterministic
 workspace (see ``repro_torch.train.trainer``).
@@ -80,6 +87,9 @@ def main(argv=None):
                     help="the MoE dispatch lane (default: the config's)")
     ap.add_argument("--device", default="cuda",
                     help="where the model, its state and the batches live (default cuda)")
+    ap.add_argument("--graph", action=argparse.BooleanOptionalAction, default=None,
+                    help="train through one step captured in a CUDA graph (default on one "
+                         "card with no mesh; needs it: the host and a mesh train eagerly)")
     args = ap.parse_args(argv)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
@@ -88,12 +98,19 @@ def main(argv=None):
                          seq_len=args.seq, microbatches=args.microbatches,
                          ckpt_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every)
     ocfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps)
-    tr = Trainer(cfg, tcfg, ocfg, mesh=train_mesh(args.mesh, args.device), device=args.device)
+    tr = Trainer(cfg, tcfg, ocfg, mesh=train_mesh(args.mesh, args.device), device=args.device,
+                 graph=args.graph)
     n_params = sum(x.numel() for x in leaves(tr.state[0]))
     print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params:,} steps={args.steps} "
-          f"batch={args.batch}x{args.seq} mesh={args.mesh} device={tr.device}")
+          f"batch={args.batch}x{args.seq} mesh={args.mesh} device={tr.device} "
+          f"graph={'on' if tr.graph else 'off'}")
     with use_backend("cuda"):
         hist = tr.train(resume=args.resume)
+    if tr.captured is not None:
+        st = tr.captured.stats()
+        print(f"train graph: capture={st['capture_s']:.3f}s "
+              f"instantiate={st['instantiate_s']:.3f}s nodes={st['nodes']} "
+              f"launches a step={st['launches']}")
     print(f"final loss: {hist[-1]['loss']:.4f} "
           f"(first {hist[0]['loss']:.4f}); median step "
           f"{1e3*sorted(h['time_s'] for h in hist)[len(hist)//2]:.0f}ms")

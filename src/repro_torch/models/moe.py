@@ -117,7 +117,9 @@ def combine_in_order(contrib, t_s, T: int, K: int) -> torch.Tensor:
 
 
 def _gates(p, x):
-    return torch.softmax(x.float() @ p["router"], dim=-1)   # (T, E)
+    # in f32 (a bf16 router, ZeRO's or beside a kept master, is widened
+    # first, as the reference's type promotion does)
+    return torch.softmax(x.float() @ p["router"].float(), dim=-1)   # (T, E)
 
 
 def _top(gates, k: int):
@@ -205,7 +207,7 @@ def _moe_grouped(p, x, cfg, mcfg):
     dev = x.device
 
     x3 = logical_constraint(split_dim(x, 0, (G, Tg)), ("batch", None, None))
-    logits = x3.float() @ p["router"]                        # (G, Tg, E)
+    logits = x3.float() @ p["router"].float()                # (G, Tg, E)
     gates = torch.softmax(logits, dim=-1)
     topw, tope = top_k(gates, K)                             # (G, Tg, K)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)

@@ -12,7 +12,8 @@ Unlike the reference's functional update, :func:`update` writes in place,
 leaf by leaf and in chunks of ``CHUNK`` elements: at full width one expert
 leaf of qwen3-moe-235b-a22b is 128 x 4096 x 1536 f32 (3.22 GB), and a
 functional update would hold about six temporaries of that size per leaf.
-Here the temporaries are a chunk's. It returns the same (updated) trees.
+Here the temporaries are a chunk's. It returns the same (updated) trees,
+its step counter advanced in place.
 
 On DTensors (the model's sharding over a ``DeviceMesh``) the update runs on
 each leaf's local shard (``to_local()``), chunk by chunk as above, so no
@@ -179,17 +180,25 @@ def _locals(p, g, m, v, mp):
 
 def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     """One AdamW step, in place: returns ``(params, state, {"grad_norm",
-    "lr"})`` with ``params``, ``state.m``, ``state.v`` and ``state.master``
-    the same tensors, updated, and ``state.step`` advanced. ``grads`` is
-    read only."""
+    "lr"})`` with ``params``, ``state.step``, ``state.m``, ``state.v`` and
+    ``state.master`` the same tensors, updated (the step counter advanced
+    by one). ``grads`` is read only. The update reads nothing from the
+    device and makes no tensor on the host, so a CUDA graph can hold it
+    (``repro_torch.train.CapturedTrainStep``)."""
     with torch.no_grad():
         gnorm = global_norm(grads)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-        step = state.step + 1
+        # the counter advances in place and the bases of the bias
+        # corrections are made on the device: a CUDA graph replays this
+        # update on the tensors it was captured with, and a tensor made on
+        # the host is a copy a capture refuses
+        step = state.step.add_(1)
         lr = schedule(cfg, step)
         stepf = step.to(torch.float32)
-        b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
-        b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
+        b1, b2 = (torch.full((), b, dtype=torch.float32, device=stepf.device)
+                  for b in (cfg.b1, cfg.b2))
+        b1c = 1 - torch.pow(b1, stepf)
+        b2c = 1 - torch.pow(b2, stepf)
         flat_p, flat_g = leaves(params), leaves(grads)
         flat_m, flat_v = leaves(state.m), leaves(state.v)
         flat_mp = leaves(state.master) if state.master is not None else [None] * len(flat_p)
@@ -224,5 +233,4 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
                 if not own:
                     pf[sl].copy_(mpc)
             put_back()
-        return params, AdamWState(step, state.m, state.v, state.master), \
-            {"grad_norm": gnorm, "lr": lr}
+        return params, state, {"grad_norm": gnorm, "lr": lr}

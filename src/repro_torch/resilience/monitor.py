@@ -136,14 +136,17 @@ class Supervisor:
     save_fn(state, step_idx) / restore_fn() -> (state, step_idx)
 
     ``clock`` feeds the straggler monitor's step timing (injectable, like
-    everything in this module).
+    everything in this module). An exception of a type in ``fatal`` is no
+    step failure (a train step that cannot be captured fails the same way
+    after any restore): it propagates at once, with nothing restored.
     """
 
     def __init__(self, step_fn: Callable, save_fn: Callable, restore_fn: Callable,
                  policy: Optional[RestartPolicy] = None,
                  checkpoint_every: int = 50,
                  straggler: Optional[StragglerMonitor] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 fatal: Tuple[type, ...] = ()):
         self.step_fn = step_fn
         self.save_fn = save_fn
         self.restore_fn = restore_fn
@@ -151,6 +154,7 @@ class Supervisor:
         self.checkpoint_every = checkpoint_every
         self.straggler = straggler or StragglerMonitor()
         self.clock = clock
+        self.fatal = fatal
         self.restarts = 0
 
     def run(self, state, start_step: int, n_steps: int):
@@ -163,6 +167,8 @@ class Supervisor:
                 step += 1
                 if step % self.checkpoint_every == 0:
                     self.save_fn(state, step)
+            except self.fatal:
+                raise
             except Exception:
                 action = self.policy.on_failure()
                 if action == "abort":

@@ -103,13 +103,21 @@ def make_train_step(model, ocfg: adamw.AdamWConfig, microbatches: int = 1,
     params and state updated in place; ``metrics`` holds ``loss``,
     ``grad_norm`` and ``lr`` as 0-dim tensors on the params' device.
     ``grad_shardings`` (``{path: placements}``) places DTensor gradients
-    (ZeRO-2); see the module docstring."""
+    (ZeRO-2); see the module docstring.
+
+    The step is in the form a CUDA graph records: it reads nothing from
+    the device, writes the params and state into the tensors it was given
+    (``adamw.update``), returns its metrics as device tensors, turns grad
+    on itself, and unrolls its microbatches; so one capture of it, fed
+    each batch into the same tensors, is every later step
+    (``repro_torch.train.CapturedTrainStep``)."""
 
     def grads_of(params, leaves, batch, placements):
         loss = _replicated(model.loss(params, batch))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         return loss.detach(), [_redistribute(g, pl) for g, pl in zip(grads, placements)]
 
+    @torch.enable_grad()    # even where the caller turned it off: a capture runs it under no_grad
     def step(params, opt_state, batch):
         leaves = tree_leaves(params)
         placements = _placed(params, grad_shardings)

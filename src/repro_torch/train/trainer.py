@@ -15,6 +15,19 @@ checkpoint and replays data from the cursor, so the loss curves with and
 without the failure match (``tests/test_torch_train.py``; on the card
 ``tests/test_torch_train_cuda.py`` and ``chip_smoke.py`` phase 15).
 
+On one CUDA device with no mesh the step runs captured (``graph=None``,
+the default, or ``graph=True``), as the reference runs it through
+``jax.jit(step_fn, donate_argnums=(0, 1))``: the first step of each
+``train`` call is the warm-up of a :class:`CapturedTrainStep` and every
+later step replays its CUDA graph, which holds the params and the AdamW
+state's tensors. ``restore`` therefore writes a checkpoint into the live
+tensors (``copy_``), on every one-device run, captured or not, so that a
+restart replays the same graph and the clean run's bits. ``graph=False``
+runs every step eagerly; on the host and on a mesh the step is eager, and
+``graph=True`` raises there. A capture that fails raises
+(``repro_torch.capture.CaptureError``), past the Supervisor: nothing runs
+eagerly in its place.
+
 On the card a run trains under ``torch.use_deterministic_algorithms(True,
 warn_only=True)``, set for the loop and restored after it: PyTorch then
 takes its deterministic variants where an op has one, and the restart
@@ -37,6 +50,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.capture import CaptureError
 from repro_torch.checkpoint.manager import CheckpointManager, config_hash
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import resolve_device
@@ -44,9 +58,10 @@ from repro_torch.data.pipeline import DataState, SyntheticTokens
 from repro_torch.models import build_model
 from repro_torch.optim import adamw
 from repro_torch.resilience.monitor import StragglerMonitor, Supervisor
+from repro_torch.train.captured import CapturedTrainStep
 from repro_torch.train.steps import make_train_step
 from repro_torch.distributed.sharding import params_shardings, sharding_context
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves
 
 
 @dataclass
@@ -82,7 +97,8 @@ def deterministic(device: torch.device):
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
-                 ocfg: Optional[adamw.AdamWConfig] = None, mesh=None, device="cuda"):
+                 ocfg: Optional[adamw.AdamWConfig] = None, mesh=None, device="cuda",
+                 graph: Optional[bool] = None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.ocfg = ocfg or adamw.AdamWConfig(total_steps=tcfg.n_steps)
@@ -91,6 +107,16 @@ class Trainer:
             device = "cpu" if mesh.device_type == "cpu" else \
                 torch.device("cuda", torch.cuda.current_device())
         self.device = resolve_device(device)
+        one_card = self.device.type == "cuda" and mesh is None
+        if graph and not one_card:
+            raise ValueError(f"graph=True trains through a step captured in a CUDA graph and "
+                             f"needs one CUDA device with no mesh, got {self.device}"
+                             f"{' on a mesh' if mesh is not None else ''}; pass graph=False "
+                             f"(or None) for the eager step")
+        #: the step runs captured (see the module docstring)
+        self.graph = one_card if graph is None else bool(graph)
+        #: this run's captured step (``None`` before its first step)
+        self.captured: Optional[CapturedTrainStep] = None
         if self.device.type == "cuda" and not os.environ.get("CUBLAS_WORKSPACE_CONFIG"):
             warnings.warn("Trainer: CUBLAS_WORKSPACE_CONFIG is unset, so cuBLAS may not repeat "
                           "its bits and a restart may not replay the run; set it to :4096:8 "
@@ -146,7 +172,12 @@ class Trainer:
         pshapes, oshapes = self._template()
         template = {"params": pshapes, "opt": oshapes}
         if self.mesh is None:
-            tree = tree_map(lambda t: t.to(self.device), self.ckpt.restore(template, step))
+            # into the live tensors: a captured step holds their addresses,
+            # and a second state may not fit beside the first
+            tree = {"params": self.state[0], "opt": self.state[1]}
+            with torch.no_grad():
+                for live, saved in zip(leaves(tree), leaves(self.ckpt.restore(template, step))):
+                    live.copy_(saved)
         else:
             placed = {f"{part}/{k}": v for k, v in self.shardings.items()
                       for part in ("params", "opt/m", "opt/v", "opt/master")}
@@ -164,6 +195,7 @@ class Trainer:
             self.state, start = self.restore()
 
         failed = {"done": False}
+        self.captured = None    # a run captures its own step (its policy, its batch)
 
         def step_fn(state, i):
             if fail_at is not None and i == fail_at and not failed["done"]:
@@ -173,7 +205,13 @@ class Trainer:
             batch = self.data._put(self.data.batch_at(i))
             self.data.state = DataState(i + 1)
             params, opt = state
-            params, opt, metrics = self._step(params, opt, batch)
+            if not self.graph:
+                params, opt, metrics = self._step(params, opt, batch)
+            elif self.captured is None:     # step i is the warm-up
+                self.captured = CapturedTrainStep(self.model, self._step, params, opt, batch)
+                metrics = self.captured.warm
+            else:
+                metrics = self.captured(batch)
             self.state = (params, opt)
             metrics = {k: float(v) for k, v in metrics.items()}
             metrics["step"] = i
@@ -191,6 +229,7 @@ class Trainer:
             restore_fn=self.restore,
             checkpoint_every=tcfg.checkpoint_every,
             straggler=self.straggler,
+            fatal=(CaptureError,),
         )
         with deterministic(self.device), self._mesh_ctx():
             self.state, end = sup.run(self.state, start, tcfg.n_steps)
