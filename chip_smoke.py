@@ -56,14 +56,27 @@ Phases, one or more lines each, each ending with its seconds:
      the bound from the run's own arrays (bytes at 3.35 TB/s against flops
      at 67 TFLOP/s, or for ``bsr_spmm`` at 165 TFLOP/s), and whether two
      launches gave equal bits;
-  3. HPCG 16^3 on the card: ``valid`` and ``bitwise``;
+  3. HPCG 16^3 on the card: ``valid`` and ``bitwise``; its three
+     tolerance solves (reference, check, tuned) each captured as
+     ``CapturedCG`` (the reference's jitted ``lax.while_loop``: a setup and
+     a chunk of iterations as CUDA graphs, the chunk replayed until the
+     device's flag drops) and each held to the eager ``cg``: equal ``x``
+     bits and iterations (``conv_equal``), a ``[hpcg 16^3 conv graph
+     <solve>]`` line each (iterations taken and computed, replays, host
+     reads, capture and instantiation seconds, nodes, seconds);
   4. the main path, ``run_hpcg(104, 104, 104, iters=50, depth=4, reps=3)``
      racing coo/csr/dia/ell/sell/bsr x plain/cuda (bsr skipped by the
      block-fill guard at every level), with the launch counters and
      the health registry reset just before it and read just after. It
      requires ``bitwise``, ``rel_err < 1e-3``, no failure or non-finite
      output on any key, every cuda candidate timed in the main race, no race
-     that lists an error, and ``scs_spmv``, ``dia_spmv``, ``ell_spmv``,
+     that lists an error or was not timed on CUDA graphs (every race
+     captures each candidate's ``spmv`` as the reference jits it, times its
+     replays, holds the last replay to the eager call's bits, and prints
+     ``graph``, its capture and instantiation seconds and its replay-equal
+     candidates; a ``[<path> race graphs]`` line sums a path's races; a
+     captured race's launches are its warm-ups' and captures'), and
+     ``scs_spmv``, ``dia_spmv``, ``ell_spmv``,
      ``ell_spmv_tiled``, ``coo_spmv`` and ``scoo_spmv_tiled`` launched. Every
      race (the main one and each level's) is printed with its skips. Both
      timed solves (csr/plain and tuned) are captured in one CUDA graph each
@@ -73,13 +86,17 @@ Phases, one or more lines each, each ending with its seconds:
      the run); a line for each prints both medians, the capture and
      instantiation seconds, the graph's nodes and the kernel launches counted
      in the capture (the graph's launches a solve). Every replay must give
-     the eager solve's ``x`` and ``rs`` bit for bit (``graph_equal``);
+     the eager solve's ``x`` and ``rs`` bit for bit (``graph_equal``).
+     The three tolerance solves run captured (conv graph lines as phase
+     3's), and the tuned one also eagerly beside it, timed once, with
+     ``conv_equal`` required;
   5. the path that takes the tiled DIA kernel, counted on its own the same
      way: a column-limited operator (``max_resident_cols=1<<18``) tuned over
      the cuda kernels and solved with CG, which must agree with csr/plain CG
      and launch ``dia_spmv_tiled``;
-  6. the run-first tuner on unstructured matrices of 10^6 rows (banded,
-     uniform random, power law), each raced through
+  6. the run-first tuner on an unstructured matrix of 10^6 rows
+     (``random_uniform(10**6, 8e-6)``; cut from three, printed as ``[tuner
+     cut]``), raced through
      ``as_operator(s, device="cuda").tune(...)`` over the same ten keys:
      ``coo/cuda`` must be listed ``unsupported`` (more than 8192 rows, no
      plan), the tuned ``A @ x`` must agree with csr/plain, and a cuda
@@ -98,18 +115,20 @@ Phases, one or more lines each, each ending with its seconds:
      phase 3 ranked by the zero-run selector's ``"cuda"`` table, no race;
      ``valid`` and ``bitwise``, its level picks and t_opt, and phase 4's
      graph lines and ``graph_equal`` with one eager solve and one timed
-     replay (after a warm one);
+     replay (after a warm one), and its captured tolerance solves' conv
+     graph lines;
  10. the serving path (``repro_torch.serve``) at tenants of 2^20 rows, four
      runs each counted on its own: **hot** (one banded tenant, 512 requests
      flushed every 64 through ``ServeEngine(capacity=8, max_batch=32,
      tune_mode="predict")``: one admission, 16 coalesced tiles of 32),
-     **churn** (10 tenants of the four archetypes against 8 slots, cut
+     **churn** (9 tenants of the four archetypes against 8 slots, cut
      from 16, and 68 requests, cut from 128: a window of 64 admits each
      tenant once and one of 4 brings an evicted tenant back, re-tuned;
      healthy tiles replay the engine's captured lanes, and a ``[serve
      graph]`` line holds hot against an eager window of 64 requests over
-     the same warm pool; then one admission of a
-     tenant of each predicted key timed by stage), **dynamic** (``mutable``
+     the same warm pool; one admission by stage for each predicted key is
+     ``examples/serve_admission.py``'s, printed as a ``[serve cut]``),
+     **dynamic** (``mutable``
      on the hot tenant, 1% of its rows
      gain an entry off its band, ``ov @ x`` against the merged matrix in f64,
      ``refresh`` must re-tune, then 64 requests under the new fingerprint;
@@ -134,7 +153,8 @@ Phases, one or more lines each, each ending with its seconds:
      ``distributable_depth``, 50 iterations, tol 1e-6, every part and every
      level tuned over csr/dia/ell/coo x plain/cuda, its timed phase (captured
      as phase 4's, on the four parts of one card) cut to one eager
-     repetition (printed as ``[dist cut]``); it requires ``valid``,
+     repetition (printed as ``[dist cut]``), its two tolerance solves
+     captured (conv graph lines); it requires ``valid``,
      ``bitwise``, ``graph_equal`` and ``rel_res <= 1e-6`` and prints
      pcg_iters, t_ref, t_opt, the graph lines,
      each tuned operator's per-part choices and race tables, and for every
@@ -142,7 +162,8 @@ Phases, one or more lines each, each ending with its seconds:
      (``DistributedOperator.dispatched``); after that run, every tuned
      operator (the main one and each level's) is held against serial
      csr/plain at rtol 2e-4, and one SymGS color's ``masked_matvec`` exactly
-     against ``where(mask, A @ x, 0)``; **dist_pairs** (b) the paper's pairs
+     against ``where(mask, A @ x, 0)`` (each grid's x, serial product and
+     mask made once and shared with (b)); **dist_pairs** (b) the paper's pairs
      dia+coo and ell+coo, and ell+dia (DIA on the rectangular remote
      windows, where the race puts it), on their cuda keys at 104^3, 52^3
      and 26^3 (each level's split timed, with its halo and each part's local
@@ -381,7 +402,7 @@ BLOCK_NF = 128
 #: tenant whose delta the full-window ``coo_spmv`` takes (``max_onehot_rows``).
 SERVE_N = 1 << 20
 SERVE_CAPACITY, SERVE_MAX_BATCH, SERVE_FLUSH_EVERY = 8, 32, 64
-SERVE_CHURN_TENANTS = 10
+SERVE_CHURN_TENANTS = 9
 SERVE_REQUESTS = {"hot": 512, "churn": 68}
 #: Why churn sends 68 requests, not 128: a window of 64 admits each tenant
 #: once, and a second window of 4 brings an evicted tenant back; 128
@@ -389,10 +410,15 @@ SERVE_REQUESTS = {"hot": 512, "churn": 68}
 #: admissions) left the whole smoke at 1162.6 s of its 1200. Why 10
 #: tenants, not 16: each 2^20-row admission takes ~10 s of host work, and
 #: 16 tenants' 20 admissions took 181.8-229.9 s, the smoke 1136.2 s in its
-#: slowest run; 10 tenants make 14 admissions (11 misses, one of them a
-#: re-tuned readmission, and 3 hits). NVIDIA H100 80GB HBM3, 700.00 W.
-SERVE_CHURN_CUT = ("churn cut to 10 tenants (from 16) and 68 requests (from 128): a window "
-                   "of 64 and one of 4, 14 admissions with a re-tuned readmission, not 32")
+#: slowest run; 10 tenants made 14 admissions (11 misses, one of them a
+#: re-tuned readmission, and 3 hits) in ~125 s, ~11 s a miss. 9 tenants
+#: make 13 (10 misses, the readmission kept, 3 hits): still one more than
+#: the 8 slots, so the window evicts. NVIDIA H100 80GB HBM3, 700.00 W.
+SERVE_CHURN_CUT = ("churn cut to 9 tenants (from 16) and 68 requests (from 128): a window "
+                   "of 64 and one of 4, 13 admissions with a re-tuned readmission, not 32")
+SERVE_STAGES_CUT = ("one admission by stage for each predicted key moved to "
+                    "examples/serve_admission.py (it took 31.7 s of phase 10 on an H100 "
+                    "80GB HBM3 at 700 W; churn's admissions still run every stage)")
 SERVE_REPLAY_N = 4096
 SMALL_TENANT = 8192
 #: The summary fields a serving phase prints (``launch/serve.py``'s, and the
@@ -516,9 +542,17 @@ DRYRUN_CELLS = (("qwen3-moe-235b-a22b", "train_4k"), ("deepseek-v2-236b", "decod
 #: minutes to write and read back, past the smoke's time limit.
 SHARDED_STEPS = 2
 
-TUNER_MATRICES = (("banded(10**6, 4)", "banded", (10 ** 6, 4)),
-                  ("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),
-                  ("powerlaw(10**6, 8)", "powerlaw", (10 ** 6, 8)))
+TUNER_MATRICES = (("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),)
+#: Why one matrix, not three: the banded and power-law races at 10^6 rows
+#: took 27.7 of phase 6's 50.2 s on an H100 80GB HBM3 at 700 W (mostly
+#: host conversions) and their paths
+#: are held elsewhere: a banded tenant of 2^20 rows takes dia/cuda in phase
+#: 10 (hot), as the HPCG races do, and a power law of 2^20 csr/cuda in
+#: churn, with ``scs_spmv`` on ``powerlaw(10**6, 8)``'s plan in phase 2.
+TUNER_CUT = "tuner cut to random_uniform(10**6, 8e-6) (from banded, random_uniform, powerlaw)"
+#: The tolerance solves of HPCG (the reference's jitted ``lax.while_loop``):
+#: phase 3 holds each captured one to the eager ``cg``; phase 4 the tuned one.
+CONV_SOLVES = ("ref", "chk", "opt")
 
 
 def phase(label: str, **kv) -> dict:
@@ -1126,16 +1160,25 @@ def recorded_races(log: list):
 
 
 def print_race(label: str, res) -> None:
+    """A race's line: its pick and table (µs a replay of each candidate's
+    graph), its skips, whether it was captured, its capture and
+    instantiation seconds and the candidates whose replay gave the eager
+    bits."""
     table = {f"{f}/{i}": round(t, 1) for (f, i), t in sorted(res.table.items(),
                                                                key=lambda kv: kv[1])}
     phase(f"{label} race", shape=tuple(res.matrix.shape), chosen=f"{res.format}/{res.impl}",
-          table_us=json.dumps(table), skipped=json.dumps(res.skipped))
+          table_us=json.dumps(table), skipped=json.dumps(res.skipped), graph=res.graph,
+          capture_s=round(res.capture_s, 4), instantiate_s=round(res.instantiate_s, 4),
+          replay_equal=res.replay_equal)
 
 
 def counted(label: str, drive):
     """Run ``drive()`` with every launch counter and the health registry
     reset just before it; read both just after. Fails on any failure or
-    non-finite output of any key, and on any race that lists an error.
+    non-finite output of any key, on any race that lists an error, and on
+    any race not timed by CUDA graphs' replays (a mismatched replay raises
+    inside the race). A captured race launches its kernels at the warm-up
+    and the capture only: its replays run uncounted.
     Returns (drive's value, launches, races)."""
     from repro_torch.core import health_registry
 
@@ -1157,6 +1200,13 @@ def counted(label: str, drive):
     errs = [(tuple(r.matrix.shape), sk) for r in races for sk in r.skipped
             if sk[2].startswith("error:")]
     check(not errs, f"{label}: races listed errors: {errs}")
+    eager = [tuple(r.matrix.shape) for r in races
+             if not r.graph or r.replay_equal != len(r.table)]
+    check(not eager, f"{label}: races not timed on CUDA graphs, or not replay-equal: {eager}")
+    captures = sum(len(r.table) for r in races)
+    phase(f"{label} race graphs", races=len(races), captured=captures,
+          capture_s=round(sum(r.capture_s for r in races), 3),
+          instantiate_s=round(sum(r.instantiate_s for r in races), 3))
     return value, launches, races
 
 
@@ -1185,6 +1235,32 @@ def graph_lines(res, label: str) -> dict:
     return out
 
 
+def conv_lines(res, label: str, equal=()) -> dict:
+    """The captured tolerance solves of an HPCG result, a line each:
+    iterations taken and computed, chunk replays (host reads: one more),
+    capture and instantiation seconds, nodes, the captured call's seconds,
+    and where the eager ``cg`` ran beside it its seconds and ``conv_equal``
+    (equal ``x`` bits and iterations). Fails unless every solve in
+    ``equal`` gave the eager bits."""
+    check(set(res.conv_graphs) >= set(equal) and res.conv_graphs,
+          f"{label}: the tolerance solves were not captured ({sorted(res.conv_graphs)})")
+    out = {}
+    for name, st in res.conv_graphs.items():
+        extra = {}
+        if "equal" in st:
+            extra = dict(eager_s=round(st["eager_s"], 4), conv_equal=st["equal"])
+        out[name] = phase(f"{label} conv graph {name}", iters=st["iters"],
+                          computed=st["computed"], chunk=st["chunk"], replays=st["replays"],
+                          host_reads=st["replays"] + 1, capture_s=round(st["capture_s"], 3),
+                          instantiate_s=round(st["instantiate_s"], 3), nodes=st["nodes"],
+                          setup_nodes=st["setup_nodes"], seconds=round(st["seconds"], 4),
+                          **extra)
+    for name in equal:
+        check(res.conv_graphs[name].get("equal") is True,
+              f"{label}: the captured {name} tolerance solve differs from the eager cg")
+    return out
+
+
 def check_hpcg(res, label: str) -> None:
     check(res.bitwise, f"{label}: bitwise tier failed")
     check(res.rel_err < 1e-3, f"{label}: rel_err {res.rel_err} >= 1e-3")
@@ -1197,13 +1273,14 @@ def check_hpcg(res, label: str) -> None:
 
 
 def phase_tuner(results: dict):
-    """Phase 6: the run-first tuner on unstructured matrices of 10^6 rows."""
+    """Phase 6: the run-first tuner on an unstructured matrix of 10^6 rows."""
     import numpy as np
     import torch
 
     from repro_torch.core import as_operator
     from repro_torch.core import matrices as M
 
+    print(f"[tuner cut] {TUNER_CUT}", flush=True)
     out = {}
     for label, gen, args in TUNER_MATRICES:
         s = getattr(M, gen)(*args)
@@ -1403,51 +1480,6 @@ def check_served(label: str, served, eng) -> tuple:
             check(same, f"serve {label}: coalesced row of request {t.rid} != op @ x")
         equal = equal and same
     return err, equal
-
-
-def admission_stages(name: str, mat) -> dict:
-    """One 2^20-row admission's host seconds by stage, each timed on its
-    own and ended by a synchronize: the fingerprint, the CSR build with its
-    ``"scs"`` plan on the host, the copy of that container to the card, the
-    features and the prediction, and the conversion to the predicted format
-    (the ``asformat`` calls inside ``tune(mode="predict")``)."""
-    import torch
-
-    from repro_torch.core import SparseOperator, as_operator, select
-    from repro_torch.core.registry import SpmvWorkspace
-
-    def timed(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def converted(op):
-        spent = []
-        asformat = SparseOperator.asformat
-
-        def timed_asformat(self, *a, **kw):
-            out, dt = timed(lambda: asformat(self, *a, **kw))
-            spent.append(dt)
-            return out
-
-        SparseOperator.asformat = timed_asformat
-        try:
-            return op.tune(mode="predict"), sum(spent)
-        finally:
-            SparseOperator.asformat = asformat
-
-    _, fp_s = timed(lambda: SpmvWorkspace.fingerprint(mat))
-    host, host_s = timed(lambda: as_operator(mat, "csr", device="cpu"))
-    op, copy_s = timed(lambda: SparseOperator(host.container.to("cuda"), host.policy))
-    pred, predict_s = timed(lambda: select.predict(op.container, platform="cuda"))
-    tuned, convert_s = converted(op)
-    stages = dict(fingerprint_s=fp_s, csr_host_s=host_s, csr_to_card_s=copy_s,
-                  features_predict_s=predict_s, convert_s=convert_s)
-    check(min(stages.values()) >= 0, f"serve admission {name}: a stage below zero: {stages}")
-    return phase(f"serve admission {name}", **{k: round(v, 3) for k, v in stages.items()},
-                 total_s=round(sum(stages.values()), 3),
-                 key=f"{tuned.format}/{tuned.policy.backends[0]}")
 
 
 def check_healthy(label: str, out: dict) -> None:
@@ -1696,7 +1728,7 @@ def phase_serve(results: dict, smi: str = "") -> dict:
     del served, eager_served, eager
     torch.cuda.empty_cache()
 
-    # churn: 10 tenants against 8 slots; a 64-request window admits each
+    # churn: 9 tenants against 8 slots; a 64-request window admits each
     # once, and the second window's 4 requests bring an evicted tenant back
     print(f"[serve cut] {SERVE_CHURN_CUT}", flush=True)
     churn = ServeEngine(workspace=recording_pool(), max_batch=SERVE_MAX_BATCH,
@@ -1721,13 +1753,9 @@ def phase_serve(results: dict, smi: str = "") -> dict:
                               requests_sent=len(served), max_abs_err=err,
                               host_replay=json.dumps(replay), graph_equal=equal,
                               graph=json.dumps(g))
-    # one admission by stage, for a tenant of each predicted key
-    stage_of = {}
-    for name, _, t in served:
-        stage_of.setdefault(keys[name], (name, churn._matrices[t.record.fingerprint]))
-    out["admission_stages"] = {name: admission_stages(name, mat)
-                               for name, mat in stage_of.values()}
-    del churn, served, stage_of
+    # an admission by stage is timed by examples/serve_admission.py, not here
+    print(f"[serve cut] {SERVE_STAGES_CUT}", flush=True)
+    del churn, served
     torch.cuda.empty_cache()
 
     # dynamic: 1% of the hot tenant's rows gain an entry a quarter of the
@@ -1889,10 +1917,11 @@ def dist_keys(label: str, op) -> list:
     return rows
 
 
-def dist_input(s, colors: dict):
-    """For ``s`` = fdm27(g, g, g): x made from the seed g, serial csr/plain
-    on the card, its ``A @ x``, and the first SymGS color's row mask (the
-    greedy coloring the distributed sweep runs, computed once per grid)."""
+def dist_input(s, inputs: dict):
+    """For ``s`` = fdm27(g, g, g): x made from the seed g, its ``A @ x`` by
+    serial csr/plain on the card, and the first SymGS color's row mask (the
+    greedy coloring the distributed sweep runs), made once per grid and
+    kept in ``inputs``."""
     import numpy as np
     import torch
 
@@ -1901,11 +1930,12 @@ def dist_input(s, colors: dict):
 
     n = s.shape[0]
     g = round(n ** (1 / 3))
-    x = torch.from_numpy(np.random.default_rng(g).standard_normal(n).astype(np.float32)).cuda()
-    serial = as_operator(s, "csr", device="cuda").using("plain")
-    if g not in colors:
-        colors[g] = greedy_coloring(s) == 0
-    return x, serial @ x, torch.from_numpy(colors[g]).cuda()
+    if g not in inputs:
+        x = torch.from_numpy(np.random.default_rng(g).standard_normal(n)
+                             .astype(np.float32)).cuda()
+        serial = as_operator(s, "csr", device="cuda").using("plain")
+        inputs[g] = (x, serial @ x, torch.from_numpy(greedy_coloring(s) == 0).cuda())
+    return inputs[g]
 
 
 def check_dist_op(label: str, op, x, want, mask) -> tuple:
@@ -1963,11 +1993,12 @@ def phase_dist_hpcg(results: dict):
         t_ref_s=res.ref_time_s, t_opt_s=res.opt_time_s, eager_reps=DIST_REPS,
         chosen=repr(res.chosen), levels=repr(res.mg_levels))
     results["dist_hpcg"]["graph"] = graph_lines(res, f"dist hpcg {g}^3")
+    results["dist_hpcg"]["conv"] = conv_lines(res, f"dist hpcg {g}^3")
     results["dist_hpcg"]["tunes"] = tuned
     return res, [op for op, _ in tunes]
 
 
-def check_dist_tuned(results: dict, ops: list, colors: dict) -> None:
+def check_dist_tuned(results: dict, ops: list, inputs: dict) -> None:
     """Phase 11a's check, made after its counted run: every tuned operator
     (the main one and each level's) on the card against serial csr/plain,
     so each per-part kernel the races chose (DIA on the rectangular remote
@@ -1975,14 +2006,14 @@ def check_dist_tuned(results: dict, ops: list, colors: dict) -> None:
     and not."""
     for i, op in enumerate(ops):
         label = tune_label(i, op)
-        x, want, mask = dist_input(op.source, colors)
+        x, want, mask = dist_input(op.source, inputs)
         results["dist_hpcg"]["tunes"][label]["max_abs_err"] = phase(
             f"{label} check", runs=repr(op.describe(dispatched=True)),
             max_abs_err=check_dist_op(label, op, x, want, mask)[0],
             masked_equal=True)["max_abs_err"]
 
 
-def phase_dist_pairs(results: dict, colors: dict):
+def phase_dist_pairs(results: dict, inputs: dict):
     """Phase 11b-d: the fixed pairs on every distributed level, rowblock at
     104^3 bit for bit, and the halo fault."""
     import numpy as np
@@ -2001,7 +2032,7 @@ def phase_dist_pairs(results: dict, colors: dict):
     for g in DIST_LEVELS:
         s = M.fdm27(g, g, g)
         mr = s.shape[0] // DIST_PARTS
-        x, want, mask = dist_input(s, colors)
+        x, want, mask = dist_input(s, inputs)
         t0 = time.perf_counter()
         locals_, remotes, halo = split_local_remote(s, DIST_PARTS)
         out[f"split {g}^3"] = phase(
@@ -2082,10 +2113,10 @@ def phase_dist(results: dict) -> tuple:
     halo fault. Returns the launches of (a) and of (b-d)."""
     (_, ops), launches_dist, _ = counted(f"dist hpcg {GRID}^3",
                                          lambda: phase_dist_hpcg(results))
-    colors = {}
-    check_dist_tuned(results, ops, colors)
+    inputs = {}
+    check_dist_tuned(results, ops, inputs)
     del ops
-    _, launches_pairs, _ = counted("dist pairs", lambda: phase_dist_pairs(results, colors))
+    _, launches_pairs, _ = counted("dist pairs", lambda: phase_dist_pairs(results, inputs))
     return launches_dist, launches_pairs
 
 
@@ -3609,18 +3640,20 @@ def main() -> int:
     lap("2 kernels")
 
     # ---------------------------------------------------------------- 3
-    r16 = run_hpcg(16, 16, 16, iters=50, timed=False, candidates=CANDIDATES, device="cuda")
+    r16 = run_hpcg(16, 16, 16, iters=50, timed=False, candidates=CANDIDATES, device="cuda",
+                   conv_eager=CONV_SOLVES)
     check(r16.valid and r16.bitwise, f"HPCG 16^3: valid={r16.valid} bitwise={r16.bitwise}")
     results["hpcg16"] = phase("hpcg 16^3", valid=r16.valid, bitwise=r16.bitwise,
                               pcg_iters=r16.pcg_iters, rel_res=r16.rel_res,
                               levels=repr(r16.mg_levels))
+    results["hpcg16"]["conv"] = conv_lines(r16, "hpcg 16^3", equal=CONV_SOLVES)
     lap("3 hpcg16")
 
     # ---------------------------------------------------------------- 4
     g = GRID
     res, launches_hpcg, races = counted(f"hpcg {g}^3", lambda: run_hpcg(
         g, g, g, iters=50, depth=4, reps=3, eager_reps=1, candidates=CANDIDATES,
-        device="cuda"))
+        device="cuda", conv_eager=("opt",)))
     for r in races:
         if len(r.table) > 1:  # the validation races time csr/plain alone
             print_race(f"hpcg {g}^3", r)
@@ -3634,6 +3667,7 @@ def main() -> int:
         launches=json.dumps(launches_hpcg), table=json.dumps(res.table),
         skipped=json.dumps(res.skipped))
     results["hpcg"]["graph"] = graph_lines(res, f"hpcg {g}^3")
+    results["hpcg"]["conv"] = conv_lines(res, f"hpcg {g}^3", equal=("opt",))
     lap("4 hpcg104")
 
     # ---------------------------------------------------------------- 5
@@ -3685,6 +3719,7 @@ def main() -> int:
         levels=repr(resp.mg_levels), t_ref_s=resp.ref_time_s, t_opt_s=resp.opt_time_s,
         launches=json.dumps(launches_pred))
     results["hpcg_predict"]["graph"] = graph_lines(resp, f"hpcg {g}^3 predict")
+    results["hpcg_predict"]["conv"] = conv_lines(resp, f"hpcg {g}^3 predict")
     lap("9 hpcg104 predict")
 
     # --------------------------------------------------------------- 10

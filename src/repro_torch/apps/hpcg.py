@@ -13,8 +13,12 @@ implementations. On a CUDA device each timed solve is captured once in a
 CUDA graph and timed by its replays (``graph=True``, the default), as the
 reference times its ``jax.jit``-compiled solve; the eager loop is timed
 beside it, and every replay must give the eager solve's bits
-(``graph_equal``). ``run_hpcg_distributed`` runs the same five phases over a
-mesh of parts (``repro.apps.hpcg.run_hpcg_distributed``): every operator,
+(``graph_equal``). With ``graph=True`` every tolerance solve (phases 2 and
+4) is :class:`~repro_torch.solvers.CapturedCG`, the reference's jitted
+``lax.while_loop``: a setup and a chunk of iterations captured, the chunk
+replayed until the device's flag drops; it gives the eager ``cg``'s bits.
+``run_hpcg_distributed`` runs the same five phases over a mesh of parts
+(``repro.apps.hpcg.run_hpcg_distributed``): every operator,
 each multigrid level and the SymGS color sweeps included, is a
 ``DistributedOperator`` with halo-exchange SpMV, and validation also demands
 that the distributed csr/plain SpMV equal the single-device one bit for bit.
@@ -33,7 +37,7 @@ from repro_torch.core import DispatchKey, as_operator, autotune_spmv, resolve_de
 from repro_torch.core import matrices as M
 from repro_torch.core.errors import SolverDivergenceError
 from repro_torch.solvers import (  # noqa: F401
-    CapturedSolve, build_mg, cg, cg_solve, diagnose_cg, pcg_solve,
+    CapturedCG, CapturedSolve, build_mg, cg, cg_solve, diagnose_cg, pcg_solve,
 )
 
 REFERENCE_CANDIDATES = (DispatchKey("csr", "plain"),)
@@ -62,6 +66,10 @@ class HPCGResult:
     opt_eager_s: float = 0.0
     graph_equal: bool = False  # every replay gave the eager solve's x and rs bits
     graphs: Dict = field(default_factory=dict)  # "ref"/"opt": CapturedSolve.stats()
+    # the tolerance solves' CapturedCG.stats() by solve ("ref", "chk", "opt"),
+    # with the captured call's seconds and, where asked for, the eager cg's
+    # seconds beside it and whether both gave equal x bits and iterations
+    conv_graphs: Dict = field(default_factory=dict)
 
 
 def _sync(device: torch.device) -> None:
@@ -134,15 +142,15 @@ def _time_solve(fn, b, *, reps: int, eager_reps: int, graph: bool, device) -> _T
     return _Timed(float(np.median(tg)), float(np.median(ts)), equal, solve.stats())
 
 
-def _check_graph(graph: bool, timed: bool, devices) -> None:
-    """A captured timed solve needs its operands on one CUDA device."""
-    if not (graph and timed):
+def _check_graph(graph: bool, devices) -> None:
+    """Captured solves need their operands on one CUDA device."""
+    if not graph:
         return
     devs = set(devices)
     if any(d.type != "cuda" for d in devs):
-        raise ValueError(f"graph=True captures the timed solves in a CUDA graph and needs "
+        raise ValueError(f"graph=True captures the solves in CUDA graphs and needs "
                          f"a CUDA device, got {sorted(map(str, devs))}; pass graph=False "
-                         f"to time the eager loop")
+                         f"to run the eager loops")
     if len(devs) > 1:
         raise ValueError(f"graph=True captures one device's stream; the mesh spans "
                          f"{sorted(map(str, devs))}. A capture across cards is not "
@@ -160,18 +168,39 @@ def _guard_phase(info, phase: str, *, tol, maxiter):
     return diag
 
 
-def _solver_pair(A_op, mg, iters, tol):
-    """(timed, convergence) solvers for one operator set."""
+def _fixed_solve(A_op, mg, iters):
+    """The fixed-iteration (timed) solve ``b -> (x, rs)`` for one operator set."""
+    return lambda b: pcg_solve(lambda p: A_op @ p, b, iters, precond=mg)
+
+
+def _conv_solve(name: str, A_op, mg, b, *, iters, tol, graph: bool, eager: tuple,
+                stats: dict, device):
+    """The tolerance solve ``name``: eager :func:`cg` without a graph, else
+    :class:`CapturedCG` (its stats and the captured call's seconds go to
+    ``stats[name]``); a ``name`` in ``eager`` also runs the eager ``cg``
+    after it, timed, and records whether both gave equal ``x`` bits and
+    iterations."""
     matvec = lambda p: A_op @ p  # noqa: E731
-    timed = lambda b: pcg_solve(matvec, b, iters, precond=mg)  # noqa: E731
-    conv = lambda b: cg(matvec, b, tol=tol, maxiter=iters, precond=mg)  # noqa: E731
-    return timed, conv
+    if not graph:
+        return cg(matvec, b, tol=tol, maxiter=iters, precond=mg)
+    solver = CapturedCG(matvec, b, tol=tol, maxiter=iters, precond=mg)
+    t0 = time.perf_counter()
+    info = solver(b)
+    _sync(device)
+    st = stats[name] = dict(solver.stats(), seconds=time.perf_counter() - t0)
+    if name in eager:
+        t0 = time.perf_counter()
+        want = cg(matvec, b, tol=tol, maxiter=iters, precond=mg)
+        _sync(device)
+        st["eager_s"] = time.perf_counter() - t0
+        st["equal"] = bool(torch.equal(info.x, want.x) and info.iters == want.iters)
+    return info
 
 
 def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
              verbose=True, precond=True, tol=1e-6, depth=4,
              timed=True, tune_mode="run", device="cuda", graph=True,
-             eager_reps=None) -> HPCGResult:
+             eager_reps=None, conv_eager=()) -> HPCGResult:
     """Serial HPCG phases 1-5 on ``device`` (default ``"cuda"``).
 
     ``timed=False`` runs phases 1-4 only and reports zero times.
@@ -181,14 +210,21 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
     so a bad prediction fails a check rather than passing silently.
     ``graph=True`` times each fixed-iteration solve by the replays of one
     CUDA graph (``reps`` of them) and the eager loop beside it
-    (``eager_reps``, default ``reps``); it needs a CUDA device and raises
-    elsewhere, as it raises when a capture fails. ``graph=False`` times the
-    eager loop alone.
+    (``eager_reps``, default ``reps``), and runs each tolerance solve
+    (``"ref"``, ``"chk"``, ``"opt"``) through :class:`CapturedCG`; it needs
+    a CUDA device and raises elsewhere, whatever ``timed`` says, as it
+    raises when a capture fails. ``conv_eager`` names tolerance solves to
+    run eagerly too, beside the captured one (``conv_graphs``).
+    ``graph=False`` runs every solve eagerly.
     """
     if tune_mode not in ("run", "predict"):
         raise ValueError(f"tune_mode {tune_mode!r}: expected 'run' or 'predict'")
     dev = resolve_device(device)
-    _check_graph(graph, timed, (dev,))
+    _check_graph(graph, (dev,))
+    conv = {}
+    solve = lambda name, A_op, mg: _conv_solve(  # noqa: E731
+        name, A_op, mg, b, iters=iters, tol=tol, graph=graph, eager=tuple(conv_eager),
+        stats=conv, device=dev)
     # Phase 1: problem setup (stencil + multigrid hierarchy)
     A_sp = M.fdm27(nx, ny, nz)
     n = A_sp.shape[0]
@@ -197,8 +233,7 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
     # Phase 2: reference run (plain CSR at every level)
     A_ref = as_operator(A_sp, "csr", device=dev).using("plain")
     mg_ref = build_mg(nx, ny, nz, depth=depth, fmt="csr", device=dev) if precond else None
-    ref_timed, ref_conv = _solver_pair(A_ref, mg_ref, iters, tol)
-    ref = ref_conv(b)
+    ref = solve("ref", A_ref, mg_ref)
     _guard_phase(ref, "reference", tol=tol, maxiter=iters)
     x_ref = ref.x
 
@@ -215,17 +250,15 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
         tune_table = {f"{f}/{i}": t for (f, i), t in tune.table.items()}
         skipped = list(tune.skipped)
     mg_opt = mg_ref.retuned(candidates, mode=tune_mode) if precond else None
-    opt_timed, opt_conv = _solver_pair(A_opt, mg_opt, iters, tol)
 
     # Phase 4: validation
     #  (a) bit-for-bit: the optimised pipeline on the csr/plain candidates
     A_chk = autotune_spmv(A_sp, candidates=REFERENCE_CANDIDATES, device=dev).operator
     mg_chk = mg_ref.retuned(REFERENCE_CANDIDATES) if precond else None
-    _, chk_conv = _solver_pair(A_chk, mg_chk, iters, tol)
-    chk = chk_conv(b)
+    chk = solve("chk", A_chk, mg_chk)
     bitwise = bool(torch.equal(chk.x, x_ref) and int(chk.iters) == int(ref.iters))
     #  (b) tolerance: the tuned run must converge and agree with the reference
-    opt = opt_conv(b)
+    opt = solve("opt", A_opt, mg_opt)
     _guard_phase(opt, "optimised", tol=tol, maxiter=iters)
     rel = float(torch.linalg.vector_norm(opt.x - x_ref)
                 / torch.clamp(torch.linalg.vector_norm(x_ref), min=1e-30))
@@ -237,10 +270,11 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
         chosen, valid, rel, tune_table,
         precond=precond, pcg_iters=int(opt.iters), rel_res=float(opt.rel_res),
         bitwise=bitwise, mg_levels=mg_opt.describe() if mg_opt else "",
-        skipped=skipped)
+        skipped=skipped, conv_graphs=conv)
     if timed:
-        _timed_phase(res, ref_timed, opt_timed, b, reps=reps, eager_reps=eager_reps,
-                     graph=graph, device=dev)
+        _timed_phase(res, _fixed_solve(A_ref, mg_ref, iters),
+                     _fixed_solve(A_opt, mg_opt, iters), b, reps=reps,
+                     eager_reps=eager_reps, graph=graph, device=dev)
     if verbose:
         kind = "pcg" if precond else "cg"
         print(f"HPCG {nx}x{ny}x{nz} n={n} on {dev}: ref(csr/plain)={res.ref_time_s*1e3:.1f}ms "
@@ -271,6 +305,12 @@ def _timed_phase(res: HPCGResult, ref_timed, opt_timed, b, *, reps, eager_reps, 
 
 
 def _print_graph(res: HPCGResult) -> None:
+    for name, st in res.conv_graphs.items():
+        print(f"  conv graph {name}: iters={st['iters']} computed={st['computed']} "
+              f"replays={st['replays']} capture={st['capture_s']:.3f}s "
+              f"instantiate={st['instantiate_s']:.3f}s nodes={st['nodes']} "
+              f"seconds={st['seconds']:.4f}"
+              + (f" eager={st['eager_s']:.4f}s equal={st['equal']}" if "equal" in st else ""))
     if not res.graph:
         return
     print(f"  eager: ref={res.ref_eager_s*1e3:.1f}ms opt={res.opt_eager_s*1e3:.1f}ms "
@@ -300,7 +340,7 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
                          candidates=None, verbose=True, precond=True,
                          tol=1e-6, depth=4, timed=True, axis="data",
                          tune_levels=False, device="cuda", graph=True,
-                         eager_reps=None) -> HPCGResult:
+                         eager_reps=None, conv_eager=()) -> HPCGResult:
     """Distributed HPCG — the full pipeline over a mesh of parts.
 
     Rows (matrix, multigrid levels) are partitioned over ``mesh[axis]``;
@@ -323,14 +363,16 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
       5. *timed* — fixed-iteration distributed PCG, reference split
          (csr/csr) vs tuned formats, identical op mix; captured in a CUDA
          graph as :func:`run_hpcg` captures it, which needs every part on
-         one CUDA device.
+         one CUDA device. With ``graph=True`` the tolerance solves of
+         phases 2 and 4b are :class:`CapturedCG` too.
 
     Args:
         mesh: a ``PartMesh`` (default: :func:`default_mesh` on ``device``).
         nx, ny, nz: stencil grid; ``nx*ny*nz`` must be divisible by the
             part count.
         iters, reps, candidates, precond, tol, depth, timed, graph,
-            eager_reps: as :func:`run_hpcg`; ``depth`` is clamped to what
+            eager_reps, conv_eager: as :func:`run_hpcg` (the tolerance
+            solves are ``"ref"`` and ``"opt"``); ``depth`` is clamped to what
             partitions evenly. ``graph=True`` on a mesh of several devices
             raises.
         tune_levels: per-partition tune of every MG level (slower setup).
@@ -350,7 +392,8 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
         mesh = default_mesh(axis, device)
     nparts = mesh_parts(mesh, axis)
     home = mesh.home
-    _check_graph(graph, timed, (home, *mesh.devices))
+    _check_graph(graph, (home, *mesh.devices))
+    conv = {}
 
     # Phase 1: problem setup
     A_sp = M.fdm27(nx, ny, nz)
@@ -365,7 +408,8 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
     A_ref = as_operator(A_sp, "csr", device=home).using("plain")
     mg_ref = build_mg(nx, ny, nz, depth=depth, fmt="csr", device=home) if precond else None
     b1 = torch.from_numpy(b_host).to(home)
-    ref = cg(lambda p: A_ref @ p, b1, tol=tol, maxiter=iters, precond=mg_ref)
+    ref = _conv_solve("ref", A_ref, mg_ref, b1, iters=iters, tol=tol, graph=graph,
+                      eager=tuple(conv_eager), stats=conv, device=home)
     x_ref = ref.x
 
     # Phase 3: distributed operators — reference split + per-partition tune
@@ -383,7 +427,8 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
     bitwise = bool(torch.equal(A_ref @ b1, D_chk @ b_d))
 
     # Phase 4b: tolerance — tuned distributed PCG converges and matches
-    opt = cg(lambda p: D_opt @ p, b_d, tol=tol, maxiter=iters, precond=mg_dist)
+    opt = _conv_solve("opt", D_opt, mg_dist, b_d, iters=iters, tol=tol, graph=graph,
+                      eager=tuple(conv_eager), stats=conv, device=home)
     rel = float(torch.linalg.vector_norm(opt.x - x_ref)
                 / torch.clamp(torch.linalg.vector_norm(x_ref), min=1e-30))
     valid = bitwise and rel < 1e-3 and float(opt.rel_res) <= tol
@@ -395,11 +440,11 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
         (nx, ny, nz), n, iters, 0.0, 0.0, 0.0,
         D_opt.describe(dispatched=True), valid, rel, flat_table,
         precond=precond, pcg_iters=int(opt.iters), rel_res=float(opt.rel_res),
-        bitwise=bitwise, mg_levels=mg_dist.describe() if mg_dist else "")
+        bitwise=bitwise, mg_levels=mg_dist.describe() if mg_dist else "", conv_graphs=conv)
     if timed:
-        _timed_phase(res, lambda b: pcg_solve(lambda p: D_ref @ p, b, iters, precond=mg_dist),
-                     lambda b: pcg_solve(lambda p: D_opt @ p, b, iters, precond=mg_dist),
-                     b_d, reps=reps, eager_reps=eager_reps, graph=graph, device=home)
+        _timed_phase(res, _fixed_solve(D_ref, mg_dist, iters),
+                     _fixed_solve(D_opt, mg_dist, iters), b_d, reps=reps,
+                     eager_reps=eager_reps, graph=graph, device=home)
     if verbose:
         kind = "pcg" if precond else "cg"
         print(f"HPCG-dist {nx}x{ny}x{nz} n={n} parts={nparts} on {home}: "

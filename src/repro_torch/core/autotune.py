@@ -6,6 +6,21 @@ table — ``repro.core.autotune`` with ``cuda`` in place of ``pallas``.
 Conversion cost is excluded. On a CUDA device each timed call ends in
 ``torch.cuda.synchronize()``.
 
+The reference times each candidate's ``jax.jit``-compiled call
+(``repro.core.autotune``: ``fn = jax.jit(lambda A, x: spmv(A, x,
+policy=pol))``). On a CUDA device the port races captured calls the same
+way (``graph=None`` or ``True``): each candidate's ``spmv`` is captured
+once in a CUDA graph through :func:`repro_torch.capture.capture` (its
+warm-up is the eager call that builds every first-call cache), the race
+times the graph's replays by ``_time_call``'s rule, and the last replay must
+give the warm-up's bits (a mismatch raises: it is a fault of the port). A
+capture that fails lists the key in ``skipped`` as ``error: CaptureError``,
+as the reference lists a lowering gap. Each candidate's graph is freed
+before the next one is captured. Python runs only at the warm-up and the
+capture, so launch counters and the health registry count those two calls
+and never a replay. ``graph=False`` races the eager calls; on the host the
+race is always eager and ``graph=True`` raises.
+
 A candidate runs through the normal dispatch chain ``(impl, "plain")``.
 On the host this keeps the reference's semantics: a ``cuda`` kernel that
 raises falls to plain, the failure is recorded in the ambient
@@ -60,6 +75,10 @@ class TuneResult:
     table: Dict[Tuple[str, str], float] = field(default_factory=dict)
     skipped: List[Tuple[str, str, str]] = field(default_factory=list)
     base_policy: Optional[ExecutionPolicy] = None  # limits candidates ran under
+    graph: bool = False          # the candidates were timed by a CUDA graph's replays
+    capture_s: float = 0.0       # the race's capture seconds, summed over candidates
+    instantiate_s: float = 0.0   # and its instantiation seconds
+    replay_equal: int = 0        # captured candidates whose replay gave the eager bits
 
     @property
     def key(self) -> DispatchKey:
@@ -93,6 +112,60 @@ def _time_call(fn, *args, iters: int = 10, warmup: int = 3, device=None) -> floa
         _sync(device)
         ts.append(time.perf_counter_ns() - t0)
     return float(np.median(ts)) / 1e3
+
+
+def _capturable(dev: torch.device) -> bool:
+    """A race on ``dev`` is timed by CUDA graphs' replays (by default)."""
+    return dev.type == "cuda"
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape, dtype and bits (a NaN equals a NaN of the same bits)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(as_int), b.view(as_int)
+    return torch.equal(a, b)
+
+
+class _CapturedCall:
+    """One race candidate's ``spmv(A, x, policy=pol)`` captured in a CUDA
+    graph: ``call(A, x)`` replays it and returns the static output, for the
+    captured ``A`` and ``x`` only.
+
+    Raises:
+        CaptureError: the capture failed.
+    """
+
+    def __init__(self, A, x: torch.Tensor, pol: ExecutionPolicy, what: str):
+        from repro_torch.capture import capture
+
+        self.A, self.x, self.what = A, x, what
+        self._cap = capture(lambda: spmv(A, x, policy=pol), x.device, what, keep_warm=True)
+        self.capture_s, self.instantiate_s = self._cap.capture_s, self._cap.instantiate_s
+
+    def __call__(self, A, x) -> torch.Tensor:
+        if A is not self.A or x is not self.x:
+            raise ValueError(f"{self.what} was captured for its own matrix and x; "
+                             f"a replay cannot take other tensors")
+        self._cap.graph.replay()
+        return self._cap.out
+
+    def check(self) -> None:
+        """One more replay, held to the warm-up's output bit for bit.
+
+        Raises:
+            RuntimeError: the replay's bits differ from the eager call's.
+        """
+        if not _same_bits(self(self.A, self.x), self._cap.warm):
+            raise RuntimeError(f"{self.what}: the CUDA graph's replay differs from the "
+                               f"eager call's bits")
+
+    def free(self) -> None:
+        """Release the graph and its pool's tensors."""
+        self._cap.graph.reset()
+        self._cap = None
 
 
 def _normalize_candidates(candidates) -> Tuple[Tuple[str, str], ...]:
@@ -171,6 +244,7 @@ def autotune_spmv(
     prune: Optional[int] = None,
     time_fn=None,
     device="cuda",
+    graph: Optional[bool] = None,
 ) -> TuneResult:
     """Pick the fastest (format, backend) for ``a_dense``.
 
@@ -181,10 +255,21 @@ def autotune_spmv(
     zero-run selector's ranking on the cost table of ``device``; pruned keys
     land in ``skipped`` as ``"pruned by selector"``, while structurally
     infeasible ones keep their structural reason.
+
+    ``graph=None`` races captured calls on a CUDA device and eager calls on
+    the host; ``graph=True`` captures and raises ``ValueError`` off the card,
+    before any conversion; ``graph=False`` races eager calls everywhere.
+    With a graph, ``time_fn``'s ``fn(A, x)`` replays the candidate's graph
+    and returns its static output. The result records whether the race was
+    captured and its capture and instantiation seconds.
     """
     import scipy.sparse as sp
 
     dev = resolve_device(device)
+    if graph and not _capturable(dev):
+        raise ValueError(f"autotune_spmv(graph=True) races CUDA graphs and needs a CUDA "
+                         f"device, got {dev}; pass graph=False or None to race eager calls")
+    captured = _capturable(dev) if graph is None else bool(graph)
     if isinstance(a_dense, SparseOperator):
         a_dense = a_dense.container
     if hasattr(a_dense, "to_dense") and not sp.issparse(a_dense):
@@ -198,6 +283,7 @@ def autotune_spmv(
 
     table: Dict[Tuple[str, str], float] = {}
     skipped: List[Tuple[str, str, str]] = []
+    graph_s = {"capture_s": 0.0, "instantiate_s": 0.0, "replay_equal": 0}
     mats = {}
     skip_cache: Dict[str, Optional[str]] = {}
     cand = _normalize_candidates(candidates if candidates is not None else DEFAULT_CANDIDATES)
@@ -228,18 +314,33 @@ def autotune_spmv(
             skipped.append((fmt, impl, "unsupported"))
             continue
         fn = lambda A, x, pol=pol: spmv(A, x, policy=pol)  # noqa: E731
+        call = fn
         try:
+            if captured:
+                call = _CapturedCall(A, x, pol, f"the race candidate {fmt}/{impl}")
+                graph_s["capture_s"] += call.capture_s
+                graph_s["instantiate_s"] += call.instantiate_s
             if time_fn is not None:
-                table[(fmt, impl)] = time_fn(fn, A, x, DispatchKey(fmt, impl),
+                table[(fmt, impl)] = time_fn(call, A, x, DispatchKey(fmt, impl),
                                              iters=iters, warmup=warmup)
             else:
-                table[(fmt, impl)] = _time_call(fn, A, x, iters=iters,
+                table[(fmt, impl)] = _time_call(call, A, x, iters=iters,
                                                 warmup=warmup, device=dev)
         except Exception as e:  # the chain itself exhausted: record, go on racing
             skipped.append((fmt, impl, f"error: {type(e).__name__}"))
+            if call is not fn:
+                call.free()
+            continue
+        if call is not fn:
+            try:
+                call.check()
+            finally:
+                call.free()
+            graph_s["replay_equal"] += 1
 
     if not table:
         raise RuntimeError("auto-tuner: no candidate succeeded")
     (fmt, impl), t = min(table.items(), key=lambda kv: kv[1])
-    return TuneResult(fmt, impl, t, mats[fmt], table, skipped, base_policy=policy)
+    return TuneResult(fmt, impl, t, mats[fmt], table, skipped, base_policy=policy,
+                      graph=captured, **graph_s)
 

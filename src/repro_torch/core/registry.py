@@ -18,7 +18,13 @@ Beside each entry the pool keeps the serving engine's captured lanes
 where the reference's ``jax.jit`` cache keys a compiled lane on the
 operator's structure, a CUDA graph holds the entry's addresses, so its
 graphs live and die with the entry (LRU eviction, ``discard``, an
-``insert`` that replaces it). ``spmv`` calls dispatch directly.
+``insert`` that replaces it). :meth:`SpmvWorkspace.spmv` is the reference's
+``get_fn``, a ``jax.jit(lambda A, x: spmv(A, x, policy=policy))`` for each
+(format, policy): on a CUDA device it replays an ``mv`` lane captured for
+the requested policy and the rhs dtype, kept beside the entry in the same
+dict; on the host, and for a rhs that is not one vector or a policy that
+checks for non-finite output (a host read, as the engine's tiles run it),
+it calls dispatch eagerly.
 """
 from __future__ import annotations
 
@@ -129,7 +135,12 @@ class SpmvWorkspace:
     def get_operator(self, a, fmt: str, device="cuda", **kw) -> SparseOperator:
         """LRU-cached conversion handle for (matrix fingerprint, format);
         a build from scipy/dense input goes to ``device``."""
-        key = f"{self.fingerprint(a)}:{fmt}:{sorted(kw.items())}"
+        return self._operator(self._key(a, fmt, kw), a, fmt, device, kw)
+
+    def _key(self, a, fmt: str, kw: dict) -> str:
+        return f"{self.fingerprint(a)}:{fmt}:{sorted(kw.items())}"
+
+    def _operator(self, key: str, a, fmt: str, device, kw: dict) -> SparseOperator:
         if key in self._ops:
             self.hits += 1
             self._ops.move_to_end(key)  # true LRU: a hit refreshes recency
@@ -194,11 +205,25 @@ class SpmvWorkspace:
 
     def spmv(self, a, x, fmt: str = "csr", impl: Optional[str] = None,
              policy: Optional[ExecutionPolicy] = None, device="cuda", **kw):
-        """``A @ x`` through the cached operator of ``(a, fmt)``."""
+        """``A @ x`` through the cached operator of ``(a, fmt)``: on a CUDA
+        device the replay of the entry's captured ``mv`` lane for ``policy``
+        (a fresh tensor each call), else dispatch's eager call."""
         if policy is None:
             policy = policy_for_impl(impl or "plain")
-        op = self.get_operator(a, fmt, device=device, **kw)
-        return spmv(op.container, torch.as_tensor(x, device=op.device), policy=policy)
+        key = self._key(a, fmt, kw)
+        op = self._operator(key, a, fmt, device, kw)
+        x = torch.as_tensor(x, device=op.device)
+        if (op.device.type != "cuda" or policy.check_finite
+                or tuple(x.shape) != (op.shape[1],)):
+            return spmv(op.container, x, policy=policy)
+        from repro_torch.serve.lanes import CapturedLane
+
+        lanes = self.lanes(key, op)
+        lane = lanes.get(("spmv", x.dtype, policy))
+        if lane is None:
+            lane = CapturedLane(op.with_policy(policy), "mv", 1, x.dtype)
+            lanes[("spmv", x.dtype, policy)] = lane
+        return lane([x])
 
     def __len__(self) -> int:
         return len(self._ops)

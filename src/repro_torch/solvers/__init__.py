@@ -1,7 +1,8 @@
 """repro_torch.solvers — the HPCG solve pipeline as SparseOperator clients.
 
-    cg     : fixed-iteration + tolerance-stopping (preconditioned) CG, and
-             the fixed-iteration solve captured in one CUDA graph
+    cg     : fixed-iteration + tolerance-stopping (preconditioned) CG, the
+             fixed-iteration solve captured in one CUDA graph, and the
+             tolerance solve as CUDA graphs with a device-side stop
     symgs  : symmetric Gauss-Seidel smoother (reference triangular sweeps
              and the multicolor masked-SpMV schedule)
     mg     : geometric multigrid V-cycle over re-discretised 27-point
@@ -9,8 +10,8 @@
              distributed form over a mesh of parts (``distribute_vcycle``)
 """
 from .cg import (
-    CapturedSolve, CGDiagnostics, CGInfo, as_matvec, axpy, cg, cg_guarded, cg_solve,
-    diagnose_cg, pcg_solve, pdot, pnorm,
+    CG_CHUNK, CapturedCG, CapturedSolve, CGDiagnostics, CGInfo, CGState, as_matvec, axpy, cg,
+    cg_chunk, cg_guarded, cg_solve, cg_start, diagnose_cg, pcg_solve, pdot, pnorm,
 )
 from .symgs import SymGS, greedy_coloring
 from .mg import (
@@ -19,8 +20,9 @@ from .mg import (
 )
 
 __all__ = [
-    "CapturedSolve", "CGDiagnostics", "CGInfo", "as_matvec", "axpy", "cg", "cg_guarded",
-    "cg_solve", "diagnose_cg", "pcg_solve", "pdot", "pnorm",
+    "CG_CHUNK", "CapturedCG", "CapturedSolve", "CGDiagnostics", "CGInfo", "CGState",
+    "as_matvec", "axpy", "cg", "cg_chunk", "cg_guarded", "cg_solve", "cg_start",
+    "diagnose_cg", "pcg_solve", "pdot", "pnorm",
     "SymGS", "greedy_coloring",
     "MGLevel", "VCycle", "build_mg", "coarsenable", "distributable_depth",
     "distribute_vcycle", "injection_operators",
