@@ -277,24 +277,35 @@ Phases, one or more lines each, each ending with its seconds:
      single-pod mesh (status, bottleneck, the terms, counted/analytic, and
      the collective term: counts and bytes by kind, traced on the 256-rank
      ``DeviceMesh`` of torch's ``"fake"`` group, priced at NVLink's 450 GB/s);
- 17. the model's sharding on the card: the ``Trainer`` on the ``--mesh
-     local`` ``DeviceMesh`` (NCCL, one rank a card: (1, 1) for this lone
-     process), phase 15b's model (full width, 1 layer, the 'bsr' lane under
-     ``use_backend("cuda")``), batch and seed for ``SHARDED_STEPS`` steps,
-     every parameter and AdamW moment a DTensor; each step's loss and
-     grad_norm equal phase 15b's in bits (every mesh axis is 1), counted
-     as the ``train_sharded`` path (``bsr_spmm``, ``bsr_spmm_t`` and
-     ``bsr_sddmm`` launched from the MoE's ``local_map`` region); step ms
-     (the first carries DTensor's sharding propagation, so the p50 is of
-     the later steps) and peak memory beside 15b's; then a ``save`` and
-     ``restore_sharded`` round trip of a Trainer's sharded state at smoke
-     size on the same mesh (equal bits, the same placements).
+ 17. the model's sharding on the card, its step captured: the ``Trainer``
+     on the ``--mesh local`` ``DeviceMesh`` (NCCL, one rank a card: (1, 1)
+     for this lone process), phase 15b's model (full width, 1 layer, the
+     'bsr' lane under ``use_backend("cuda")``), batch and seed for
+     ``SHARDED_STEPS`` steps, every parameter and AdamW moment a DTensor:
+     first eagerly (``graph=False``, uncounted), then through the step
+     captured in one CUDA graph (``repro_torch.train.CapturedTrainStep`` on
+     DTensors, the reference's ``jax.jit(step_fn, in_shardings=...,
+     out_shardings=..., donate_argnums=(0, 1))``; the default on a CUDA
+     mesh of one rank): step 0 the warm-up (DTensor's first sharding
+     propagation) and the capture, the later steps replays. Each run's
+     loss and grad_norm equal phase 15b's first steps in bits (every mesh
+     axis is 1); the captured run is counted as the ``train_sharded`` path
+     (``bsr_spmm``, ``bsr_spmm_t`` and ``bsr_sddmm`` launched from the MoE's
+     ``local_map`` region at the warm-up and the capture); its line gives
+     the replays' p50 beside 15d's and the eager mesh steps', the warm-up's
+     ms, capture and instantiation seconds, nodes, the kernel launches a
+     replay, and peak allocated and reserved memory (15d's graph and state
+     freed before it); then a ``save`` and ``restore`` round trip of a
+     captured mesh ``Trainer`` at smoke size on the same mesh: the live
+     state zeroed, the restore writes into it (every leaf's local
+     ``data_ptr`` kept, the saved bits and placements).
 
 The line before last is a JSON object with each kernel's numbers
 (``launches`` is the count on the path that requires the kernel;
 ``launches_<path>`` gives every path's count (``train``: phase 15b's
 steps; ``train_graph``: phase 15d's warm-up and capture, a replay runs
-uncounted; ``train_sharded``: phase 17's), and ``dia_spmv``'s
+uncounted; ``train_sharded``: phase 17's captured run's warm-up and
+capture, likewise), and ``dia_spmv``'s
 ``launches_split`` its launches on the HPCG paths by level, masked or not,
 ``g^3/4`` for a part of a level on the distributed paths); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -537,10 +548,11 @@ ALLREDUCE_CHECK_N = 1 << 20
 ALLREDUCE_REL, ALLREDUCE_ERR_OF_MAX = 0.05, 0.05
 #: Phase 16c: two cells of the dry run on the ``meta`` device.
 DRYRUN_CELLS = (("qwen3-moe-235b-a22b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
-#: Phase 17: the sharded Trainer's steps (phase 15b's first ones), and the
-#: smoke-size round trip's: the full-width state (59.7 GB) would take
-#: minutes to write and read back, past the smoke's time limit.
-SHARDED_STEPS = 2
+#: Phase 17: the sharded Trainer's steps (phase 15b's first ones: a warm-up
+#: and the capture, then two replays); the round trip is at smoke size: the
+#: full-width state (59.7 GB) would take minutes to write and read back,
+#: past the smoke's time limit.
+SHARDED_STEPS = 3
 
 TUNER_MATRICES = (("random_uniform(10**6, 8e-6)", "random_uniform", (10 ** 6, 8e-6)),)
 #: Why one matrix, not three: the banded and power-law races at 10^6 rows
@@ -3464,42 +3476,87 @@ def phase_dryrun(results: dict) -> None:
     results["dryrun"] = rows
 
 
-def phase_train_sharded(results: dict, smi: str) -> dict:
-    """Phase 17: the ``Trainer`` on ``launch.train``'s ``--mesh local``
-    ``DeviceMesh`` (NCCL; a lone process is a world of one, (1, 1) over
-    ``("data", "model")``), phase 15b's model, batch and seed, on the 'bsr'
-    lane under ``use_backend("cuda")``: its losses and grad_norms equal
-    15b's first steps in bits, every leaf of its state a DTensor, the
-    backward kernels launched from the sharded path; then the smoke-size
-    round trip (:func:`sharded_round_trip`). The process group is torn
-    down at the end. Returns the path's launches."""
-    import torch
-    import torch.distributed as dist
+def sharded_trainer(mesh, graph):
+    """Phase 15b's model, batch and seed as a ``Trainer`` on ``mesh`` for
+    ``SHARDED_STEPS`` steps; its state's every parameter and moment a
+    DTensor."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.core import use_backend
-    from repro_torch.launch.train import train_mesh
     from repro_torch.optim import adamw
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.tree import leaves
 
-    base = results["train"]
+    tr = Trainer(train_config(), TrainerConfig(n_steps=SHARDED_STEPS, global_batch=TRAIN_BATCH,
+                                               seq_len=TRAIN_SEQ, seed=0, log_every=100),
+                 adamw.AdamWConfig(total_steps=TRAIN_STEPS), mesh=mesh, graph=graph)
+    params, opt = tr.state
+    check(all(isinstance(t, DTensor) for t in leaves((params, opt.m, opt.v))),
+          "train sharded: a parameter or moment is not a DTensor")
+    return tr
+
+
+def sharded_bits(label: str, hist, base) -> tuple:
+    """``hist``'s losses and grad_norms, checked equal in bits to 15b's
+    first steps."""
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    want_l = json.loads(base["losses"])[:SHARDED_STEPS]
+    want_g = json.loads(base["grad_norms"])[:SHARDED_STEPS]
+    check(losses == want_l and gnorms == want_g,
+          f"{label}: losses {losses} / grad_norms {gnorms} are not the unsharded step's bits "
+          f"{want_l} / {want_g}")
+    return losses, gnorms
+
+
+def phase_train_sharded(results: dict, smi: str) -> dict:
+    """Phase 17: the ``Trainer`` on ``launch.train``'s ``--mesh local``
+    ``DeviceMesh`` (NCCL; a lone process is a world of one, (1, 1) over
+    ``("data", "model")``), phase 15b's model, batch and seed, on the 'bsr'
+    lane under ``use_backend("cuda")``, every leaf of its state a DTensor:
+    first eagerly (``graph=False``, uncounted: the comparison), then with
+    its step captured in one CUDA graph (the default on a CUDA mesh of one
+    rank: the reference's jitted step with its shardings): step 0 the
+    warm-up (DTensor's first sharding propagation) and the capture, every
+    later step a replay. Each run's losses and grad_norms equal 15b's first
+    steps in bits; the captured run is counted as the ``train_sharded``
+    path (``bsr_spmm``, ``bsr_spmm_t`` and ``bsr_sddmm`` launched from the
+    MoE's ``local_map`` region at the warm-up and the capture). 15d's graph
+    and state are gone before it. Then the smoke-size round trip
+    (:func:`sharded_round_trip`). The process group is torn down at the
+    end. Returns the path's launches."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import use_backend
+    from repro_torch.launch.train import train_mesh
+    from repro_torch.tree import leaves
+
+    base, captured_base = results["train"], results["train_graph"]
+    gc.collect()
     torch.cuda.empty_cache()
     before_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
     mesh = train_mesh("local", "cuda")
     try:
-        cfg = train_config()
+        torch.cuda.reset_peak_memory_stats()
+        tr = sharded_trainer(mesh, graph=False)
+        with use_backend("cuda"):
+            eager_hist = tr.train()
+        sharded_bits("train sharded eager", eager_hist, base)
+        eager_ms = [h["time_s"] * 1e3 for h in eager_hist]
+        eager_peak = torch.cuda.max_memory_allocated()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        tr = Trainer(cfg, TrainerConfig(n_steps=SHARDED_STEPS, global_batch=TRAIN_BATCH,
-                                        seq_len=TRAIN_SEQ, seed=0, log_every=100),
-                     adamw.AdamWConfig(total_steps=TRAIN_STEPS), mesh=mesh)
+        tr = sharded_trainer(mesh, graph=None)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        params, opt = tr.state
-        check(all(isinstance(t, DTensor) for t in leaves((params, opt.m, opt.v))),
-              "train sharded: a parameter or moment is not a DTensor")
-        del params, opt
+        check(tr.graph, "train sharded: the Trainer on a (1, 1) CUDA mesh does not capture "
+                        "its step")
         placements = sorted({str(t.placements) for t in leaves(tr.state[0])})
 
         def steps():
@@ -3508,50 +3565,66 @@ def phase_train_sharded(results: dict, smi: str) -> dict:
 
         hist, launches, _ = counted("train_sharded", steps)
         peak = torch.cuda.max_memory_allocated()
-        losses = [h["loss"] for h in hist]
-        gnorms = [h["grad_norm"] for h in hist]
-        want_l = json.loads(base["losses"])[:SHARDED_STEPS]
-        want_g = json.loads(base["grad_norms"])[:SHARDED_STEPS]
-        check(losses == want_l and gnorms == want_g,
-              f"train sharded: losses {losses} / grad_norms {gnorms} are not the unsharded "
-              f"step's bits {want_l} / {want_g}")
+        peak_reserved = torch.cuda.max_memory_reserved()
+        losses, gnorms = sharded_bits("train sharded captured", hist, base)
+        st = tr.captured.stats()
         for name in ("bsr_spmm", "bsr_spmm_t", "bsr_sddmm"):
-            check(launches[name] > 0, f"{name} was not launched on the sharded train path")
+            check(launches[name] > 0 and st["launches"].get(name, 0) > 0,
+                  f"{name} was not launched on the captured sharded train path")
         ms = [h["time_s"] * 1e3 for h in hist]
+        for h, m in zip(hist, ms):
+            phase(f"train sharded step {h['step']}", loss=h["loss"], grad_norm=h["grad_norm"],
+                  step_ms=m, eager_step_ms=eager_ms[h["step"]],
+                  note="warm-up and capture" if h["step"] == 0 else "replay")
         del tr, hist
+        gc.collect()
         torch.cuda.empty_cache()
         rt = sharded_round_trip(mesh)
     finally:
         dist.destroy_process_group()
+    replays = sorted(ms[1:])
+    eager_warm = sorted(eager_ms[1:])
     results["train_sharded"] = phase(
-        "train sharded", smi=repr(smi), mesh=repr(mesh), arch=cfg.name, layers=cfg.n_layers,
-        dispatch_impl=cfg.moe.dispatch_impl, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        steps=SHARDED_STEPS, placements=json.dumps(placements),
+        "train sharded", smi=repr(smi), mesh=repr(mesh), arch=base["arch"],
+        layers=base["layers"], dispatch_impl=base["dispatch_impl"], batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=SHARDED_STEPS, placements=json.dumps(placements),
         allocated_before_gb=before_gb, init_s=init_s, losses=json.dumps(losses),
-        grad_norms=json.dumps(gnorms), bits_equal_unsharded=True,
-        step_ms=json.dumps([round(m, 3) for m in ms]),
-        step_ms_warm_p50=sorted(ms[1:])[len(ms[1:]) // 2],
+        grad_norms=json.dumps(gnorms), bits_equal_unsharded=True, graph=True,
+        step_ms=json.dumps([round(m, 3) for m in ms]), warm_up_and_capture_ms=ms[0],
+        replay_ms_p50=replays[len(replays) // 2],
+        one_device_replay_ms_p50=captured_base["replay_ms_p50"],
+        eager_step_ms=json.dumps([round(m, 3) for m in eager_ms]),
+        eager_step_ms_warm_p50=eager_warm[len(eager_warm) // 2],
         unsharded_step_ms_p50=base["step_ms_p50"],
-        peak_memory_gb=peak / 1e9, unsharded_peak_memory_gb=base["peak_memory_gb"],
+        capture_s=round(st["capture_s"], 4), instantiate_s=round(st["instantiate_s"], 4),
+        nodes=st["nodes"], launches_a_replay=json.dumps(st["launches"]),
         launches=json.dumps({k: launches[k] for k in ("bsr_spmm", "bsr_spmm_t", "bsr_sddmm")}),
-        **rt)
+        peak_allocated_gb=peak / 1e9, peak_reserved_gb=peak_reserved / 1e9,
+        eager_peak_allocated_gb=eager_peak / 1e9,
+        one_device_peak_reserved_gb=captured_base["peak_reserved_gb"],
+        unsharded_peak_memory_gb=base["peak_memory_gb"], **rt)
     return launches
 
 
 def sharded_round_trip(mesh) -> dict:
-    """A ``Trainer`` at smoke size on ``mesh`` trains two steps and saves
-    (every rank gathers, rank 0 writes); ``Trainer.restore`` puts the
-    checkpoint back with ``restore_sharded``: every leaf equal in bits and
-    in its placements to the live state's."""
+    """A ``Trainer`` at smoke size on ``mesh``, its step captured, trains
+    two steps and saves (every rank gathers, rank 0 writes); the live
+    state is then zeroed and ``Trainer.restore`` writes the checkpoint back
+    into it: every leaf's local ``data_ptr`` kept, its bits and placements
+    the saved state's."""
     import shutil
     import tempfile
 
     import torch
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.core import use_backend
     from repro_torch.optim import adamw
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.tree import leaves
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
     try:
@@ -3562,14 +3635,25 @@ def sharded_round_trip(mesh) -> dict:
                      adamw.AdamWConfig(total_steps=2), mesh=mesh)
         with use_backend("cuda"):
             tr.train()
+        check(tr.graph and tr.captured is not None,
+              "train sharded: the smoke-size Trainer on the mesh did not capture its step")
         live = leaves(tr.state)
+        saved = [local(t).clone() for t in live]
+        ptrs = [local(t).data_ptr() for t in live]
+        placed = [str(getattr(t, "placements", None)) for t in live]
+        with torch.no_grad():
+            for t in live:
+                local(t).zero_()
         (params, opt), step = tr.restore()
         back = leaves((params, opt))
-        same = len(live) == len(back) and all(
-            str(a.placements) == str(b.placements) and torch.equal(a.to_local(), b.to_local())
-            if hasattr(a, "placements") else torch.equal(a, b) for a, b in zip(live, back))
-        check(step == 2 and same, f"train sharded: restore_sharded gave other bits (step {step})")
+        same = (len(back) == len(saved)
+                and [local(t).data_ptr() for t in back] == ptrs
+                and [str(getattr(t, "placements", None)) for t in back] == placed
+                and all(torch.equal(local(t), w) for t, w in zip(back, saved)))
+        check(step == 2 and same, f"train sharded: restore gave other bits, placements or "
+                                  f"tensors (step {step})")
         return {"round_trip_leaves": len(back), "round_trip_equal": same,
+                "round_trip_in_place": True, "round_trip_captured": True,
                 "round_trip_s": round(time.perf_counter() - t0, 2)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -10,10 +10,11 @@ onto the csr/plain candidates must reproduce the reference run bit for bit,
 and the tuned run must converge to ``tol`` and agree with the reference;
 (5) timed runs — fixed-iteration PCG, so the op counts match across
 implementations. On a CUDA device each timed solve is captured once in a
-CUDA graph and timed by its replays (``graph=True``, the default), as the
-reference times its ``jax.jit``-compiled solve; the eager loop is timed
+CUDA graph and timed by its replays (``graph=None``, the default, captures
+on the card and runs eagerly on the host; ``graph=True`` raises there), as
+the reference times its ``jax.jit``-compiled solve; the eager loop is timed
 beside it, and every replay must give the eager solve's bits
-(``graph_equal``). With ``graph=True`` every tolerance solve (phases 2 and
+(``graph_equal``). A captured run's every tolerance solve (phases 2 and
 4) is :class:`~repro_torch.solvers.CapturedCG`, the reference's jitted
 ``lax.while_loop``: a setup and a chunk of iterations captured, the chunk
 replayed until the device's flag drops; it gives the eager ``cg``'s bits.
@@ -28,7 +29,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +62,7 @@ class HPCGResult:
     bitwise: bool = True      # optimised machinery on csr/plain == reference
     mg_levels: str = ""       # per-level (format, backend) choices
     skipped: list = field(default_factory=list)  # the main tune's skipped keys
-    graph: bool = False       # the timed solves are the replays of a CUDA graph
+    graph: bool = False       # the solves ran captured (the timed ones a graph's replays)
     ref_eager_s: float = 0.0  # the eager loop's median (ref_time_s without a graph)
     opt_eager_s: float = 0.0
     graph_equal: bool = False  # every replay gave the eager solve's x and rs bits
@@ -157,6 +158,18 @@ def _check_graph(graph: bool, devices) -> None:
                          f"implemented: pass graph=False to time the eager loop")
 
 
+def _resolve_graph(graph: Optional[bool], devices) -> bool:
+    """Whether the solves run captured: ``graph=None`` captures where every
+    operand lives on one CUDA device and is eager elsewhere (the host, a
+    mesh over several cards); ``graph=True`` captures and raises where it
+    cannot (:func:`_check_graph`); ``graph=False`` is eager."""
+    if graph is None:
+        devs = set(devices)
+        return len(devs) == 1 and next(iter(devs)).type == "cuda"
+    _check_graph(graph, devices)
+    return bool(graph)
+
+
 def _guard_phase(info, phase: str, *, tol, maxiter):
     """Fail loudly when a convergence phase went non-finite; a merely
     stalled run stays a validation failure."""
@@ -199,7 +212,7 @@ def _conv_solve(name: str, A_op, mg, b, *, iters, tol, graph: bool, eager: tuple
 
 def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
              verbose=True, precond=True, tol=1e-6, depth=4,
-             timed=True, tune_mode="run", device="cuda", graph=True,
+             timed=True, tune_mode="run", device="cuda", graph=None,
              eager_reps=None, conv_eager=()) -> HPCGResult:
     """Serial HPCG phases 1-5 on ``device`` (default ``"cuda"``).
 
@@ -208,19 +221,21 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
     multigrid level) for the zero-run selector, on the cost table of
     ``device``: setup runs no candidate kernel, and validation is the same,
     so a bad prediction fails a check rather than passing silently.
-    ``graph=True`` times each fixed-iteration solve by the replays of one
+    A captured run times each fixed-iteration solve by the replays of one
     CUDA graph (``reps`` of them) and the eager loop beside it
     (``eager_reps``, default ``reps``), and runs each tolerance solve
-    (``"ref"``, ``"chk"``, ``"opt"``) through :class:`CapturedCG`; it needs
-    a CUDA device and raises elsewhere, whatever ``timed`` says, as it
-    raises when a capture fails. ``conv_eager`` names tolerance solves to
-    run eagerly too, beside the captured one (``conv_graphs``).
-    ``graph=False`` runs every solve eagerly.
+    (``"ref"``, ``"chk"``, ``"opt"``) through :class:`CapturedCG`; it
+    raises when a capture fails. ``graph=None`` (the default) captures on
+    a CUDA device and runs eagerly on the host; ``graph=True`` captures
+    and raises on the host, whatever ``timed`` says; ``graph=False`` runs
+    every solve eagerly. ``HPCGResult.graph`` records which ran.
+    ``conv_eager`` names tolerance solves to run eagerly too, beside the
+    captured one (``conv_graphs``).
     """
     if tune_mode not in ("run", "predict"):
         raise ValueError(f"tune_mode {tune_mode!r}: expected 'run' or 'predict'")
     dev = resolve_device(device)
-    _check_graph(graph, (dev,))
+    graph = _resolve_graph(graph, (dev,))
     conv = {}
     solve = lambda name, A_op, mg: _conv_solve(  # noqa: E731
         name, A_op, mg, b, iters=iters, tol=tol, graph=graph, eager=tuple(conv_eager),
@@ -270,7 +285,7 @@ def run_hpcg(nx=16, ny=16, nz=16, iters=50, reps=3, candidates=None,
         chosen, valid, rel, tune_table,
         precond=precond, pcg_iters=int(opt.iters), rel_res=float(opt.rel_res),
         bitwise=bitwise, mg_levels=mg_opt.describe() if mg_opt else "",
-        skipped=skipped, conv_graphs=conv)
+        skipped=skipped, graph=graph, conv_graphs=conv)
     if timed:
         _timed_phase(res, _fixed_solve(A_ref, mg_ref, iters),
                      _fixed_solve(A_opt, mg_opt, iters), b, reps=reps,
@@ -298,7 +313,6 @@ def _timed_phase(res: HPCGResult, ref_timed, opt_timed, b, *, reps, eager_reps, 
                       device=device)
     res.ref_time_s, res.opt_time_s = ref.seconds, opt.seconds
     res.speedup = ref.seconds / opt.seconds
-    res.graph = graph
     res.ref_eager_s, res.opt_eager_s = ref.eager_s, opt.eager_s
     res.graph_equal = ref.equal and opt.equal
     res.graphs = {"ref": ref.stats, "opt": opt.stats} if graph else {}
@@ -311,7 +325,7 @@ def _print_graph(res: HPCGResult) -> None:
               f"instantiate={st['instantiate_s']:.3f}s nodes={st['nodes']} "
               f"seconds={st['seconds']:.4f}"
               + (f" eager={st['eager_s']:.4f}s equal={st['equal']}" if "equal" in st else ""))
-    if not res.graph:
+    if not res.graphs:
         return
     print(f"  eager: ref={res.ref_eager_s*1e3:.1f}ms opt={res.opt_eager_s*1e3:.1f}ms "
           f"graph_equal={res.graph_equal}")
@@ -339,7 +353,7 @@ def default_mesh(axis: str = "data", device="cuda", parts=None):
 def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
                          candidates=None, verbose=True, precond=True,
                          tol=1e-6, depth=4, timed=True, axis="data",
-                         tune_levels=False, device="cuda", graph=True,
+                         tune_levels=False, device="cuda", graph=None,
                          eager_reps=None, conv_eager=()) -> HPCGResult:
     """Distributed HPCG — the full pipeline over a mesh of parts.
 
@@ -373,8 +387,9 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
         iters, reps, candidates, precond, tol, depth, timed, graph,
             eager_reps, conv_eager: as :func:`run_hpcg` (the tolerance
             solves are ``"ref"`` and ``"opt"``); ``depth`` is clamped to what
-            partitions evenly. ``graph=True`` on a mesh of several devices
-            raises.
+            partitions evenly. ``graph=None`` captures where every part
+            lies on one CUDA device and is eager on the host and on a mesh
+            of several devices, where ``graph=True`` raises.
         tune_levels: per-partition tune of every MG level (slower setup).
         device: where ``default_mesh`` puts the parts when ``mesh`` is None.
 
@@ -392,7 +407,7 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
         mesh = default_mesh(axis, device)
     nparts = mesh_parts(mesh, axis)
     home = mesh.home
-    _check_graph(graph, (home, *mesh.devices))
+    graph = _resolve_graph(graph, (home, *mesh.devices))
     conv = {}
 
     # Phase 1: problem setup
@@ -440,7 +455,8 @@ def run_hpcg_distributed(mesh=None, nx=16, ny=16, nz=16, iters=50, reps=3,
         (nx, ny, nz), n, iters, 0.0, 0.0, 0.0,
         D_opt.describe(dispatched=True), valid, rel, flat_table,
         precond=precond, pcg_iters=int(opt.iters), rel_res=float(opt.rel_res),
-        bitwise=bitwise, mg_levels=mg_dist.describe() if mg_dist else "", conv_graphs=conv)
+        bitwise=bitwise, mg_levels=mg_dist.describe() if mg_dist else "", graph=graph,
+        conv_graphs=conv)
     if timed:
         _timed_phase(res, _fixed_solve(D_ref, mg_dist, iters),
                      _fixed_solve(D_opt, mg_dist, iters), b_d, reps=reps,

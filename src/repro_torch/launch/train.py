@@ -25,12 +25,16 @@ multi`` are the production meshes, (16, 16) and (2, 16, 16), and need a
 world of 256 or 512 ranks. ``--mesh none`` (the default) trains on one
 device with no mesh.
 
-On one card with no mesh the step runs captured in one CUDA graph (the
-first step of the run is its warm-up, every later step a replay; see
+On one card the step runs captured in one CUDA graph (the first step of
+the run is its warm-up, every later step a replay; see
 ``repro_torch.train.CapturedTrainStep``), as the reference runs its jitted,
-donated step; ``--no-graph`` runs every step eagerly. ``--device cpu``
-and a mesh train eagerly, and ``--graph`` raises there. The start-up line
-says which.
+donated step: with no mesh, and on ``--mesh local`` in a lone process (a
+(1, 1) NCCL mesh: the graph holds the DTensors' local tensors);
+``--no-graph`` runs every step eagerly. ``--device cpu`` (and its ``gloo``
+mesh) trains eagerly and ``--graph`` raises there; a mesh of several cards
+trains eagerly by default and ``--graph`` raises there too (a capture that
+records NCCL collectives has not been run on one). The start-up line says
+which.
 
 ``main`` sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` where the environment has
 none, before the first product, so that cuBLAS takes its deterministic
@@ -89,7 +93,8 @@ def main(argv=None):
                     help="where the model, its state and the batches live (default cuda)")
     ap.add_argument("--graph", action=argparse.BooleanOptionalAction, default=None,
                     help="train through one step captured in a CUDA graph (default on one "
-                         "card with no mesh; needs it: the host and a mesh train eagerly)")
+                         "card, with no mesh or a mesh of one rank; needs it: the host, a gloo "
+                         "mesh and a mesh of several cards train eagerly)")
     args = ap.parse_args(argv)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 

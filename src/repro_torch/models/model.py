@@ -553,8 +553,47 @@ class LM:
 def softmax_xent(logits, targets):
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets[..., None].long())
+    gold = _gold_logits(lf, targets[..., None].long())
     return torch.mean(lse[..., None] - gold)
+
+
+def _gold_logits(lf, idx):
+    """``gather(lf, -1, idx)``. Where ``lf`` is a DTensor whose vocab (its
+    last dim) is split over mesh dims of size > 1, the gather is
+    vocab-parallel in a ``local_map`` region, as :func:`layers.embed_lookup`
+    is: each rank takes its own columns at the ids inside them (zeros
+    elsewhere), a partial sum over the vocab's dims. DTensor's own gather
+    there masks its input with a host-made scalar (``t[mask] = 0``), which a
+    CUDA graph cannot record."""
+    from repro_torch.distributed.sharding import dtensor_mesh, is_shard
+
+    mesh = dtensor_mesh(lf)
+    last = lf.ndim - 1
+    vocab = [] if mesh is None else [
+        i for i, p in enumerate(lf.placements)
+        if is_shard(p) and p.dim % lf.ndim == last and mesh.size(i) > 1]
+    if not vocab:
+        return torch.gather(lf, -1, idx)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    lf_in = list(lf.placements)
+    i_in = [p if is_shard(p) and p.dim % lf.ndim != last else Replicate() for p in lf_in]
+    out = [Partial() if i in vocab else p for i, p in enumerate(i_in)]
+    sizes = mesh.shape
+
+    def gather(cols, ids):
+        first = 0
+        for i in vocab:
+            first = first * sizes[i] + mesh.get_local_rank(i)
+        ids = ids - first * cols.shape[-1]
+        inside = (ids >= 0) & (ids < cols.shape[-1])
+        got = torch.gather(cols, -1, torch.where(inside, ids, torch.zeros_like(ids)))
+        return got * inside.to(got.dtype)
+
+    return local_map(gather, out_placements=out, in_placements=(lf_in, i_in),
+                     in_grad_placements=(lf_in, i_in), device_mesh=mesh,
+                     redistribute_inputs=True)(lf, idx)
 
 
 class DecCache(NamedTuple):

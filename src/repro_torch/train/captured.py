@@ -1,6 +1,7 @@
-"""The one-device train step captured in one CUDA graph: the port's form of
-the reference's ``jax.jit(step_fn, donate_argnums=(0, 1))``
-(``repro.train.trainer``, the ``Trainer``'s step without a mesh).
+"""The train step captured in one CUDA graph: the port's form of the
+reference's ``jax.jit(step_fn, donate_argnums=(0, 1))`` and, on a mesh, of
+its ``jax.jit(step_fn, in_shardings=(pshard, oshard, None),
+out_shardings=..., donate_argnums=(0, 1))`` (``repro.train.trainer``).
 
 The reference compiles the step once and donates the params and the
 optimizer state, which XLA then updates in place. Here the step of
@@ -9,6 +10,14 @@ place; the graph keeps them as its static buffers, reads each batch from
 static tensors that a call refills, and writes its metrics into static
 0-dim tensors. At full width (qwen3-moe-235b-a22b, one layer, f32 AdamW)
 the state is 44.8 GB: there is room for one copy of it and no snapshot.
+
+On a ``DeviceMesh`` the params, the AdamW state and the batch are
+DTensors: the graph holds their local tensors, a call copies the next
+batch's local shards into the static batch's (no redistribute, no DTensor
+dispatch), and the warm-up carries DTensor's first sharding propagation,
+so the capture records only the kernels of the second step. The caller
+runs it inside ``sharding_context(mesh)``, as the eager mesh step runs
+(the ``Trainer`` does), and every local tensor lies on one CUDA device.
 """
 from __future__ import annotations
 
@@ -43,8 +52,9 @@ class CapturedTrainStep:
 
     Raises:
         ValueError: the model, a parameter, a leaf of the state or a batch
-            entry lies off the card (the eager step is the caller's choice,
-            never a stand-in), or a call's batch has another layout than
+            entry (a DTensor's local tensor) lies off the card (the eager
+            step is the caller's choice, never a stand-in), or a call's
+            batch has another layout (keys, shapes, dtypes, placements) than
             the captured one.
         repro_torch.capture.CaptureError: the capture failed (a host read,
             an operation a capture does not take); nothing runs eagerly in
@@ -53,8 +63,8 @@ class CapturedTrainStep:
 
     def __init__(self, model, step, params, opt_state, batch: Dict[str, torch.Tensor]):
         dev = torch.device(model.device)
-        off = sorted({str(t.device) for t in leaves((params, opt_state, batch))
-                      if t.device.type != "cuda"})
+        off = sorted({str(_local(t).device) for t in leaves((params, opt_state, batch))
+                      if _local(t).device.type != "cuda"})
         if dev.type != "cuda" or off:
             raise ValueError(f"CapturedTrainStep captures a CUDA graph and needs the model, "
                              f"its params, their optimizer state and the batch on a CUDA "
@@ -72,12 +82,11 @@ class CapturedTrainStep:
         """The metrics of one more step, on ``batch`` (the captured keys,
         shapes and dtypes; on the card or the host)."""
         if batch.keys() != self.batch.keys() or any(
-                batch[k].shape != v.shape or batch[k].dtype != v.dtype
-                for k, v in self.batch.items()):
+                _layout_of(batch[k]) != _layout_of(v) for k, v in self.batch.items()):
             raise ValueError(f"CapturedTrainStep was captured for a batch of "
                              f"{_layout(self.batch)}, got {_layout(batch)}")
         for k, v in self.batch.items():
-            v.copy_(batch[k])
+            _local(v).copy_(_local(batch[k]))
         self.graph.replay()
         return {k: v.clone() for k, v in self.metrics.items()}
 
@@ -85,5 +94,18 @@ class CapturedTrainStep:
         return self._captured.stats()
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (this rank's shard), or ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _layout_of(t: torch.Tensor) -> tuple:
+    out = (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+    placements = getattr(t, "placements", None)     # a DTensor's
+    return out if placements is None else out + (str(tuple(placements)),)
+
+
 def _layout(batch) -> dict:
-    return {k: (tuple(v.shape), str(v.dtype).replace("torch.", "")) for k, v in batch.items()}
+    return {k: _layout_of(v) for k, v in batch.items()}

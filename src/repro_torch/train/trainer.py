@@ -7,24 +7,30 @@ the host), or on a ``DeviceMesh`` (``mesh=``, as the reference's jit with
 their placements, the AdamW moments (and master) in the same placements,
 every step on batches split over the batch axes, under
 ``sharding_context(mesh)``. ``save`` gathers each leaf on every rank and
-rank 0 writes; ``restore`` puts the leaves back with the current mesh's
-placements (``CheckpointManager.restore_sharded``). Failure injection
+rank 0 writes; ``restore`` writes each rank's chunk of the checkpoint into
+the live leaves (see below). Failure injection
 (``fail_at``) exercises the Supervisor restart path for real: the failed
 step raises, the Supervisor restores the latest
 checkpoint and replays data from the cursor, so the loss curves with and
 without the failure match (``tests/test_torch_train.py``; on the card
 ``tests/test_torch_train_cuda.py`` and ``chip_smoke.py`` phase 15).
 
-On one CUDA device with no mesh the step runs captured (``graph=None``,
-the default, or ``graph=True``), as the reference runs it through
-``jax.jit(step_fn, donate_argnums=(0, 1))``: the first step of each
-``train`` call is the warm-up of a :class:`CapturedTrainStep` and every
-later step replays its CUDA graph, which holds the params and the AdamW
-state's tensors. ``restore`` therefore writes a checkpoint into the live
-tensors (``copy_``), on every one-device run, captured or not, so that a
-restart replays the same graph and the clean run's bits. ``graph=False``
-runs every step eagerly; on the host and on a mesh the step is eager, and
-``graph=True`` raises there. A capture that fails raises
+On one CUDA device the step runs captured (``graph=None``, the default, or
+``graph=True``), as the reference runs it through ``jax.jit(step_fn,
+donate_argnums=(0, 1))`` and, on a mesh, with its ``in_shardings`` and
+``out_shardings``: the first step of each ``train`` call is the warm-up of
+a :class:`CapturedTrainStep` and every later step replays its CUDA graph,
+which holds the params and the AdamW state's tensors (a DTensor's local
+tensor on a mesh). A CUDA ``DeviceMesh`` of one rank (``launch.train
+--mesh local`` in a lone process) captures as one card does; on the host
+and on a ``gloo`` mesh the step is eager and ``graph=True`` raises; on a
+CUDA mesh of several ranks ``graph=None`` is eager and ``graph=True``
+raises, since a capture that records NCCL collectives has not been run
+(:func:`step_graph`). ``restore`` writes a checkpoint into the live
+tensors (``copy_``; on a mesh into each DTensor's local shard, whose
+placements must be the checkpoint's), on every run, captured or not, so
+that a restart replays the same graph and the clean run's bits.
+``graph=False`` runs every step eagerly. A capture that fails raises
 (``repro_torch.capture.CaptureError``), past the Supervisor: nothing runs
 eagerly in its place.
 
@@ -61,7 +67,7 @@ from repro_torch.resilience.monitor import StragglerMonitor, Supervisor
 from repro_torch.train.captured import CapturedTrainStep
 from repro_torch.train.steps import make_train_step
 from repro_torch.distributed.sharding import params_shardings, sharding_context
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, map_with_path
 
 
 @dataclass
@@ -95,6 +101,35 @@ def deterministic(device: torch.device):
         torch.use_deterministic_algorithms(before[0], warn_only=before[1])
 
 
+def step_graph(graph: Optional[bool], device: torch.device, mesh=None) -> bool:
+    """Whether a ``Trainer`` on ``device`` (and ``mesh``, a ``DeviceMesh`` or
+    anything with its ``device_type`` and ``size()``) runs its step
+    captured: ``graph=None`` captures on one CUDA device, with no mesh or
+    on a CUDA mesh of one rank, and is eager elsewhere; ``graph=False`` is
+    eager everywhere; ``graph=True`` captures and raises where
+    ``graph=None`` would not.
+
+    Raises:
+        ValueError: ``graph=True`` on the host, on a ``gloo`` mesh, or on a
+            CUDA mesh of several ranks."""
+    on_mesh = " on a mesh" if mesh is not None else ""
+    if device.type != "cuda":
+        if graph:
+            raise ValueError(f"graph=True trains through a step captured in a CUDA graph and "
+                             f"needs a CUDA device, got {device}{on_mesh}; pass graph=False "
+                             f"(or None) for the eager step")
+        return False
+    ranks = 1 if mesh is None else mesh.size()
+    if ranks > 1:
+        if graph:
+            raise ValueError(f"graph=True on a CUDA mesh of {ranks} ranks: a captured step "
+                             f"records its NCCL collectives in the graph, which has not been "
+                             f"verified on a mesh of two or more cards; pass graph=False (or "
+                             f"None) for the eager step")
+        return False
+    return graph is None or bool(graph)
+
+
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  ocfg: Optional[adamw.AdamWConfig] = None, mesh=None, device="cuda",
@@ -107,14 +142,8 @@ class Trainer:
             device = "cpu" if mesh.device_type == "cpu" else \
                 torch.device("cuda", torch.cuda.current_device())
         self.device = resolve_device(device)
-        one_card = self.device.type == "cuda" and mesh is None
-        if graph and not one_card:
-            raise ValueError(f"graph=True trains through a step captured in a CUDA graph and "
-                             f"needs one CUDA device with no mesh, got {self.device}"
-                             f"{' on a mesh' if mesh is not None else ''}; pass graph=False "
-                             f"(or None) for the eager step")
         #: the step runs captured (see the module docstring)
-        self.graph = one_card if graph is None else bool(graph)
+        self.graph = step_graph(graph, self.device, mesh)
         #: this run's captured step (``None`` before its first step)
         self.captured: Optional[CapturedTrainStep] = None
         if self.device.type == "cuda" and not os.environ.get("CUBLAS_WORKSPACE_CONFIG"):
@@ -171,20 +200,40 @@ class Trainer:
         # the template's shapes from the meta device: nothing allocated
         pshapes, oshapes = self._template()
         template = {"params": pshapes, "opt": oshapes}
-        if self.mesh is None:
-            # into the live tensors: a captured step holds their addresses,
-            # and a second state may not fit beside the first
-            tree = {"params": self.state[0], "opt": self.state[1]}
-            with torch.no_grad():
-                for live, saved in zip(leaves(tree), leaves(self.ckpt.restore(template, step))):
-                    live.copy_(saved)
-        else:
-            placed = {f"{part}/{k}": v for k, v in self.shardings.items()
-                      for part in ("params", "opt/m", "opt/v", "opt/master")}
-            tree = self.ckpt.restore_sharded(template, placed, step, mesh=self.mesh)
+        # into the live tensors: a captured step holds their addresses, and
+        # a second state may not fit beside the first
+        tree = {"params": self.state[0], "opt": self.state[1]}
+        live = []
+        map_with_path(lambda k, t: live.append((k, t)), tree)
+        placed = {} if self.mesh is None else {
+            f"{part}/{k}": v for k, v in self.shardings.items()
+            for part in ("params", "opt/m", "opt/v", "opt/master")}
+        with torch.no_grad():
+            for (key, t), saved in zip(live, leaves(self.ckpt.restore(template, step))):
+                self._write(key, t, saved, placed.get(key))
         self.data.resume(DataState.from_dict(man["data_state"]))
-        self.state = (tree["params"], tree["opt"])
         return self.state, step
+
+    def _write(self, key: str, live, saved, want) -> None:
+        """``saved`` (a host tensor of the checkpoint) into the live leaf
+        ``key``; where the mesh places the leaf (``want``, its placements)
+        into the DTensor's local tensor, as the chunk of ``saved`` that this
+        rank holds (every rank reads the whole checkpoint, so nothing is
+        sent).
+
+        Raises:
+            ValueError: the live leaf is placed otherwise than ``want``."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        have = tuple(live.placements) if isinstance(live, DTensor) else None
+        if have != (tuple(want) if want is not None else None):
+            raise ValueError(f"Trainer.restore: the live leaf {key} is placed {have}, the "
+                             f"checkpoint restores it to {want}")
+        if want is None:
+            live.copy_(saved)
+        else:
+            live.to_local().copy_(distribute_tensor(saved.to(self.device), self.mesh, want,
+                                                    src_data_rank=None).to_local())
 
     # -------------------------------------------------------------- loop --
 

@@ -59,9 +59,9 @@ def test_run_hpcg_graph_on_the_host_raises_before_any_phase(monkeypatch):
 
     monkeypatch.setattr(thpcg.M, "fdm27", no_setup)
     with pytest.raises(ValueError, match="graph=False"):
-        run_hpcg(4, 4, 4, device="cpu", verbose=False)
+        run_hpcg(4, 4, 4, device="cpu", verbose=False, graph=True)
     with pytest.raises(ValueError, match="graph=False"):
-        run_hpcg_distributed(PartMesh.on("cpu", parts=2), 4, 4, 4, verbose=False)
+        run_hpcg_distributed(PartMesh.on("cpu", parts=2), 4, 4, 4, verbose=False, graph=True)
 
 
 def test_graph_on_several_devices_raises():

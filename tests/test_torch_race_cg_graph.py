@@ -203,10 +203,10 @@ def test_run_hpcg_graph_raises_on_the_host_untimed(monkeypatch):
 
     monkeypatch.setattr(thpcg.M, "fdm27", no_setup)
     with pytest.raises(ValueError, match="graph=False"):
-        run_hpcg(4, 4, 4, device="cpu", verbose=False, timed=False)
+        run_hpcg(4, 4, 4, device="cpu", verbose=False, timed=False, graph=True)
     with pytest.raises(ValueError, match="graph=False"):
         run_hpcg_distributed(PartMesh.on("cpu", parts=2), 4, 4, 4, verbose=False,
-                             timed=False)
+                             timed=False, graph=True)
 
 
 # -------------------------------------------------- the capture, stubbed --
